@@ -1,0 +1,236 @@
+"""PyTorch port, the slice as a whole: one scene through ``render_wave`` of
+the JAX reference and of the port, with the same samples.
+
+The reference runs un-jitted (no whole-wave XLA compile) with its Pallas
+traversal kernel forced into interpret mode, so both sides go camera wave ->
+merged extension+shadow launches -> last shadow wave over the same packed
+BVH. Tolerance: >= 99 % of pixels within rtol 1e-3 / atol 1e-4 and the image
+mean within 1e-3 relative: a ray through an edge shared by two triangles may
+pick the other one, and a mirror bounce then lands elsewhere.
+"""
+import subprocess
+import sys
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from dartray_tpu import cameras as ref_cam
+from dartray_tpu import film as ref_film
+from dartray_tpu import materials as ref_mat
+from dartray_tpu import samplers as ref_samplers
+from dartray_tpu.core import transform as ref_tr
+from dartray_tpu.integrators import path as ref_pi
+from dartray_tpu.renderers import sampler as ref_rend
+from dartray_tpu.scene import build as ref_sb
+from dartray_tpu.scene import mesh as ref_mesh
+from dartray_tpu.scene import types as ref_st
+
+from dartray_tpu_torch import cameras, samplers
+from dartray_tpu_torch import film as film_mod
+from dartray_tpu_torch.core import transform as tr
+from dartray_tpu_torch.integrators import path as pi
+from dartray_tpu_torch.ops import traverse_cuda as tc
+from dartray_tpu_torch.renderers import sampler as rend
+from dartray_tpu_torch.scene import adapt
+from dartray_tpu_torch.scene import build as sb
+from dartray_tpu_torch.scene import types as st
+
+import torchhelp as th
+
+torch.set_num_threads(1)
+
+W = H = 16
+SPP = 2
+DEPTH = 2
+EYE, LOOK, UP, FOV = [0, 1, -3.2], [0, 1, 0], [0, 1, 0], 40.0
+
+
+def _reference_render(host, eye, look, fov, spp, depth):
+    """The reference's film after `spp` waves of ``render_wave``."""
+    scene = ref_st.to_device(host)
+    cam = ref_cam.perspective(ref_tr.look_at(eye, look, UP), fov, W, H)
+    smp = ref_samplers.make_sampler("lowdiscrepancy", spp=spp)
+    ig = ref_pi.PathIntegrator(max_depth=depth, remat=False)
+    li = lambda s, r, d, c: ref_pi.li(ig, s, r, d, c)
+    film = ref_film.make_film(W, H)
+    px, py = ref_rend.pixel_grid(W, H)
+    for s in range(smp.spp):
+        film = ref_rend.render_wave(
+            scene, cam, smp, film, px, py, jnp.full(px.shape, s, jnp.int32),
+            li_fn=li, width=W, height=H, spp=smp.spp)
+    return film
+
+
+@pytest.fixture(scope="module")
+def interpret_kernel(request):
+    """The reference's traversal kernel runs in interpret mode."""
+    mp = pytest.MonkeyPatch()
+    request.addfinalizer(mp.undo)
+    mp.setattr(ref_st, "FORCE_PALLAS_INTERPRET", True)
+
+
+@pytest.fixture(scope="module")
+def reference(interpret_kernel):
+    """(image, film pixels, host scene) of the reference."""
+    host = ref_sb.cornell_box().build()
+    film = _reference_render(host, EYE, LOOK, FOV, SPP, DEPTH)
+    return np.asarray(ref_film.to_rgb(film)), np.asarray(film.pixels), host
+
+
+def _port_li(depth=DEPTH):
+    ig = pi.PathIntegrator(max_depth=depth)
+    return lambda s, r, d, c: pi.li(ig, s, r, d, c)
+
+
+def _check_image(img, ref):
+    assert img.shape == ref.shape == (H, W, 3) and np.isfinite(img).all()
+    close = np.isclose(img, ref, rtol=1e-3, atol=1e-4).all(-1)
+    assert close.mean() >= 0.99, (close.mean(), np.abs(img - ref).max())
+    assert abs(img.mean() - ref.mean()) <= 1e-3 * ref.mean()
+
+
+def test_render_matches_reference(reference):
+    """The port end to end: its own scene compiler, ``render``."""
+    ref_img, _, _ = reference
+    cam = cameras.perspective(tr.look_at(EYE, LOOK, UP), FOV, W, H,
+                              device="cpu")
+    smp = samplers.make_sampler("lowdiscrepancy", spp=SPP)
+    img = rend.render(sb.cornell_box().build(), cam, smp, _port_li(), W, H,
+                      device="cpu")
+    _check_image(img, ref_img)
+
+
+def test_render_wave_on_the_reference_scene(reference):
+    """``render_wave`` on the reference's own packed scene, carried over by
+    the adapter; the film accumulator is compared too."""
+    ref_img, ref_pixels, host = reference
+    scene = st.to_device(adapt.from_reference(th.np_tree(host)), "cpu")
+    cam = cameras.perspective(tr.look_at(EYE, LOOK, UP), FOV, W, H,
+                              device="cpu")
+    smp = samplers.make_sampler("lowdiscrepancy", spp=SPP)
+    film = film_mod.make_film(W, H, device="cpu")
+    px, py = rend.pixel_grid(W, H, device="cpu")
+    assert th.same_bits(px.numpy(), np.asarray(ref_rend.pixel_grid(W, H)[0]))
+    for s in range(smp.spp):
+        film = rend.render_wave(
+            scene, cam, smp, film, px, py,
+            torch.full(px.shape, s, dtype=torch.int32), li_fn=_port_li(),
+            width=W, height=H, spp=smp.spp, device="cpu")
+    _check_image(film_mod.to_rgb(film).numpy(), ref_img)
+    close = np.isclose(film.pixels.numpy(), ref_pixels, rtol=1e-3,
+                       atol=1e-4).all(-1)
+    assert close.mean() >= 0.99
+    # on the CPU the wrapper ran its plain version: no kernel was launched
+    assert sum(tc.LAUNCHES.values()) == 0
+
+
+BENCH_TRIS = 2000
+
+
+def _reference_bench_scene(n_tris):
+    """The benchmark scene family, built by the reference's own modules as
+    its benchmark script builds it (displaced matte sphere, glass sphere,
+    matte floor, diffuse area light)."""
+    b = ref_sb.SceneBuilder()
+    gray = b.add_material(ref_mat.matte(kd=(0.6, 0.6, 0.6)))
+    floor_m = b.add_material(ref_mat.matte(kd=(0.4, 0.4, 0.45)))
+    glass_m = b.add_material(ref_mat.glass())
+    dark = b.add_material(ref_mat.matte(kd=(0.0, 0.0, 0.0)))
+    nu = int(np.sqrt(n_tris / 2 * (2.0)))
+    nv = max(nu // 2, 8)
+    m = ref_mesh.sphere(radius=1.0, nu=nu, nv=nv)
+    v = m.verts.astype(np.float64)
+    disp = (0.08 * np.sin(7 * v[:, 0]) * np.cos(5 * v[:, 1])
+            + 0.05 * np.sin(11 * v[:, 2] + 3 * v[:, 0]))
+    n = v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-9)
+    m.verts = (v + n * disp[:, None]).astype(np.float32)
+    m.normals = None
+    b.add_mesh(m.transformed(np.asarray(
+        ref_tr.translate([-0.4, 1.05, 0.2]).m)), gray)
+    b.add_mesh(ref_mesh.sphere(radius=0.5, nu=64, nv=32).transformed(
+        np.asarray(ref_tr.translate([1.2, 0.5, -0.6]).m)), glass_m)
+    b.add_mesh(ref_mesh.make_mesh(
+        [[-6, 0, -6], [6, 0, -6], [6, 0, 6], [-6, 0, 6]],
+        [[0, 1, 2], [0, 2, 3]]), floor_m)
+    b.add_mesh(ref_mesh.make_mesh(
+        [[-1, 4, -1], [1, 4, -1], [1, 4, 1], [-1, 4, 1]],
+        [[0, 1, 2], [0, 2, 3]]), dark, area_light_L=(12.0,) * 3)
+    return b.build()
+
+
+def test_render_bench_scene_matches_reference(interpret_kernel):
+    """The benchmark scene (glass, matte, area light; a smaller displaced
+    sphere) at the benchmark's camera, path depth 4 (into the glass, out of
+    it, a diffuse hit behind it and its light sample): the port's own
+    ``bench_scene`` and ``render`` against the reference."""
+    eye, look, fov, depth = [0, 2.2, -5.0], [0, 0.9, 0], 42.0, 4
+    film = _reference_render(_reference_bench_scene(BENCH_TRIS), eye, look,
+                             fov, 1, depth)
+    cam = cameras.perspective(tr.look_at(eye, look, UP), fov, W, H,
+                              device="cpu")
+    smp = samplers.make_sampler("lowdiscrepancy", spp=1)
+    img = rend.render(sb.bench_scene(BENCH_TRIS).build(), cam, smp,
+                      _port_li(depth), W, H, device="cpu")
+    _check_image(img, np.asarray(ref_film.to_rgb(film)))
+
+
+_IMPORT_ALL = r"""
+import importlib, os, sys
+import dartray_tpu_torch
+root = os.path.dirname(dartray_tpu_torch.__file__)
+names = []
+for d, subdirs, files in os.walk(root):
+    subdirs[:] = [x for x in subdirs if x != "_build"]   # build outputs
+    for f in files:
+        if f.endswith(".py"):
+            rel = os.path.relpath(os.path.join(d, f), os.path.dirname(root))
+            names.append(rel[:-3].replace(os.sep, ".").removesuffix(".__init__"))
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "dartray_tpu" or m.startswith("dartray_tpu."))
+assert len(names) >= 30, names
+assert not bad, bad
+assert "triton" not in sys.modules
+print("imported", len(names))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    """Every module of the port, imported in a fresh interpreter, leaves
+    neither jax nor the JAX package in sys.modules."""
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "imported" in out.stdout
+
+
+@pytest.mark.parametrize("entry", ["render", "render_wave", "make_film",
+                                   "perspective", "pixel_grid", "to_device"])
+def test_entry_points_default_to_the_card_and_raise_without_one(entry):
+    """No CUDA device here: every entry point's default device must raise,
+    not fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    c2w = tr.look_at(EYE, LOOK, UP)
+    cam = cameras.perspective(c2w, FOV, 4, 4, device="cpu")
+    smp = samplers.make_sampler("lowdiscrepancy", spp=1)
+    film = film_mod.make_film(4, 4, device="cpu")
+    px, py = rend.pixel_grid(4, 4, device="cpu")
+    calls = {
+        "render": lambda: rend.render(None, cam, smp, None, 4, 4),
+        "render_wave": lambda: rend.render_wave(
+            None, cam, smp, film, px, py, px, li_fn=None, width=4, height=4,
+            spp=1),
+        "make_film": lambda: film_mod.make_film(4, 4),
+        "perspective": lambda: cameras.perspective(c2w, FOV, 4, 4),
+        "pixel_grid": lambda: rend.pixel_grid(4, 4),
+        "to_device": lambda: st.to_device({"a": np.zeros(3, np.float32)}),
+    }
+    with pytest.raises(RuntimeError, match="cuda"):
+        calls[entry]()

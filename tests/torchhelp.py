@@ -1,0 +1,103 @@
+"""Helpers shared by the tests of the PyTorch port (tests/test_torch_*.py).
+
+Inputs are made from a seed with numpy and handed to the JAX reference and to
+the port; results come back as numpy arrays. The only place where both
+packages meet is a test.
+"""
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def np_tree(x):
+    """Reference pytree -> plain containers with numpy leaves: dataclasses
+    become dicts keyed by field name, (named) tuples become tuples, arrays
+    become numpy arrays. This is what the port's adapter takes."""
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {f.name: np_tree(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, (tuple, list)):
+        return tuple(np_tree(v) for v in x)
+    if isinstance(x, dict):
+        return {k: np_tree(v) for k, v in x.items()}
+    return np.asarray(x)
+
+
+def port_leaves(x, prefix=""):
+    """Port tree (host or device) -> {path: numpy array or scalar}."""
+    out = {}
+    if x is None or isinstance(x, (bool, int, float, str)):
+        out[prefix] = x
+    elif torch.is_tensor(x):
+        out[prefix] = x.cpu().numpy()
+    elif isinstance(x, np.ndarray):
+        out[prefix] = x
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            out.update(port_leaves(getattr(x, f.name), f"{prefix}.{f.name}"))
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            out.update(port_leaves(v, f"{prefix}[{i}]"))
+    else:
+        out[prefix] = x
+    return out
+
+
+def ref_leaf(tree, path):
+    """Look a port_leaves path up in an np_tree of the reference."""
+    cur = tree
+    for part in path.replace("[", ".[").split("."):
+        if not part:
+            continue
+        if part.startswith("["):
+            cur = cur[int(part[1:-1])]
+        else:
+            cur = cur[part]
+    return cur
+
+
+def same_bits(a, b):
+    """Bit-exact equality of two arrays (NaN pads and int-in-f32 columns
+    included): same dtype, same shape, same bytes."""
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def soup(n=400, seed=0):
+    rng = np.random.RandomState(seed)
+    v0 = rng.randn(n, 3).astype(np.float32)
+    e1 = (rng.randn(n, 3) * 0.4).astype(np.float32)
+    e2 = (rng.randn(n, 3) * 0.4).astype(np.float32)
+    return v0, e1, e2
+
+
+def ray_arrays(n=512, seed=1):
+    rng = np.random.RandomState(seed)
+    o = rng.randn(n, 3).astype(np.float32) * 2.0
+    d = rng.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d
+
+
+def t3(a):
+    """(R, 3) numpy -> port V3 on the CPU."""
+    from dartray_tpu_torch.core.math import V3
+    a = np.ascontiguousarray(a, np.float32)
+    return V3(*(torch.from_numpy(np.ascontiguousarray(a[:, c]))
+                for c in range(3)))
+
+
+def j3(a):
+    """(R, 3) numpy -> reference V3."""
+    import jax.numpy as jnp
+    from dartray_tpu.core.math import V3
+    return V3(*(jnp.asarray(a[:, c]) for c in range(3)))
+
+
+def n3(v):
+    """V3 of either package -> (R, 3) numpy."""
+    return np.stack([np.asarray(v.x), np.asarray(v.y), np.asarray(v.z)], -1)
