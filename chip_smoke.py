@@ -5,32 +5,53 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It needs one CUDA device, `nvcc` (the traversal kernel is built from
-`dartray_tpu_torch/csrc/traverse6.cu` at first use) and no network. It
-imports only the port. Phases, each printing one JSON line; any failure
-raises and the script exits non-zero:
+It needs one CUDA device, `nvcc` (the three traversal kernel libraries are
+built from `dartray_tpu_torch/csrc/*.cu` at first use, all `nvcc` runs started
+together) and no network. It imports only the port. Phases, each printing one
+JSON line; any failure raises and the script exits non-zero:
 
-  env         device name; name and power limit as nvidia-smi reports them
-  build       builds and loads the kernel library, prints seconds and the
-              assembler's resource report
-  kernels     bench scene (~100k triangles): the traversal kernel in its
-              three modes (closest / any / mixed) at the main path's shapes
-              against the plain PyTorch version on the same tensors on the
-              card (finished t/prim agree on >= 0.999 of lanes, any-hit masks
-              equal, stack-overflow flag 0); median kernel and plain times
-  small_scene Cornell box 32x32: the whole render on the card against the
-              same render on the CPU (plain traversal), pixel by pixel
-  main_path   bench scene, 512x512, path depth 5, lowdiscrepancy 64 spp
-              through renderers.sampler.render_wave on the card; asserts 7
-              kernel launches per wave, a finite image and the image mean
-              within 1 % of the JAX reference's value for the same scene
+  env          device name; name and power limit as nvidia-smi reports them
+  build        builds and loads every kernel library; seconds and the
+               assembler's resource report for each source
+  scene        the bench scene (~100k triangles), static and with its big
+               sphere translating over the shutter
+  kernels      every kernel at the main paths' shapes against its plain
+               PyTorch version on the same tensors on the card (finished
+               t/prim agree on >= 0.999 of lanes, any-hit masks equal,
+               stack-overflow flag 0); median kernel and plain times:
+               v6 closest / any / mixed on the static scene, the v5 and v7
+               packet walks on the camera wave (closest) and on sorted
+               incoherent rays (any), the v6 motion mode closest / any /
+               mixed on the moving scene
+  small_scene  Cornell box 32x32: the whole render on the card against the
+               same render on the CPU (plain traversal), pixel by pixel
+  motion_small the same with one sphere translating: card against CPU, and
+               the zero-delta scene against the static scene on the card
+  main_path    bench scene, 512x512, path depth 5, lowdiscrepancy 64 spp
+               through renderers.sampler.render_wave on the card; asserts 7
+               launches of the static v6 kernel per wave and of no other, a
+               finite image and the image mean within 1 % of the JAX
+               reference's value for the same scene
+  motion_path  the moving bench scene through the same path: 7 launches of
+               the motion kernel per wave and of no other, a finite image
+               that differs from the static one
+  alt_kernels  the Cornell render with DEFAULT_KERNEL's camera wave routed
+               to v5 and then to v7, against the v6 render
+  alt_path     the packet kernels' path at full width: a few waves of the
+               bench scene at 512x512 through render_wave with the camera
+               wave routed to v5 and then to v7 (1 packet launch + 6 v6
+               launches a wave, image mean within 1 % of the v6 render's),
+               and one any-hit call each of intersect_rays(kernel=) on
+               sorted incoherent rays, masks against v6's
 
-Then one line {"kernels": [...]} (per kernel mode: launches counted on the
-main path, error against the plain version, times, and the least time the
+Then one line {"kernels": [...]} (per kernel and mode: launches counted on
+its path, error against the plain version, times, and the least time the
 card could take), the nvidia-smi line again, and as the last line
 {"ok": true, "device": {...}}.
 """
+import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -56,18 +77,36 @@ REFERENCE_IMG_MEAN = 0.1352919
 WIDTH = HEIGHT = 512
 SPP = 64
 MAX_DEPTH = 5
+SMALL = 32                 # the Cornell renders: SMALL x SMALL pixels,
+SMALL_SPP = 4              # SMALL_SPP samples (one wave each), depth 3
+ALT_WAVES = 4              # waves of the bench scene per packet kernel
 AGREE_MIN = 0.999          # share of lanes whose finished t and prim agree
 T_RTOL = 1e-5              # finished t: both sides finish with the same ops
 # H100 SXM data-sheet peaks: HBM bytes/s, f32 FLOP/s outside tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-# arithmetic of the walk, counted from the source: one interior pop
+# arithmetic of the walks, counted from the sources: one interior pop
 # slab-tests 8 boxes (6 sub, 6 mul, 12 min/max, 1 compare each), one
-# triangle test is a Moeller-Trumbore evaluation
+# Moeller-Trumbore test (ray_tests.cuh), the motion lerp of its 9 inputs
+# (a multiply and an add each), one Woop test (traverse7.cu: 20 mul, 18 add,
+# 1 divide, 1 negate, 5 compares)
 FLOPS_PER_NODE_POP = 8 * 25
 FLOPS_PER_TRI_TEST = 50
-KERNEL_SOURCE = "dartray_tpu_torch/csrc/traverse6.cu"
-REPLACES = "dartray_tpu/ops/traverse_pallas.py:1150"
+FLOPS_PER_LERP = 18
+FLOPS_PER_WOOP_TEST = 45
+CSRC = "dartray_tpu_torch/csrc/"
+# kernel -> (source, the TPU kernel's pallas_call it replaces)
+KERNELS = {
+    "traverse6": (CSRC + "traverse6.cu",
+                  "dartray_tpu/ops/traverse_pallas.py:1150"),
+    "traverse6_motion": (CSRC + "traverse6.cu",
+                         "dartray_tpu/ops/traverse_pallas.py:1150"),
+    "traverse5": (CSRC + "traverse5.cu",
+                  "dartray_tpu/ops/traverse_pallas.py:521"),
+    "traverse7": (CSRC + "traverse7.cu",
+                  "dartray_tpu/ops/kernels_attic.py:1169"),
+}
+MOTION_SHIFT = [0.6, 0.0, 0.0]     # the big sphere's travel over the shutter
 
 
 def require(ok, what):
@@ -117,13 +156,19 @@ def camera_wave(dev):
 
 def random_rays(n, lo, hi, seed, dev):
     """Incoherent rays: origins uniform in the scene bounds, directions
-    uniform on the sphere (numpy, from a seed)."""
+    uniform on the sphere, times uniform in [0, 1] (numpy, from a seed)."""
     rng = np.random.RandomState(seed)
     o = (lo + rng.rand(n, 3) * (hi - lo)).astype(np.float32)
     d = rng.randn(n, 3).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return vm.make_rays(torch.from_numpy(o).to(dev),
-                        torch.from_numpy(d).to(dev))
+                        torch.from_numpy(d).to(dev),
+                        time=seeded_times(n, seed + 100, dev))
+
+
+def seeded_times(n, seed, dev):
+    return torch.from_numpy(
+        np.random.RandomState(seed).rand(n).astype(np.float32)).to(dev)
 
 
 def sort_planes(geom, rays, anyf=None):
@@ -138,22 +183,47 @@ def sort_planes(geom, rays, anyf=None):
     return srt, (None if anyf is None else g(anyf))
 
 
-def check_mode(name, geom, rays, any_hit, anyf):
-    """Kernel vs plain version on the same device tensors; times of both."""
+def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
+    """One kernel in one mode against its plain version on the same device
+    tensors, after the finish step; times of both; the bound.
+
+    need: the node pops and triangle tests the FUNCTION needs on these rays,
+    where they are not the plain version's own counts. A packet walk does
+    redundant work (every live lane tests every node and leaf any lane of its
+    packet reaches), so the packet kernels' bound takes the per-ray walk's
+    counts on the same rays, and their own are printed beside it."""
     bvh = geom.packed
     n = rays.n
-    run_k = lambda: tc.traverse6(bvh, rays.o, rays.d, rays.tmin, rays.tmax,
-                                 any_hit=any_hit, anyf=anyf)
+    any_hit = mode == "any"
+    name = f"{kern}:{label or mode}"
+    kw = {"any_hit": any_hit}
+    time = None
+    tri_flops = FLOPS_PER_TRI_TEST
+    if kern in ("traverse6", "traverse6_motion"):
+        fn, plain = tc.traverse6, tc.traverse6_plain
+        kw["anyf"] = anyf
+        if kern == "traverse6_motion":
+            kw["time"] = time = rays.time
+            tri_flops += FLOPS_PER_LERP
+    else:
+        fn, plain = getattr(tc, kern), getattr(tc, kern + "_plain")
+        if kern == "traverse7":
+            tri_flops = FLOPS_PER_WOOP_TEST
+    args = (bvh, rays.o, rays.d, rays.tmin, rays.tmax)
+    run_k = lambda: fn(*args, **kw)
+    run_p = lambda s=None: plain(*args, **kw, stats=s)
     stats = {}
-    run_p = lambda s=None: tc.traverse6_plain(
-        bvh, rays.o, rays.d, rays.tmin, rays.tmax, any_hit=any_hit,
-        anyf=anyf, stats=s)
+    before = dict(tc.LAUNCHES)
     t_k, p_k = run_k()
     torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in tc.LAUNCHES.items()
+                if v != before[k]}
+    require(launched == {f"{kern}:{mode}": 1},
+            f"{name}: the wrapper counted {launched}")
     t_p, p_p = run_p(stats)
     # compare after the finish step: exact t, original prim ids
     fin = lambda t, p: tc.finish_hits(bvh, geom.perm, rays.o, rays.d,
-                                      rays.tmin, t, p)
+                                      rays.tmin, t, p, time=time)
     ft_k, fp_k, _, _ = fin(t_k, p_k)
     ft_p, fp_p, _, _ = fin(t_p, p_p)
     closest = torch.ones(n, dtype=torch.bool, device=t_k.device) \
@@ -174,39 +244,49 @@ def check_mode(name, geom, rays, any_hit, anyf):
             f"on {share} of lanes")
     require(masks_equal, f"{name}: any-hit masks differ")
     ms = time_ms(run_k, repeats=7, warmup=2)
-    plain_ms = time_ms(run_p, repeats=5, warmup=0)
+    # the packet walks' plain versions take seconds: fewer repeats
+    plain_ms = time_ms(run_p, repeats=5 if kern.startswith("traverse6")
+                       else 3, warmup=0)
     # the floor: every ray plane read once, (t, prim) written once. What the
     # walk fetches from the tables through L1/L2 depends on the rays and is
     # NOT in the bound; table_bytes (their whole size) is printed beside it
-    n_planes = 8 + (1 if anyf is not None else 0)
-    table_bytes = sum(x.numel() * x.element_size()
-                      for x in (bvh.wbounds, bvh.worder, bvh.soup16))
+    n_planes = 8 + (anyf is not None) + (time is not None)
+    tables = [bvh.wbounds, bvh.worder,
+              bvh.woop if kern == "traverse7" else bvh.soup16]
+    if time is not None:
+        tables.append(bvh.soup16d)
+    table_bytes = sum(x.numel() * x.element_size() for x in tables)
     bytes_ms = n * (n_planes * 4 + 8) / PEAK_BYTES_S * 1e3
-    flops = (stats["node_pops"] * FLOPS_PER_NODE_POP
-             + stats["tri_tests"] * FLOPS_PER_TRI_TEST)
+    need = need or stats
+    flops = (need["node_pops"] * FLOPS_PER_NODE_POP
+             + need["tri_tests"] * tri_flops)
     ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    source, replaces = KERNELS[kern]
     return {
-        "name": f"traverse6:{name}", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": REPLACES, "launches": 0,
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": 0,
         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
-        "lanes": n, "agree": share, "hit_share": float((p_k >= 0).float()
-                                                       .mean()),
-        "node_pops": stats["node_pops"], "tri_tests": stats["tri_tests"],
+        "counter": f"{kern}:{mode}", "lanes": n, "agree": share,
+        "hit_share": float((p_k >= 0).float().mean()),
+        "node_pops": need["node_pops"], "tri_tests": need["tri_tests"],
+        **({} if need is stats else {
+            "packet_node_pops": stats["node_pops"],
+            "packet_tri_tests": stats["tri_tests"]}),
         "bytes_ms": bytes_ms, "ops_ms": ops_ms, "table_bytes": table_bytes,
-    }
+    }, p_k
 
 
-def kernels_phase(scene, dev):
-    geom = scene.geometry
+def wave_shapes(geom, dev, cam_rays):
+    """The three launch shapes of the main path on `geom`: the unsorted
+    camera wave, sorted incoherent rays, and a sorted mixed wave of n
+    extension lanes (closest) + n shadow lanes (any-hit), part of both dead,
+    as a bounce of the path integrator builds them."""
     wb = geom.world_bound.cpu().numpy()
     n = WIDTH * HEIGHT
-    _, _, _, _, cam_rays = camera_wave(dev)
     inc, _ = sort_planes(geom, random_rays(n, wb[0], wb[1], 11, dev))
-    # mixed: n extension lanes (closest) + n shadow lanes (any-hit), part of
-    # both dead, as a bounce of the path integrator builds them
     ext = random_rays(n, wb[0], wb[1], 12, dev)
     sh = random_rays(n, wb[0], wb[1], 13, dev)
     rng = np.random.RandomState(14)
@@ -215,50 +295,188 @@ def kernels_phase(scene, dev):
     both = vm.Rays(vm.V3(*(cat(a, b) for a, b in zip(ext.o, sh.o))),
                    vm.V3(*(cat(a, b) for a, b in zip(ext.d, sh.d))),
                    cat(ext.tmin, sh.tmin), cat(ext.tmax, sh.tmax),
-                   cat(ext.time, sh.time))
+                   cat(ext.time, ext.time))   # a shadow lane carries its
+    #                                           surface ray's time
     both = both._replace(tmax=torch.where(dead, -1.0, both.tmax))
     af = cat(torch.zeros(n, device=dev), torch.ones(n, device=dev))
     mixed, af_s = sort_planes(geom, both, af)
+    cam = cam_rays._replace(time=seeded_times(n, 15, dev))
+    return cam, inc, mixed, af_s
 
+
+def kernels_phase(geom, geom_w, shapes, moving, cam_rays, dev):
+    """geom: the static bench scene; geom_w: the same with the Woop table;
+    shapes: its ``wave_shapes``; moving: the moving bench scene."""
+    cam, inc, mixed, af_s = shapes
     tc.reset_overflow(dev)
-    results = [
-        check_mode("closest", geom, cam_rays, False, None),
-        check_mode("closest_incoherent", geom, inc, False, None),
-        check_mode("any", geom, inc, True, None),
-        check_mode("mixed", geom, mixed, False, af_s),
-    ]
+    results = []
+    hits = {}
+
+    def run(kern, mode, g, rays, anyf=None, label=None, need=None):
+        r, p_k = check_kernel(kern, mode, g, rays, anyf, label, need)
+        results.append(r)
+        hits[r["name"]] = p_k >= 0
+        return {k: r[k] for k in ("node_pops", "tri_tests")}
+
+    per_ray = {"closest": run("traverse6", "closest", geom, cam)}
+    run("traverse6", "closest", geom, inc, label="closest_incoherent")
+    per_ray["any"] = run("traverse6", "any", geom, inc)
+    run("traverse6", "mixed", geom, mixed, af_s)
+    # the same two ray sets over the same tree: the packet kernels are
+    # bounded by what the per-ray walk needed there
+    for kern in ("traverse5", "traverse7"):
+        run(kern, "closest", geom_w, cam, need=per_ray["closest"])
+        run(kern, "any", geom_w, inc, need=per_ray["any"])
+    # the Woop test rounds differently from Moeller-Trumbore and may miss
+    # sliver triangles: printed beside v6 on the same rays, not required equal
+    v7_vs_v6 = {
+        mode: {"v6_hit_share": float(hits[f"traverse6:{mode}"].float().mean()),
+               "v7_hit_share": float(hits[f"traverse7:{mode}"].float().mean()),
+               "masks_agree": float((hits[f"traverse6:{mode}"]
+                                     == hits[f"traverse7:{mode}"])
+                                    .float().mean())}
+        for mode in ("closest", "any")}
+    # what the motion mode costs by itself: the SAME rays over the SAME tree
+    # with an all-zero delta table (v + t * 0 == v, so the same walk and,
+    # required here, the same result), against the static kernel's time
+    zero = dataclasses.replace(geom.packed, soup16d=torch.zeros_like(
+        geom.packed.soup16))
+    lerp_cost = {}
+    for mode, rays, anyf in (("closest", cam, None), ("any", inc, None),
+                             ("mixed", mixed, af_s)):
+        args = (rays.o, rays.d, rays.tmin, rays.tmax)
+        kw = dict(any_hit=mode == "any", anyf=anyf)
+        still = tc.traverse6(geom.packed, *args, **kw)
+        lerped = tc.traverse6(zero, *args, **kw, time=rays.time)
+        require(all(torch.equal(a, b) for a, b in zip(still, lerped)),
+                f"zero deltas, {mode}: the motion kernel's result differs "
+                "from the static kernel's")
+        lerp_cost[mode] = {
+            "static_ms": time_ms(lambda: tc.traverse6(geom.packed, *args,
+                                                      **kw), 7, 2),
+            "zero_delta_motion_ms": time_ms(lambda: tc.traverse6(
+                zero, *args, **kw, time=rays.time), 7, 2)}
+    gm = moving.geometry
+    cam_m, inc_m, mixed_m, af_m = wave_shapes(gm, dev, cam_rays)
+    run("traverse6_motion", "closest", gm, cam_m)
+    run("traverse6_motion", "any", gm, inc_m)
+    run("traverse6_motion", "mixed", gm, mixed_m, af_m)
     overflow = int(tc.overflow_flag(dev).item())
-    require(overflow == 0, "per-ray stack overflow in the kernel")
-    say("kernels",
-        kernels=["traverse6:closest", "traverse6:any", "traverse6:mixed"],
-        overflow=overflow, results=results)
+    require(overflow == 0, "stack overflow in a kernel")
+    say("kernels", kernels=[r["name"] for r in results], overflow=overflow,
+        v7_vs_v6=v7_vs_v6, lerp_cost_same_tree_same_rays=lerp_cost,
+        results=results)
     return results
 
 
-def small_scene_phase(dev):
-    """Cornell box, 32x32, 4 spp, depth 3: card (kernel) vs CPU (plain)."""
-    w = h = 32
-    host = sb.cornell_box().build()
+def cornell(shift=None):
+    """Host Cornell box; with `shift` its matte sphere translates by it."""
+    b = sb.cornell_box()
+    if shift is not None:
+        sphere = b.meshes[-2]
+        sphere.verts_end = sphere.verts + np.asarray(shift, np.float32)
+    return b.build()
+
+
+def render_small(host, where):
+    """Cornell box, 32x32, SMALL_SPP spp, depth 3, on `where`."""
+    w = h = SMALL
     ig = pi.PathIntegrator(max_depth=3)
     li = lambda s, r, d, c: pi.li(ig, s, r, d, c)
     c2w = tr.look_at([0, 1, -3.2], [0, 1, 0], [0, 1, 0])
-    imgs = {}
-    for where in ("cpu", dev):
-        cam = cameras.perspective(c2w, 40.0, w, h, device=where)
-        smp = samplers.make_sampler("lowdiscrepancy", spp=4)
-        imgs[str(where)] = rend.render(host, cam, smp, li, w, h, device=where)
-    a, b = imgs["cpu"], imgs[str(dev)]
-    close = np.isclose(a, b, rtol=1e-3, atol=1e-4).all(-1).mean()
-    rel_mean = abs(a.mean() - b.mean()) / a.mean()
-    say("small_scene", pixels_close=float(close), rel_mean=float(rel_mean),
-        mean=float(b.mean()))
-    # a tie or an ulp at a shared edge may pick another triangle
-    require(np.isfinite(b).all(), "small scene: image not finite")
+    cam = cameras.perspective(c2w, 40.0, w, h, device=where)
+    smp = samplers.make_sampler("lowdiscrepancy", spp=SMALL_SPP)
+    return rend.render(host, cam, smp, li, w, h, device=where)
+
+
+def compare_images(what, a, b):
+    """Share of pixels within rtol 1e-3 / atol 1e-4 and the means' distance;
+    a tie or an ulp at a shared edge may pick another triangle."""
+    close = float(np.isclose(a, b, rtol=1e-3, atol=1e-4).all(-1).mean())
+    rel_mean = float(abs(a.mean() - b.mean()) / a.mean())
+    require(np.isfinite(b).all(), f"{what}: image not finite")
     require(close >= 0.99 and rel_mean < 1e-3,
-            f"small scene: card vs CPU {close} close, mean off {rel_mean}")
+            f"{what}: {close} of pixels close, mean off {rel_mean}")
+    return close, rel_mean
 
 
-def main_path_phase(scene, dev):
+def small_scene_phase(dev):
+    """Cornell box: card (kernel) vs CPU (plain version)."""
+    host = cornell()
+    a, b = render_small(host, "cpu"), render_small(host, dev)
+    close, rel_mean = compare_images("small scene, card vs CPU", a, b)
+    say("small_scene", pixels_close=close, rel_mean=rel_mean,
+        mean=float(b.mean()))
+    return b
+
+
+def motion_small_phase(dev, static_img):
+    """Cornell box with one sphere translating: card (motion kernel) vs CPU
+    (plain version); and the zero-delta scene on the card against the static
+    scene on the card. ``v + t * 0 == v`` bit for bit, so both kernels must
+    return the same hits; the images agree to rounding only, because a moving
+    scene takes its hit point from the ray (o + t d) and a static one from
+    the barycentrics, as the reference does."""
+    host = cornell([0.5, 0.0, 0.0])
+    a, b = render_small(host, "cpu"), render_small(host, dev)
+    close, rel_mean = compare_images("moving small scene, card vs CPU", a, b)
+    require(not np.allclose(b, static_img, rtol=1e-3, atol=1e-4),
+            "moving small scene: image equals the static one")
+    zero = render_small(cornell([0.0, 0.0, 0.0]), dev)
+    z_close, z_rel = compare_images("zero-delta scene vs static scene",
+                                    static_img, zero)
+    # the traversal itself must be EQUAL: one camera wave through both
+    gz = st.to_device(cornell([0.0, 0.0, 0.0]), dev).geometry
+    gs = st.to_device(cornell(), dev).geometry
+    cam = cameras.perspective(tr.look_at([0, 1, -3.2], [0, 1, 0], [0, 1, 0]),
+                              40.0, SMALL, SMALL, device=dev)
+    smp = samplers.make_sampler("lowdiscrepancy", spp=SMALL_SPP)
+    px, py = rend.pixel_grid(SMALL, SMALL, device=dev)
+    rays, _, _ = cameras.generate_rays(
+        cam, samplers.camera_samples(smp, px, py, torch.zeros_like(px)),
+        SMALL, SMALL)
+    hz, hs = st.intersect(gz, rays), st.intersect(gs, rays)
+    hits_equal = all(torch.equal(x, y) for x, y in zip(hz[:4], hs[:4]))
+    require(hits_equal, "zero-delta scene: the motion kernel's hits differ "
+            "from the static kernel's")
+    say("motion_small", pixels_close=close, rel_mean=rel_mean,
+        mean=float(b.mean()), static_mean=float(static_img.mean()),
+        zero_delta_hits_equal=hits_equal, zero_delta_pixels_close=z_close,
+        zero_delta_images_equal=bool(np.array_equal(zero, static_img)),
+        zero_delta_max_abs_diff=float(np.abs(zero - static_img).max()))
+
+
+def alt_kernels_phase(dev, v6_img):
+    """The Cornell render with the camera wave (the unsorted closest-hit
+    wave, ``closest_coherent``) routed to v5 and then to v7."""
+    host = cornell()
+    host = dataclasses.replace(host, geometry=dataclasses.replace(
+        host.geometry, packed=tc.with_woop(host.geometry.packed)))
+    saved = tc.DEFAULT_KERNEL["closest_coherent"]
+    out = {}
+    try:
+        for which, kern in (("v5", "traverse5"), ("v7", "traverse7")):
+            tc.DEFAULT_KERNEL["closest_coherent"] = which
+            tc.reset_launches()
+            img = render_small(host, dev)
+            n = tc.LAUNCHES[f"{kern}:closest"]
+            require(n == SMALL_SPP and tc.LAUNCHES["traverse6:closest"] == 0,
+                    f"alt kernels: {which} launched {n} times in "
+                    f"{SMALL_SPP} waves")
+            close, rel_mean = compare_images(f"{which} render vs v6 render",
+                                             v6_img, img)
+            out[which] = {"pixels_close": close, "rel_mean": rel_mean,
+                          "launches": n}
+    finally:
+        tc.DEFAULT_KERNEL["closest_coherent"] = saved
+    say("alt_kernels", **out)
+
+
+def drive_path(phase, scene, dev, kern, camera_kern=None, waves=None):
+    """`waves` waves (default: all 64) of the path integrator over `scene`
+    through render_wave; requires 7 launches of `kern` per wave and of no
+    other kernel, or, with `camera_kern`, 1 closest-hit launch of that and
+    the other 6 of `kern`."""
     cam, smp, px, py, _ = camera_wave(dev)
     ig = pi.PathIntegrator(max_depth=MAX_DEPTH)
     li = lambda s, r, d, c: pi.li(ig, s, r, d, c)
@@ -270,7 +488,7 @@ def main_path_phase(scene, dev):
     t0 = time.time()
     t_first = None
     with torch.no_grad():
-        for s in range(smp.spp):
+        for s in range(waves or smp.spp):
             film = rend.render_wave(
                 scene, cam, smp, film, px, py,
                 torch.full(px.shape, s, dtype=torch.int32, device=dev),
@@ -282,26 +500,110 @@ def main_path_phase(scene, dev):
     torch.cuda.synchronize()
     secs = time.time() - t0
     launches = dict(tc.LAUNCHES)
-    waves = smp.spp
+    waves = waves or smp.spp
     img = film_mod.to_rgb(film).cpu().numpy()
-    img_mean = float(img.mean())
     overflow = int(tc.overflow_flag(dev).item())
     rays = px.shape[0] * 2 * (MAX_DEPTH + 1) * waves
-    say("main_path", waves=waves, seconds=secs, first_wave_seconds=t_first,
-        rays_per_s=rays / secs, launches=launches, img_mean=img_mean,
-        reference_img_mean=REFERENCE_IMG_MEAN, overflow=overflow,
-        peak_mem_bytes=torch.cuda.max_memory_allocated(),
-        tris=scene.geometry.n_prims)
-    require(launches == {"closest": waves, "mixed": MAX_DEPTH * waves,
-                         "any": waves} and sum(launches.values()) == 7 * waves,
-            f"main path: kernel launches {launches}, expected 7 per wave")
-    require(overflow == 0, "per-ray stack overflow in the kernel")
+    info = dict(waves=waves, seconds=secs, first_wave_seconds=t_first,
+                rays_per_s=rays / secs,
+                launches={k: v for k, v in launches.items() if v},
+                img_mean=float(img.mean()), overflow=overflow,
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                tris=scene.geometry.n_prims)
+    want = {f"{camera_kern or kern}:closest": waves,
+            f"{kern}:mixed": MAX_DEPTH * waves, f"{kern}:any": waves}
+    require(info["launches"] == want,
+            f"{phase}: kernel launches {info['launches']}, expected {want}")
+    require(overflow == 0, f"{phase}: stack overflow in the kernel")
     require(img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(img).all(),
-            "main path: image not finite or of the wrong shape")
-    require(abs(img_mean - REFERENCE_IMG_MEAN) <= 0.01 * REFERENCE_IMG_MEAN,
-            f"main path: image mean {img_mean} is not within 1 % of "
+            f"{phase}: image not finite or of the wrong shape")
+    return launches, img, info
+
+
+def main_path_phase(scene, dev):
+    launches, img, info = drive_path("main_path", scene, dev, "traverse6")
+    say("main_path", reference_img_mean=REFERENCE_IMG_MEAN, **info)
+    require(abs(info["img_mean"] - REFERENCE_IMG_MEAN)
+            <= 0.01 * REFERENCE_IMG_MEAN,
+            f"main path: image mean {info['img_mean']} is not within 1 % of "
             f"{REFERENCE_IMG_MEAN}")
+    return launches, img
+
+
+def motion_path_phase(moving, dev, static_img):
+    """This slice's path at full width: the moving bench scene. No reference
+    mean is stated: the JAX package has none for this scene."""
+    launches, img, info = drive_path("motion_path", moving, dev,
+                                     "traverse6_motion")
+    differs = float((~np.isclose(img, static_img, rtol=1e-3, atol=1e-4)
+                     .all(-1)).mean())
+    say("motion_path", static_img_mean=float(static_img.mean()),
+        pixels_that_differ_from_static=differs, shift=MOTION_SHIFT, **info)
+    require(differs > 0.01, "motion path: the image equals the static one")
     return launches
+
+
+def alt_path_phase(scene_w, dev, inc):
+    """The packet kernels' path at full width. A few waves of the bench
+    scene (packed with the Woop table) with ``closest_coherent`` routed to v5
+    and then to v7, against the same waves through v6; then the any-hit side
+    of ``intersect_rays(kernel=...)``, one call each on the sorted incoherent
+    rays, masks against v6's (v5 runs the same triangle test, so EQUAL; the
+    Woop test may miss a sliver, so v7's share is printed and held to 0.99).
+    Returns the launches of the packet kernels, each run counted from 0."""
+    saved = tc.DEFAULT_KERNEL["closest_coherent"]
+    _, v6_img, v6_info = drive_path("alt_path v6", scene_w, dev, "traverse6",
+                                    waves=ALT_WAVES)
+    out = {"v6": {"img_mean": v6_info["img_mean"],
+                  "seconds": v6_info["seconds"]}}
+    counted = {}
+    geom = scene_w.geometry
+    lo, hi = geom.world_bound[0], geom.world_bound[1]
+    hit = {}
+    try:
+        for which, kern in (("v6", "traverse6"), ("v5", "traverse5"),
+                            ("v7", "traverse7")):
+            if which != "v6":
+                tc.DEFAULT_KERNEL["closest_coherent"] = which
+                launches, img, info = drive_path(
+                    f"alt_path {which}", scene_w, dev, "traverse6",
+                    camera_kern=kern, waves=ALT_WAVES)
+                counted[f"{kern}:closest"] = launches[f"{kern}:closest"]
+                rel = abs(info["img_mean"] - v6_info["img_mean"]) \
+                    / v6_info["img_mean"]
+                require(rel <= 0.01, f"alt path: {which} image mean "
+                        f"{info['img_mean']} against v6's "
+                        f"{v6_info['img_mean']}")
+                out[which] = {
+                    "img_mean": info["img_mean"], "rel_mean": rel,
+                    "pixels_close": float(np.isclose(
+                        img, v6_img, rtol=1e-3, atol=1e-4).all(-1).mean()),
+                    "launches": info["launches"],
+                    "seconds": info["seconds"]}
+            tc.reset_launches()
+            t, prim, _, _ = tc.intersect_rays(
+                geom.packed, geom.perm, lo, hi, inc.o, inc.d, inc.tmin,
+                inc.tmax, any_hit=True, sort=True, kernel=which)
+            torch.cuda.synchronize()
+            hit[which] = prim >= 0
+            require(bool(torch.isfinite(t[hit[which]]).all()),
+                    f"intersect_rays(kernel={which!r}): t not finite")
+            require(tc.LAUNCHES[f"{kern}:any"] == 1,
+                    f"intersect_rays(kernel={which!r}, any_hit=True) "
+                    f"counted {dict(tc.LAUNCHES)}")
+            if which != "v6":
+                counted[f"{kern}:any"] = tc.LAUNCHES[f"{kern}:any"]
+                out[which]["any_masks_agree_with_v6"] = float(
+                    (hit[which] == hit["v6"]).float().mean())
+    finally:
+        tc.DEFAULT_KERNEL["closest_coherent"] = saved
+    require(out["v5"]["any_masks_agree_with_v6"] == 1.0,
+            "alt path: v5's any-hit mask differs from v6's")
+    require(out["v7"]["any_masks_agree_with_v6"] >= 0.99,
+            "alt path: v7's any-hit mask agrees with v6's on "
+            f"{out['v7']['any_masks_agree_with_v6']} of lanes")
+    say("alt_path", waves=ALT_WAVES, **out)
+    return counted
 
 
 def main():
@@ -316,26 +618,61 @@ def main():
         cuda=torch.version.cuda)
 
     t0 = time.time()
-    tc.load_kernel()
-    say("build", seconds=time.time() - t0, source=KERNEL_SOURCE,
-        flags=tc.NVCC_FLAGS, ptxas=tc.BUILD_LOG)
+    tc.load_kernels()
+    say("build", seconds=time.time() - t0, flags=tc.NVCC_FLAGS,
+        sources={name: {"source": os.path.relpath(src),
+                        "seconds": tc.BUILD_SECONDS.get(name),
+                        "ptxas": tc.BUILD_LOG.get(name)}
+                 for name, src in tc.KERNEL_SOURCES.items()})
 
     t0 = time.time()
     host = sb.bench_scene().build()
     scene = st.to_device(host, dev)
+    mb = sb.bench_scene()
+    mb.meshes[0].verts_end = mb.meshes[0].verts + np.asarray(MOTION_SHIFT,
+                                                            np.float32)
+    moving = st.to_device(mb.build(), dev)
+    require(moving.geometry.has_motion and not scene.geometry.has_motion,
+            "scene: the moving bench scene did not compile as moving")
     say("scene", seconds=time.time() - t0, tris=host.geometry.n_prims,
         wide_nodes=host.geometry.packed.n_wnodes,
         clusters=host.geometry.packed.n_clusters,
+        moving_wide_nodes=moving.geometry.packed.n_wnodes,
         bvh_builder=native.LAST_BUILDER)
 
-    results = kernels_phase(scene, dev)
-    small_scene_phase(dev)
-    launches = main_path_phase(scene, dev)
+    geom_w = dataclasses.replace(scene.geometry, packed=tc.with_woop(
+        host.geometry.packed).to(dev))
+    _, _, _, _, cam_rays = camera_wave(dev)
+    shapes = wave_shapes(scene.geometry, dev, cam_rays)
+    results = kernels_phase(scene.geometry, geom_w, shapes, moving, cam_rays,
+                            dev)
+    small_img = small_scene_phase(dev)
+    motion_small_phase(dev, small_img)
+    launches, static_img = main_path_phase(scene, dev)
+    launches_m = motion_path_phase(moving, dev, static_img)
+    alt_kernels_phase(dev, small_img)
 
-    # the main path's three launch shapes (its sorted closest-hit lanes
-    # travel inside the mixed launches)
-    line = [{**r, "launches": launches[r["name"].split(":")[1]]}
-            for r in results if r["name"].split(":")[1] in launches]
+    # every kernel's launches on ITS path, each path counted from zero: the
+    # static v6 modes on the main path (its sorted closest-hit lanes travel
+    # inside the mixed launches), the motion modes on the moving path, the
+    # packet kernels on the bench scene's camera waves (closest) and through
+    # intersect_rays(kernel=...) at full width (any)
+    launches_alt = alt_path_phase(
+        dataclasses.replace(scene, geometry=geom_w), dev, shapes[1])
+    counted = {**{k: v for k, v in launches.items()
+                  if k.startswith("traverse6:")},
+               **{k: v for k, v in launches_m.items()
+                  if k.startswith("traverse6_motion:")},
+               **{k: v for k, v in launches_alt.items()
+                  if k.startswith(("traverse5:", "traverse7:"))}}
+    line = []
+    for r in results:
+        if r["name"] != r["counter"]:
+            continue        # a second ray set of a mode already listed
+        require(counted[r["counter"]] > 0,
+                f"{r['name']} was never launched on its path")
+        line.append({**r, "launches": counted[r["counter"]]})
+    require(len(line) == 10, f"kernels line lists {len(line)} kernels")
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,7 @@ leaves) and a binary BVH is built over the clusters. ``accel/wide.py``
 collapses that tree to 8-ary and ``ops/traverse_cuda.py`` packs and walks it.
 Only the build lives here: the reference's own packet traversal over this
 tree (its CPU fallback) has no counterpart in the port, whose plain traversal
-is ``ops.traverse_cuda.traverse6_plain``. The continuous-motion build
-(``build_motion``) is not ported yet.
+is ``ops.traverse_cuda.traverse6_plain``.
 """
 from __future__ import annotations
 
@@ -29,6 +28,11 @@ class ClusterBVH:
     tri_e1: np.ndarray      # (C, K, 3)
     tri_e2: np.ndarray      # (C, K, 3)
     tri_id: np.ndarray      # (C, K) int32 original prim ids (-1 pad)
+    # moving geometry (build_motion): shutter-close MINUS shutter-open soups,
+    # (C, K, 3) each, in the same cluster order; None for a static scene
+    tri_dv0: np.ndarray = None
+    tri_de1: np.ndarray = None
+    tri_de2: np.ndarray = None
     n_nodes: int = 0
     n_clusters: int = 0
     k: int = 0
@@ -150,6 +154,44 @@ def build(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
         tri_v0=tv0, tri_e1=te1, tri_e2=te2, tri_id=tid,
         n_nodes=n_nodes, n_clusters=c_n, k=k, max_depth=max_depth)
 
+
+def build_motion(v0a, e1a, e2a, v0b, e1b, e2b, k: int = DEFAULT_K,
+                 split_method: str = "sah") -> ClusterBVH:
+    """Continuous-motion build: ONE tree whose per-triangle bounds are the
+    UNION of the shutter-open (a) and shutter-close (b) boxes (exact for
+    linear vertex motion), with the start soup and the (close - open) deltas
+    packed in cluster order so that leaf tests can lerp by ray time.
+
+    ``build`` only consumes per-triangle lo / hi / centroid, so it is
+    fed a degenerate PROXY triangle per prim (v0 = union-lo, e1 =
+    union-extent, e2 = 0: its box IS the union box), and the true start and
+    delta soups are gathered again through the returned cluster order."""
+    def aabb(v0, e1, e2):
+        v0d = v0.astype(np.float64)
+        lo = np.minimum(np.minimum(v0d, v0d + e1), v0d + e2)
+        hi = np.maximum(np.maximum(v0d, v0d + e1), v0d + e2)
+        return lo, hi
+
+    lo_a, hi_a = aabb(v0a, e1a, e2a)
+    lo_b, hi_b = aabb(v0b, e1b, e2b)
+    lo_u = np.minimum(lo_a, lo_b).astype(np.float32)
+    hi_u = np.maximum(hi_a, hi_b).astype(np.float32)
+    cb = build(lo_u, hi_u - lo_u, np.zeros_like(lo_u), k=k,
+               split_method=split_method)
+    tid = cb.tri_id
+    valid = tid >= 0
+    ids = np.maximum(tid, 0)
+
+    def gk(a):
+        out = np.zeros(tid.shape + (3,), np.float32)
+        out[valid] = np.asarray(a, np.float32)[ids[valid]]
+        return out
+
+    return dataclasses.replace(
+        cb,
+        tri_v0=gk(v0a), tri_e1=gk(e1a), tri_e2=gk(e2a),
+        tri_dv0=gk(v0b) - gk(v0a), tri_de1=gk(e1b) - gk(e1a),
+        tri_de2=gk(e2b) - gk(e2a))
 
 
 def _native_build(v0, e1, e2, k):

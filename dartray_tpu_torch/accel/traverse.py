@@ -55,12 +55,18 @@ def _mt_test(o, d, v0, e1, e2, tmin, tmax):
 
 @torch.no_grad()
 def brute_force_intersect(v0, e1, e2, rays: vm.Rays,
-                          chunk: int = 4096) -> Hits:
+                          chunk: int = 4096, deltas=None) -> Hits:
     """Exhaustive closest hit over (F, 3) triangle arrays, scanned in chunks
-    of `chunk` triangles. The correctness oracle."""
+    of `chunk` triangles. The correctness oracle.
+
+    deltas: optional (dv0, de1, de2) (F, 3) shutter-close-minus-open arrays
+    of moving geometry: every ray then tests the triangles lerped to its own
+    ``rays.time`` (already normalised to [0, 1])."""
     o = vm.to_arr(rays.o)
     d = vm.to_arr(rays.d)
     v0, e1, e2 = vm.to_arr(v0), vm.to_arr(e1), vm.to_arr(e2)
+    if deltas is not None:
+        deltas = [vm.to_arr(a) for a in deltas]
     f = v0.shape[0]
     r = o.shape[0]
     t_best = rays.tmax.clone()
@@ -69,8 +75,11 @@ def brute_force_intersect(v0, e1, e2, rays: vm.Rays,
     b2 = torch.zeros_like(b1)
     for s in range(0, max(f, 1), chunk):
         e = min(s + chunk, f)
-        hit, t, u, v = _mt_test(o[:, None, :], d[:, None, :], v0[None, s:e],
-                                e1[None, s:e], e2[None, s:e],
+        tri = [a[None, s:e] for a in (v0, e1, e2)]
+        if deltas is not None:
+            tl = rays.time[:, None, None]
+            tri = [a + tl * da[None, s:e] for a, da in zip(tri, deltas)]
+        hit, t, u, v = _mt_test(o[:, None, :], d[:, None, :], *tri,
                                 rays.tmin[:, None], t_best[:, None])
         t_masked = torch.where(hit, t, float("inf"))
         tj, j = t_masked.min(dim=1)

@@ -1,8 +1,14 @@
 // traverse6.cu — wide-BVH ray traversal for NVIDIA Hopper (sm_90a).
 //
 // Replaces the JAX reference's Pallas kernel `_kernel6` / launcher `traverse6`
-// (ops/traverse_pallas.py) in its three static-scene modes: closest-hit,
-// any-hit, and mixed (a per-lane any-hit flag). Same contract: for rays
+// (ops/traverse_pallas.py) in its closest-hit, any-hit and mixed (a per-lane
+// any-hit flag) modes, each for a static scene and, as a second instantiation
+// of the same template with its own launcher, for moving geometry
+// (`motion=True` there): every leaf triangle is lerped to the ray's shutter
+// time, v(t) = v + time * dv for its nine components, from a second row
+// table of (close - open) deltas, before the same test. The lerp is a
+// rounded multiply and then a rounded add, here and in the plain version.
+// Same contract: for rays
 // (o, d, tmin, tmax) return an approximate-or-exact hit distance `t` (+inf on
 // a miss) and the PERMUTED prim id `cluster * K + j` (-1 on a miss). A lane
 // with tmax < tmin is dead. The exact (t, b1, b2) and the original prim id are
@@ -33,11 +39,10 @@
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
 //        -shared -Xcompiler -fPIC -o libtraverse6.so traverse6.cu
+// (ray_tests.cuh, beside this file, holds the slab and triangle tests.)
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ray_tests.cuh"
 
-#define STACK_DEPTH 96
 #define BLOCK_THREADS 128
 
 #define MODE_CLOSEST 0
@@ -46,24 +51,19 @@
 
 namespace {
 
-constexpr float kTriEps = 1e-10f;
-constexpr float kBaryEps = 1e-6f;
-
-__device__ __forceinline__ float safe_inv(float d) {
-  const float tiny = d < 0.0f ? -1e-30f : 1e-30f;
-  return 1.0f / (fabsf(d) < 1e-30f ? tiny : d);
-}
-
+template <bool MOTION>
 __global__ void __launch_bounds__(BLOCK_THREADS)
 traverse6_kernel(const float4* __restrict__ wbounds,  // (W, 12) float4
                  const int4* __restrict__ worder,     // (8 W, 2) int4
                  const float4* __restrict__ soup,     // (C K, 4) float4
+                 const float4* __restrict__ soupd,    // deltas; MOTION only
                  const float* __restrict__ ox_, const float* __restrict__ oy_,
                  const float* __restrict__ oz_, const float* __restrict__ dx_,
                  const float* __restrict__ dy_, const float* __restrict__ dz_,
                  const float* __restrict__ tmin_,
                  const float* __restrict__ tmax_,
                  const float* __restrict__ anyf_,     // null unless mixed
+                 const float* __restrict__ time_,     // in [0, 1]; MOTION only
                  float* __restrict__ t_out, int* __restrict__ prim_out,
                  int* __restrict__ overflow, int n, int n_wnodes, int k,
                  int mode) {
@@ -77,13 +77,13 @@ traverse6_kernel(const float4* __restrict__ wbounds,  // (W, 12) float4
     prim_out[i] = -1;
     return;
   }
-  const float ox = ox_[i], oy = oy_[i], oz = oz_[i];
-  const float dx = dx_[i], dy = dy_[i], dz = dz_[i];
-  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-  const int octant = (dx < 0.0f ? 1 : 0) + (dy < 0.0f ? 2 : 0) +
-                     (dz < 0.0f ? 4 : 0);
+  const dr::Ray r =
+      dr::make_ray(ox_[i], oy_[i], oz_[i], dx_[i], dy_[i], dz_[i], tmin);
+  const int octant = (r.dx < 0.0f ? 1 : 0) + (r.dy < 0.0f ? 2 : 0) +
+                     (r.dz < 0.0f ? 4 : 0);
   const bool any_lane =
       mode == MODE_ANY || (mode == MODE_MIXED && anyf_[i] > 0.0f);
+  const float time = MOTION ? time_[i] : 0.0f;
   const int4* order_rows = worder + (size_t)octant * n_wnodes * 2;
 
   int stack[STACK_DEPTH];
@@ -96,31 +96,7 @@ traverse6_kernel(const float4* __restrict__ wbounds,  // (W, 12) float4
     const int ref = stack[--sp];
     if (ref >= 0) {
       // ---- interior: slab-test the 8 child boxes of wide node `ref`
-      const float4* row = wbounds + (size_t)ref * 12;
-      float b[48];
-#pragma unroll
-      for (int j = 0; j < 12; ++j) {
-        const float4 v = __ldg(row + j);
-        b[4 * j + 0] = v.x;
-        b[4 * j + 1] = v.y;
-        b[4 * j + 2] = v.z;
-        b[4 * j + 3] = v.w;
-      }
-      unsigned mask = 0u;
-#pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const float lox = b[s];
-        const float t0x = (lox - ox) * ix, t1x = (b[24 + s] - ox) * ix;
-        const float t0y = (b[8 + s] - oy) * iy, t1y = (b[32 + s] - oy) * iy;
-        const float t0z = (b[16 + s] - oz) * iz, t1z = (b[40 + s] - oz) * iz;
-        const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                               fmaxf(fminf(t0z, t1z), tmin));
-        const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                               fminf(fmaxf(t0z, t1z), t_best));
-        // fminf/fmaxf drop a NaN operand, so an empty (NaN) child slot is
-        // rejected explicitly: it must never hit
-        if (tn <= tf && lox == lox) mask |= 1u << s;
-      }
+      const unsigned mask = dr::slab8(wbounds + (size_t)ref * 12, r, t_best);
       if (mask != 0u) {
         const int4* orow = order_rows + (size_t)ref * 2;
         const int4 e0 = __ldg(orow), e1 = __ldg(orow + 1);
@@ -141,29 +117,30 @@ traverse6_kernel(const float4* __restrict__ wbounds,  // (W, 12) float4
       // ---- leaf: test the cluster's triangles (pad slots trail, id < 0)
       const int base = (-ref - 1) * k;
       const float4* tri = soup + (size_t)base * 4;
+      const float4* trd = MOTION ? soupd + (size_t)base * 4 : nullptr;
       for (int j = 0; j < k; ++j, tri += 4) {
-        const float4 a = __ldg(tri);      // v0.xyz e1.x
-        const float4 c = __ldg(tri + 1);  // e1.yz e2.xy
-        const float4 g = __ldg(tri + 2);  // e2.z id_bits 0 0
+        float4 a = __ldg(tri);      // v0.xyz e1.x
+        float4 c = __ldg(tri + 1);  // e1.yz e2.xy
+        float4 g = __ldg(tri + 2);  // e2.z id_bits 0 0
         if (__float_as_int(g.y) < 0) break;
-        const float e1x = a.w, e1y = c.x, e1z = c.y;
-        const float e2x = c.z, e2y = c.w, e2z = g.x;
-        const float px = dy * e2z - dz * e2y;
-        const float py = dz * e2x - dx * e2z;
-        const float pz = dx * e2y - dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const bool flat = fabsf(det) < kTriEps;
-        const float inv_det = 1.0f / (flat ? 1.0f : det);
-        const float tx = ox - a.x, ty = oy - a.y, tz = oz - a.z;
-        const float u = (tx * px + ty * py + tz * pz) * inv_det;
-        const float qx = ty * e1z - tz * e1y;
-        const float qy = tz * e1x - tx * e1z;
-        const float qz = tx * e1y - ty * e1x;
-        const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-        const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-        const bool ok = !flat && u >= -kBaryEps && v >= -kBaryEps &&
-                        (u + v) <= 1.0f + kBaryEps && t > tmin;
-        if (ok && (t < t_best || (prim < 0 && t == t_best))) {
+        if (MOTION) {  // lerp to the ray's time; the id column is not touched
+          const float4 da = __ldg(trd + 4 * j);
+          const float4 dc = __ldg(trd + 4 * j + 1);
+          const float4 dg = __ldg(trd + 4 * j + 2);
+          a.x = a.x + time * da.x;
+          a.y = a.y + time * da.y;
+          a.z = a.z + time * da.z;
+          a.w = a.w + time * da.w;
+          c.x = c.x + time * dc.x;
+          c.y = c.y + time * dc.y;
+          c.z = c.z + time * dc.z;
+          c.w = c.w + time * dc.w;
+          g.x = g.x + time * dg.x;
+        }
+        float t;
+        const bool ok =
+            dr::mt_test(r, a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w, g.x, &t);
+        if (ok && dr::nearer(t, t_best, prim)) {
           t_best = t;
           prim = base + j;
           if (any_lane) {  // first blocker is enough
@@ -176,6 +153,26 @@ traverse6_kernel(const float4* __restrict__ wbounds,  // (W, 12) float4
   }
   t_out[i] = prim >= 0 ? t_best : inf;
   prim_out[i] = prim;
+}
+
+template <bool MOTION>
+int launch(const void* wbounds, const void* worder, const void* soup,
+           const void* soupd, const void* ox, const void* oy, const void* oz,
+           const void* dx, const void* dy, const void* dz, const void* tmin,
+           const void* tmax, const void* anyf, const void* time, void* t_out,
+           void* prim_out, void* overflow, int n, int n_wnodes, int k,
+           int mode, void* stream) {
+  if (n <= 0) return 0;
+  const int blocks = (n + BLOCK_THREADS - 1) / BLOCK_THREADS;
+  traverse6_kernel<MOTION>
+      <<<blocks, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
+          (const float4*)wbounds, (const int4*)worder, (const float4*)soup,
+          (const float4*)soupd, (const float*)ox, (const float*)oy,
+          (const float*)oz, (const float*)dx, (const float*)dy,
+          (const float*)dz, (const float*)tmin, (const float*)tmax,
+          (const float*)anyf, (const float*)time, (float*)t_out,
+          (int*)prim_out, (int*)overflow, n, n_wnodes, k, mode);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -194,15 +191,25 @@ int traverse6_launch(const void* wbounds, const void* worder, const void* soup,
                      const void* tmin, const void* tmax, const void* anyf,
                      void* t_out, void* prim_out, void* overflow, int n,
                      int n_wnodes, int k, int mode, void* stream) {
-  if (n <= 0) return 0;
-  const int blocks = (n + BLOCK_THREADS - 1) / BLOCK_THREADS;
-  traverse6_kernel<<<blocks, BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float4*)wbounds, (const int4*)worder, (const float4*)soup,
-      (const float*)ox, (const float*)oy, (const float*)oz, (const float*)dx,
-      (const float*)dy, (const float*)dz, (const float*)tmin,
-      (const float*)tmax, (const float*)anyf, (float*)t_out, (int*)prim_out,
-      (int*)overflow, n, n_wnodes, k, mode);
-  return (int)cudaGetLastError();
+  return launch<false>(wbounds, worder, soup, nullptr, ox, oy, oz, dx, dy, dz,
+                       tmin, tmax, anyf, nullptr, t_out, prim_out, overflow, n,
+                       n_wnodes, k, mode, stream);
+}
+
+// The moving-geometry instantiation: `soupd` is the (C K, 16) delta table in
+// soup16's row layout (id column zero), `time` the rays' shutter times in
+// [0, 1].
+int traverse6_motion_launch(const void* wbounds, const void* worder,
+                            const void* soup, const void* soupd,
+                            const void* ox, const void* oy, const void* oz,
+                            const void* dx, const void* dy, const void* dz,
+                            const void* tmin, const void* tmax,
+                            const void* anyf, const void* time, void* t_out,
+                            void* prim_out, void* overflow, int n,
+                            int n_wnodes, int k, int mode, void* stream) {
+  return launch<true>(wbounds, worder, soup, soupd, ox, oy, oz, dx, dy, dz,
+                      tmin, tmax, anyf, time, t_out, prim_out, overflow, n,
+                      n_wnodes, k, mode, stream);
 }
 
 }  // extern "C"

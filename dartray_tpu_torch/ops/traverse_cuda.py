@@ -1,24 +1,44 @@
-"""Wide-BVH traversal: the CUDA kernel's wrapper, its plain PyTorch version
-and the wavefront glue around them (counterpart of the JAX reference's
-``ops/traverse_pallas.py``).
+"""Wide-BVH traversal: the CUDA kernels' wrappers, their plain PyTorch
+versions and the wavefront glue around them (counterpart of the JAX
+reference's ``ops/traverse_pallas.py`` and of the v7 part of its
+``ops/kernels_attic.py``).
 
-The kernel (``csrc/traverse6.cu``, built with ``nvcc`` for ``sm_90a`` at first
-use and loaded with ``ctypes``) replaces the reference's Pallas kernel
-``_kernel6`` / ``traverse6`` in its closest-hit, any-hit and mixed modes. It
-returns ``(t, permuted prim)`` only; exact ``t`` and barycentrics are
+Three kernels, each built with ``nvcc`` for ``sm_90a`` at first use from its
+source under ``csrc/`` and loaded with ``ctypes``:
+
+* ``traverse6`` (``csrc/traverse6.cu``) replaces ``_kernel6`` in its
+  closest-hit, any-hit and mixed modes: one stack per ray. With ``time=`` on
+  a scene packed with deltas it launches the kernel's motion instantiation,
+  which lerps every leaf triangle to the ray's shutter time.
+* ``traverse5`` (``csrc/traverse5.cu``) replaces ``_kernel5``: a PACKET walk,
+  one shared stack for ``PACKET`` = 32 consecutive rays (a warp), the
+  packet's majority octant orders the pushes, a child is pushed if any live
+  ray of the packet hits its box, every live ray tests a popped leaf.
+  Optional counters (node steps and leaf clusters per packet).
+* ``traverse7`` (``csrc/traverse7.cu``) replaces ``_kernel7``: the same packet
+  walk with the Woop unit-triangle leaf test over the opt-in ``woop`` table
+  (``with_woop``).
+
+All return ``(t, permuted prim)`` only; exact ``t`` and barycentrics are
 recomputed for the winners by one gathered Moeller-Trumbore evaluation
 (``finish_hits`` / ``finish_hits_rows``), so results are compared after that
-finish step, never on the kernel's raw ``t``.
+finish step, never on a kernel's raw ``t``. Tie rule of every kernel and
+plain version here: the nearest accepted ``t`` in ``(tmin, tmax]`` wins, equal
+``t`` keeps the first triangle met (cluster order inside a leaf); an any-hit
+lane takes the first accepted triangle and stops. The reference's packed fold
+(index bits in ``t``'s mantissa) is a reduction trick of its machine and is
+not reproduced.
 
-The reference kernel's ablation and work-around switches (its ``DR_V6_*``
-environment knobs, ``bf16=``, ``push_bits``) have no counterpart here: they
-probe or work around the other machine's compiler, they are not separate
-functions. Its chunked dispatch around a scratch-memory limit is dropped too:
-one launch covers the whole wave, and dead lanes (``tmax < tmin``) leave the
-kernel at once. The motion-blur mode of the kernel is not ported yet.
+The reference kernels' ablation and work-around switches (the ``DR_V6_*``
+environment knobs, ``bf16=``, ``push_bits``, the ``block_rows`` widths) have no
+counterpart here: they probe or work around the other machine's compiler,
+they are not separate functions. v5's ``counters`` do have one. The chunked
+dispatch around a scratch-memory limit is dropped too: one launch covers the
+whole wave, and dead lanes (``tmax < tmin``) leave the kernel at once.
 
-``traverse6`` takes the plain version (``traverse6_plain``) only for tensors
-that lie on the CPU. For a CUDA tensor it launches the kernel or raises.
+Each wrapper takes its plain version (``traverse6_plain``,
+``traverse5_plain``, ``traverse7_plain``) only for tensors that lie on the
+CPU. For a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -29,6 +49,7 @@ import os
 import shutil
 import subprocess
 import threading
+from time import perf_counter
 
 import numpy as np
 import torch
@@ -37,14 +58,20 @@ from ..core.math import V3
 
 TRI_EPS = 1e-10
 BARY_EPS = 1e-6
-STACK_DEPTH = 96          # per-ray stack entries (csrc/traverse6.cu)
+STACK_DEPTH = 96          # stack entries per ray (v6) or per packet (v5, v7)
+PACKET = 32               # rays that share a stack in v5 / v7: one warp
 
 MODE_CLOSEST, MODE_ANY, MODE_MIXED = 0, 1, 2
 MODE_NAMES = ("closest", "any", "mixed")
 
-# launches of the CUDA kernel by mode: incremented where the kernel is
-# launched and nowhere else
-LAUNCHES = {"closest": 0, "any": 0, "mixed": 0}
+# launches by kernel and mode: incremented where a kernel is launched and
+# nowhere else
+LAUNCHES = {f"{kern}:{mode}": 0
+            for kern, modes in (("traverse6", MODE_NAMES),
+                                ("traverse6_motion", MODE_NAMES),
+                                ("traverse5", MODE_NAMES[:2]),
+                                ("traverse7", MODE_NAMES[:2]))
+            for mode in modes}
 
 
 def reset_launches():
@@ -65,12 +92,22 @@ class PackedBVH:
             zero edges (never hit) and TRAIL the real triangles of their
             cluster: the kernel's leaf loop stops at the first one.
 
+    soup16d: (C*K, 16) f32 shutter-close MINUS shutter-open deltas in
+            soup16's row layout (col 9 zero, pad rows zero), or None for a
+            static scene. Leaf tests and the finish step lerp
+            ``v + time * dv``; the two tables are never added as whole rows.
+    woop: (C*K, 12) f32 rows [W_0 w_0 | W_1 w_1 | W_2 w_2] of the
+          unit-triangle transforms ``traverse7`` reads, or None: ``pack``
+          does not build it, ``with_woop`` adds it.
+
     The binary-tree tables of the reference's older kernels are not built:
     they come back with the kernels that read them.
     """
     wbounds: object
     worder: object
     soup16: object
+    soup16d: object = None
+    woop: object = None
     n_nodes: int = 0
     n_clusters: int = 0
     k: int = 0
@@ -90,25 +127,35 @@ def check_pads_trail(tid):
                          "triangle: pad slots must trail in every cluster")
 
 
-def pack(node_lo, node_hi, node_child, tv0, te1, te2, tid):
+def pack(node_lo, node_hi, node_child, tv0, te1, te2, tid, deltas=None):
     """Build PackedBVH from ClusterBVH-style arrays ((C,K,3) tris, (C,K) ids).
 
     Returns (packed, perm) where perm (C*K,) maps permuted prim id -> original
-    triangle id (-1 for pad slots). Pad slots get zeroed edges. Host numpy."""
+    triangle id (-1 for pad slots). Pad slots get zeroed edges. Host numpy.
+
+    deltas: optional (dv0, de1, de2) (C,K,3) shutter-close-minus-open soups
+    (moving geometry; the node bounds must already be those of the
+    shutter-union tree, ``accel.cluster.build_motion``). Pad slots get zero
+    deltas too, or a lerped pad triangle would stop being degenerate."""
     from ..accel.wide import build_wide
     tid = np.asarray(tid, np.int32)
     check_pads_trail(tid)
     pad = tid < 0
-    v0 = np.where(pad[..., None], 0.0, np.asarray(tv0, np.float32))
-    e1 = np.where(pad[..., None], 0.0, np.asarray(te1, np.float32))
-    e2 = np.where(pad[..., None], 0.0, np.asarray(te2, np.float32))
     c, k = tid.shape
-    wbounds, worder, n_w = build_wide(node_lo, node_hi, node_child)
     perm_flat = tid.reshape(-1)
+
+    def rows16(soups, ids):
+        planes = (np.moveaxis(np.where(pad[..., None], 0.0,
+                                       np.asarray(a, np.float32)), -1, 0)
+                  for a in soups)
+        return soup_pack16(*planes, ids)
+
+    wbounds, worder, n_w = build_wide(node_lo, node_hi, node_child)
     packed = PackedBVH(
         wbounds=wbounds, worder=worder,
-        soup16=soup_pack16(*(np.moveaxis(x, -1, 0) for x in (v0, e1, e2)),
-                           perm_flat),
+        soup16=rows16((tv0, te1, te2), perm_flat),
+        soup16d=(None if deltas is None
+                 else rows16(deltas, np.zeros_like(perm_flat))),
         n_nodes=node_lo.shape[0], n_clusters=c, k=k, n_wnodes=n_w)
     return packed, perm_flat
 
@@ -128,6 +175,35 @@ def soup_pack16(tv0, te1, te2, perm):
     return A
 
 
+def woop_pack(soup16, k):
+    """(C*K, 16) soup rows -> (C*K, 12) Woop table (host numpy): for every
+    triangle the affine map to the unit triangle {(0,0,0), (1,0,0), (0,1,0)},
+    ``W = [e1 e2 e1xe2]^-1`` and ``w = -W v0``, inverted in float64 and stored
+    as three rows ``[W_c0 W_c1 W_c2 w_c]``, so that ``o'_c = W_c . o + w_c``
+    and ``d'_c = W_c . d``. Degenerate (and pad) triangles get all-zero rows:
+    ``d'_z = 0``, never hit."""
+    s = np.asarray(soup16, np.float32).reshape(-1, k, 16)
+    v0 = s[..., 0:3].astype(np.float64)                     # (C, K, 3)
+    e1 = s[..., 3:6].astype(np.float64)
+    e2 = s[..., 6:9].astype(np.float64)
+    m = np.stack([e1, e2, np.cross(e1, e2)], axis=-1)       # columns
+    ok = np.abs(np.linalg.det(m)) > 1e-30
+    minv = np.zeros_like(m)
+    if ok.any():
+        minv[ok] = np.linalg.inv(m[ok])
+    w = -np.einsum("ckij,ckj->cki", minv, v0)
+    table = np.zeros(s.shape[:2] + (3, 4), np.float32)
+    table[..., 0:3] = minv
+    table[..., 3] = w
+    return table.reshape(-1, 12)
+
+
+def with_woop(packed: PackedBVH) -> PackedBVH:
+    """Attach the table ``traverse7`` reads (host numpy) to a PackedBVH."""
+    return dataclasses.replace(packed,
+                               woop=woop_pack(packed.soup16, packed.k))
+
+
 def _components(o, d):
     """V3 or (R, 3) -> component tuples."""
     if isinstance(o, V3):
@@ -136,21 +212,25 @@ def _components(o, d):
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel: build, load, launch
+# The CUDA kernels: build, load, launch
 # ---------------------------------------------------------------------------
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNEL_SOURCE = os.path.join(_PKG, "csrc", "traverse6.cu")
+CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-# -fmad=false: products and sums round as the plain version's separate ops
-# do, so both take the same walk; -Xptxas -v: the assembler reports the
-# kernel's registers and spills into BUILD_LOG
+# one library per source; every source includes the headers beside it
+KERNEL_SOURCES = {name: os.path.join(CSRC_DIR, name + ".cu")
+                  for name in ("traverse6", "traverse5", "traverse7")}
+# -fmad=false: products and sums round as the plain versions' separate ops
+# do, so kernel and plain version take the same walk; -Xptxas -v: the
+# assembler reports each kernel's registers and spills into BUILD_LOG
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
-BUILD_LOG = ""            # nvcc's output of the build this process made
-_lib = None
+BUILD_LOG = {}            # name -> nvcc's output of the build this process made
+BUILD_SECONDS = {}        # name -> seconds that build took
+_libs = {}
 _lib_lock = threading.Lock()
-_overflow = {}            # device -> int32[1] flag the kernel ORs into
+_overflow = {}            # device -> int32[1] flag the kernels OR into
 
 
 def _find_nvcc():
@@ -159,50 +239,90 @@ def _find_nvcc():
                  "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found: the traversal kernel is built from "
-                       f"{KERNEL_SOURCE} at first use and needs the CUDA "
-                       "toolkit")
+    raise RuntimeError("nvcc not found: the traversal kernels are built from "
+                       f"{CSRC_DIR} at first use and need the CUDA toolkit")
 
 
-def build_command(so_path):
-    return [_find_nvcc(), *NVCC_FLAGS, "-o", so_path, KERNEL_SOURCE]
+def build_command(name, so_path):
+    return [_find_nvcc(), *NVCC_FLAGS, "-o", so_path, KERNEL_SOURCES[name]]
 
 
-def load_kernel():
-    """Build (if needed) and load the kernel library; raises on failure."""
-    global _lib, BUILD_LOG
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        with open(KERNEL_SOURCE, "rb") as f:
-            tag = hashlib.sha1(f.read()).hexdigest()[:12]
-        so = os.path.join(BUILD_DIR, f"libtraverse6_{tag}.so")
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run(build_command(tmp), capture_output=True,
-                                  text=True)
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed building traverse6.cu:\n"
-                                   + proc.stdout + proc.stderr)
-            BUILD_LOG = (proc.stdout + proc.stderr).strip()
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        p = ctypes.c_void_p
-        lib.traverse6_launch.restype = ctypes.c_int
-        lib.traverse6_launch.argtypes = [p] * 15 + [ctypes.c_int] * 4 + [p]
-        lib.traverse6_stack_depth.restype = ctypes.c_int
-        lib.traverse6_stack_depth.argtypes = []
-        if lib.traverse6_stack_depth() != STACK_DEPTH:
-            raise RuntimeError("traverse6.cu STACK_DEPTH differs from the "
+def _csrc_hash():
+    """A hash of every file under csrc/: the libraries' paths carry it, and a
+    header is shared, so an edit to any file rebuilds them all."""
+    h = hashlib.sha1()
+    for fn in sorted(os.listdir(CSRC_DIR)):
+        with open(os.path.join(CSRC_DIR, fn), "rb") as f:
+            h.update(fn.encode() + b"\0" + f.read())
+    return h.hexdigest()[:12]
+
+
+def _bind(name, lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if name == "traverse6":
+        lib.traverse6_launch.restype = i
+        lib.traverse6_launch.argtypes = [p] * 15 + [i] * 4 + [p]
+        lib.traverse6_motion_launch.restype = i
+        lib.traverse6_motion_launch.argtypes = [p] * 17 + [i] * 4 + [p]
+    else:
+        launch = getattr(lib, name + "_launch")
+        launch.restype = i
+        launch.argtypes = [p] * 15 + [i] * 4 + [p]
+        width = getattr(lib, name + "_packet_width")
+        width.restype, width.argtypes = i, []
+        if width() != PACKET:
+            raise RuntimeError(f"{name}.cu PACKET_WIDTH differs from the "
                                "wrapper's")
-        _lib = lib
-        return lib
+    depth = getattr(lib, name + "_stack_depth")
+    depth.restype, depth.argtypes = i, []
+    if depth() != STACK_DEPTH:
+        raise RuntimeError(f"{name}.cu STACK_DEPTH differs from the wrapper's")
+
+
+def load_kernels(names=tuple(KERNEL_SOURCES)):
+    """Build (where needed, all ``nvcc`` runs started together) and load the
+    libraries of `names`; raises if one fails to build."""
+    with _lib_lock:
+        tag = _csrc_hash()
+        path = {name: os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+                for name in names}
+        procs = {}
+        for name in names:
+            so = path[name]
+            if name not in _libs and not os.path.exists(so):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{so}.{os.getpid()}.tmp"
+                procs[name] = (perf_counter(), tmp, subprocess.Popen(
+                    build_command(name, tmp), stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (t0, tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            BUILD_SECONDS[name] = perf_counter() - t0
+            BUILD_LOG[name] = out.strip()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed building {name}.cu:\n{out}")
+            else:
+                os.replace(tmp, path[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in names:
+            if name not in _libs:
+                lib = ctypes.CDLL(path[name])
+                _bind(name, lib)
+                _libs[name] = lib
+        return [_libs[name] for name in names]
+
+
+def load_kernel(name="traverse6"):
+    """Build (if needed) and load one kernel library; raises on failure."""
+    lib = _libs.get(name)       # every launch comes through here
+    return lib if lib is not None else load_kernels((name,))[0]
 
 
 def overflow_flag(device):
     """int32[1] on `device`: nonzero once any launch since the last
-    ``reset_overflow`` ran out of per-ray stack. Reading it synchronises."""
+    ``reset_overflow`` ran out of stack. Reading it synchronises."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -218,71 +338,165 @@ def reset_overflow(device):
 def _check_plane(x, name, n, device, dtype=torch.float32):
     if (x.device != device or x.dtype != dtype or x.dim() != 1
             or x.shape[0] != n):
-        raise ValueError(f"traverse6: {name} must be a ({n},) {dtype} tensor "
+        raise ValueError(f"traversal: {name} must be a ({n},) {dtype} tensor "
                          f"on {device}, got {tuple(x.shape)} {x.dtype} on "
                          f"{x.device}")
     return x.contiguous()
 
 
-def _check_table(x, name, shape, device, dtype):
+def _check_table(x, name, shape, device, dtype=torch.float32):
     if (not torch.is_tensor(x) or x.device != device or x.dtype != dtype
             or tuple(x.shape) != shape or not x.is_contiguous()):
-        raise ValueError(f"traverse6: bvh.{name} must be a contiguous "
+        raise ValueError(f"traversal: bvh.{name} must be a contiguous "
                          f"{shape} {dtype} tensor on {device}")
     return x
 
 
-def _traverse6_cuda(bvh, oc, dc, tmin, tmax, mode, anyf):
+_PLANE_NAMES = ("ox", "oy", "oz", "dx", "dy", "dz", "tmin", "tmax")
+
+
+def _launch_args(bvh, oc, dc, tmin, tmax):
+    """Checked ray planes, node tables and fresh outputs of one launch."""
     dev = oc[0].device
     n = oc[0].shape[0]
-    lib = load_kernel()
-    planes = [_check_plane(x, nm, n, dev) for x, nm in
-              zip((*oc, *dc, tmin, tmax),
-                  ("ox", "oy", "oz", "dx", "dy", "dz", "tmin", "tmax"))]
-    if mode == MODE_MIXED:
-        anyf = _check_plane(anyf, "anyf", n, dev)
+    planes = [_check_plane(x, nm, n, dev)
+              for x, nm in zip((*oc, *dc, tmin, tmax), _PLANE_NAMES)]
     w = bvh.n_wnodes
-    wb = _check_table(bvh.wbounds, "wbounds", (w, 48), dev, torch.float32)
+    wb = _check_table(bvh.wbounds, "wbounds", (w, 48), dev)
     wo = _check_table(bvh.worder, "worder", (8 * w, 8), dev, torch.int32)
-    soup = _check_table(bvh.soup16, "soup16", (bvh.n_clusters * bvh.k, 16),
-                        dev, torch.float32)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
+    return dev, n, planes, wb, wo, t, prim
+
+
+def _traverse6_cuda(bvh, oc, dc, tmin, tmax, mode, anyf, time):
+    dev, n, planes, wb, wo, t, prim = _launch_args(bvh, oc, dc, tmin, tmax)
+    rows = (bvh.n_clusters * bvh.k, 16)
+    soup = _check_table(bvh.soup16, "soup16", rows, dev)
+    if mode == MODE_MIXED:
+        anyf = _check_plane(anyf, "anyf", n, dev)
+    if time is not None:
+        soupd = _check_table(bvh.soup16d, "soup16d", rows, dev)
+        time = _check_plane(time, "time", n, dev)
     if n == 0:                # nothing to launch, nothing to count
         return t, prim
-    flag = overflow_flag(dev)
+    lib = load_kernel("traverse6")
+    ptr = lambda x: x.data_ptr()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.traverse6_launch(
-            wb.data_ptr(), wo.data_ptr(), soup.data_ptr(),
-            *(x.data_ptr() for x in planes),
-            anyf.data_ptr() if mode == MODE_MIXED else None,
-            t.data_ptr(), prim.data_ptr(), flag.data_ptr(),
-            n, w, bvh.k, mode, stream)
+        tail = (ptr(t), ptr(prim), ptr(overflow_flag(dev)), n, bvh.n_wnodes,
+                bvh.k, mode, torch.cuda.current_stream().cuda_stream)
+        af = ptr(anyf) if mode == MODE_MIXED else None
+        if time is None:
+            rc = lib.traverse6_launch(ptr(wb), ptr(wo), ptr(soup),
+                                      *map(ptr, planes), af, *tail)
+        else:
+            rc = lib.traverse6_motion_launch(
+                ptr(wb), ptr(wo), ptr(soup), ptr(soupd), *map(ptr, planes),
+                af, ptr(time), *tail)
     if rc != 0:
         raise RuntimeError(f"traverse6 kernel launch failed: CUDA error {rc}")
-    LAUNCHES[MODE_NAMES[mode]] += 1
+    kern = "traverse6" if time is None else "traverse6_motion"
+    LAUNCHES[f"{kern}:{MODE_NAMES[mode]}"] += 1
     return t, prim
 
 
 def traverse6(bvh: PackedBVH, o, d, tmin, tmax, *, any_hit: bool = False,
-              anyf=None):
+              anyf=None, time=None):
     """Walk the wide BVH for every ray: returns ``(t, prim)`` with t f32
     (+inf on a miss; approximate for any-hit lanes) and the permuted prim id
     ``cluster*K + j`` (i32, -1 on a miss).
 
     anyf: optional (R,) f32 per-lane any-hit flags (mixed waves: lanes with
     anyf > 0 stop at their first hit, the others find the closest).
+    time: optional (R,) f32 shutter times in [0, 1]; with a scene packed with
+    deltas (``bvh.soup16d``) every leaf triangle is lerped to its ray's time
+    (the kernel's motion mode); ignored for a static scene.
     Closest lanes return the nearest t in (tmin, tmax]. CUDA tensors go to
     the kernel, CPU tensors to ``traverse6_plain``."""
     oc, dc = _components(o, d)
     mode = MODE_MIXED if anyf is not None else (
         MODE_ANY if any_hit else MODE_CLOSEST)
+    if bvh.soup16d is None:
+        time = None
     with torch.no_grad():
         if oc[0].device.type == "cuda":
-            return _traverse6_cuda(bvh, oc, dc, tmin, tmax, mode, anyf)
+            return _traverse6_cuda(bvh, oc, dc, tmin, tmax, mode, anyf, time)
         return traverse6_plain(bvh, o, d, tmin, tmax, any_hit=any_hit,
-                               anyf=anyf)
+                               anyf=anyf, time=time)
+
+
+def _packet_cuda(name, table, bvh, oc, dc, tmin, tmax, any_hit, counters):
+    """Launch the packet kernel `name` ("traverse5" / "traverse7") with its
+    leaf table (already checked)."""
+    dev, n, planes, wb, wo, t, prim = _launch_args(bvh, oc, dc, tmin, tmax)
+    cnt = (torch.zeros((-(-n // PACKET), 2), dtype=torch.int32, device=dev)
+           if counters else None)
+    if n > 0:
+        lib = load_kernel(name)
+        ptr = lambda x: x.data_ptr()
+        with torch.cuda.device(dev):
+            rc = getattr(lib, name + "_launch")(
+                ptr(wb), ptr(wo), ptr(table), *map(ptr, planes), ptr(t),
+                ptr(prim), None if cnt is None else ptr(cnt),
+                ptr(overflow_flag(dev)), n, bvh.n_wnodes, bvh.k,
+                int(bool(any_hit)), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+        LAUNCHES[f"{name}:{MODE_NAMES[int(bool(any_hit))]}"] += 1
+    return (t, prim, cnt) if counters else (t, prim)
+
+
+def _traverse5_cuda(bvh, oc, dc, tmin, tmax, any_hit, counters):
+    soup = _check_table(bvh.soup16, "soup16", (bvh.n_clusters * bvh.k, 16),
+                        oc[0].device)
+    return _packet_cuda("traverse5", soup, bvh, oc, dc, tmin, tmax, any_hit,
+                        counters)
+
+
+def traverse5(bvh: PackedBVH, o, d, tmin, tmax, *, any_hit: bool = False,
+              counters: bool = False):
+    """Packet walk of the wide BVH: ``PACKET`` consecutive rays share one
+    stack and one (majority) octant order; returns ``(t, prim)`` as
+    ``traverse6`` does, for closest-hit or any-hit waves.
+
+    counters=True adds a ``(ceil(R / PACKET), 2)`` int32 tensor: node steps
+    and leaf clusters of each packet. CUDA tensors go to the kernel, CPU
+    tensors to ``traverse5_plain``."""
+    oc, dc = _components(o, d)
+    with torch.no_grad():
+        if oc[0].device.type == "cuda":
+            return _traverse5_cuda(bvh, oc, dc, tmin, tmax, any_hit, counters)
+        return traverse5_plain(bvh, o, d, tmin, tmax, any_hit=any_hit,
+                               counters=counters)
+
+
+def _require_woop(bvh):
+    if bvh.woop is None:
+        raise ValueError("pack() does not build the table traverse7 reads; "
+                         "call with_woop(packed) first")
+
+
+def _traverse7_cuda(bvh, oc, dc, tmin, tmax, any_hit, counters):
+    woop = _check_table(bvh.woop, "woop", (bvh.n_clusters * bvh.k, 12),
+                        oc[0].device)
+    return _packet_cuda("traverse7", woop, bvh, oc, dc, tmin, tmax, any_hit,
+                        counters)
+
+
+def traverse7(bvh: PackedBVH, o, d, tmin, tmax, *, any_hit: bool = False,
+              counters: bool = False):
+    """``traverse5``'s packet walk with the Woop unit-triangle leaf test over
+    ``bvh.woop`` (``with_woop``; raises ValueError without it). Its rounding
+    differs from Moeller-Trumbore's, so it may miss sliver triangles the
+    other kernels hit; the finish step recomputes the winners from the soup.
+    CUDA tensors go to the kernel, CPU tensors to ``traverse7_plain``."""
+    _require_woop(bvh)
+    oc, dc = _components(o, d)
+    with torch.no_grad():
+        if oc[0].device.type == "cuda":
+            return _traverse7_cuda(bvh, oc, dc, tmin, tmax, any_hit, counters)
+        return traverse7_plain(bvh, o, d, tmin, tmax, any_hit=any_hit,
+                               counters=counters)
 
 
 # ---------------------------------------------------------------------------
@@ -319,12 +533,14 @@ def _mt(oc, dc, tmin, v0, e1, e2):
 
 @torch.no_grad()
 def traverse6_plain(bvh: PackedBVH, o, d, tmin, tmax, *,
-                    any_hit: bool = False, anyf=None, stats=None):
+                    any_hit: bool = False, anyf=None, time=None, stats=None):
     """``traverse6`` in plain PyTorch: every ray keeps its own stack row of a
     ``(R, STACK_DEPTH)`` tensor and all live rays take one pop per round
     (interior refs slab-test 8 children and push the hit ones far first,
     leaf refs test their cluster). Same tables, same order of operations and
-    same per-ray walk as the CUDA kernel.
+    same per-ray walk as the CUDA kernel. With `time` (and ``bvh.soup16d``)
+    a leaf's triangles are lerped to each ray's shutter time first, a
+    multiply and then an add per component, as the kernel's motion mode does.
 
     stats: optional dict that receives the work of this walk, ``node_pops``
     (interior nodes slab-tested, summed over rays) and ``tri_tests``
@@ -340,6 +556,9 @@ def traverse6_plain(bvh: PackedBVH, o, d, tmin, tmax, *,
     wb = bvh.wbounds.view(w, 6, 8)
     wo = bvh.worder
     soup = bvh.soup16.view(bvh.n_clusters, k, 16)
+    if bvh.soup16d is None:
+        time = None
+    soupd = None if time is None else bvh.soup16d.view(bvh.n_clusters, k, 16)
     inv = [_safe_inv(c) for c in dc]
     octant = ((dc[0] < 0).long() + 2 * (dc[1] < 0).long()
               + 4 * (dc[2] < 0).long())
@@ -392,11 +611,12 @@ def traverse6_plain(bvh: PackedBVH, o, d, tmin, tmax, *,
             cl = (-ref[leaf] - 1).long()
             tri = soup[cl]                                   # (m, K, 16)
             valid = tri[:, :, 9].contiguous().view(torch.int32) >= 0
+            cols = [tri[:, :, c] for c in range(9)]
+            if time is not None:
+                trid, tl = soupd[cl], time[li, None]
+                cols = [v + tl * trid[:, :, c] for c, v in enumerate(cols)]
             ok, t = _mt([c[li, None] for c in oc], [c[li, None] for c in dc],
-                        tmin[li, None],
-                        [tri[:, :, c] for c in range(3)],
-                        [tri[:, :, 3 + c] for c in range(3)],
-                        [tri[:, :, 6 + c] for c in range(3)])
+                        tmin[li, None], cols[0:3], cols[3:6], cols[6:9])
             tb = t_best[li, None]
             acc = ok & valid & ((t < tb) | ((prim[li] < 0)[:, None]
                                             & (t == tb)))
@@ -420,6 +640,176 @@ def traverse6_plain(bvh: PackedBVH, o, d, tmin, tmax, *,
             stats["rounds"] += 1
     t_out = torch.where(prim >= 0, t_best, inf)
     return t_out, prim
+
+
+def _leaf_mt(bvh):
+    """Leaf test of ``traverse5``: Moeller-Trumbore over soup16 rows."""
+    soup = bvh.soup16.view(bvh.n_clusters, bvh.k, 16)
+
+    def test(cl, oc, dc, tmin):
+        tri = soup[cl][:, None]                              # (m, 1, K, 16)
+        return _mt(oc, dc, tmin, [tri[..., c] for c in range(3)],
+                   [tri[..., 3 + c] for c in range(3)],
+                   [tri[..., 6 + c] for c in range(3)])
+    return test
+
+
+def _leaf_woop(bvh):
+    """Leaf test of ``traverse7``: the unit-triangle transform, each sum in
+    the kernel's order, ((W0 x + W1 y) + W2 z) + w."""
+    woop = bvh.woop.view(bvh.n_clusters, bvh.k, 12)
+
+    def test(cl, oc, dc, tmin):
+        w = woop[cl][:, None]                                # (m, 1, K, 12)
+        op = [w[..., 4 * c] * oc[0] + w[..., 4 * c + 1] * oc[1]
+              + w[..., 4 * c + 2] * oc[2] + w[..., 4 * c + 3]
+              for c in range(3)]
+        dp = [w[..., 4 * c] * dc[0] + w[..., 4 * c + 1] * dc[1]
+              + w[..., 4 * c + 2] * dc[2] for c in range(3)]
+        flat = torch.abs(dp[2]) < 1e-30
+        t = -op[2] / torch.where(flat, 1e-30, dp[2])
+        u = op[0] + t * dp[0]
+        v = op[1] + t * dp[1]
+        ok = ((u >= -BARY_EPS) & (v >= -BARY_EPS)
+              & (u + v <= 1.0 + BARY_EPS) & (t > tmin) & ~flat)
+        return ok, t
+    return test
+
+
+@torch.no_grad()
+def _packet_plain(bvh, o, d, tmin, tmax, any_hit, leaf_test, counters,
+                  stats):
+    """The packet walk of ``csrc/packet_walk.cuh`` in plain PyTorch: rays are
+    padded with dead lanes to whole packets of ``PACKET``, every packet keeps
+    one stack row of a ``(P, STACK_DEPTH)`` tensor and all live packets take
+    one pop per round. Same tables, operations and order as the kernels, so
+    kernel and plain version agree lane for lane.
+
+    stats: optional dict that receives ``node_pops`` (slab tests of a node,
+    one per LIVE lane of the packet that popped it) and ``tri_tests`` (valid
+    triangles tested per live lane; an any-hit lane up to its first accepted
+    hit), for a bound on the kernel's time."""
+    if stats is not None:
+        stats.update(node_pops=0, tri_tests=0, rounds=0)
+    oc, dc = _components(o, d)
+    dev = oc[0].device
+    n = oc[0].shape[0]
+    w, k = bvh.n_wnodes, bvh.k
+    npk = -(-n // PACKET)
+
+    def lanes(x, fill):
+        pad = x.new_full((npk * PACKET - n,), fill)
+        return torch.cat([x, pad]).view(npk, PACKET)
+
+    oc = [lanes(c, 0.0) for c in oc]
+    dc = [lanes(c, 1.0) for c in dc]
+    tmin, tmax = lanes(tmin, 0.0), lanes(tmax, -1.0)
+    wb = bvh.wbounds.view(w, 6, 8)
+    wo = bvh.worder
+    ids = bvh.soup16[:, 9].contiguous().view(torch.int32).view(-1, k)
+    inv = [_safe_inv(c) for c in dc]
+    alive = tmax >= tmin
+    neg = [((c < 0).sum(1) > PACKET // 2).long() for c in dc]
+    octant = neg[0] + 2 * neg[1] + 4 * neg[2]                # (P,)
+    inf = float("inf")
+    t_best = tmax.clone()
+    prim = torch.full((npk, PACKET), -1, dtype=torch.int32, device=dev)
+    stack = torch.zeros((npk, STACK_DEPTH), dtype=torch.int32, device=dev)
+    sp = alive.any(1).long()            # live packets start with the root
+    steps = torch.zeros((npk, 2), dtype=torch.int32, device=dev)
+    act = torch.nonzero(sp > 0).squeeze(1)
+    while act.numel() > 0:
+        top = sp[act] - 1
+        ref = stack[act, top]
+        sp[act] = top
+        is_node = ref >= 0
+        ni = act[is_node]
+        if ni.numel() > 0:
+            steps[ni, 0] += 1
+            node = ref[is_node].long()
+            live = alive[ni]
+            if any_hit:
+                live = live & (prim[ni] < 0)
+            if stats is not None:
+                stats["node_pops"] += int(live.sum())
+            b = wb[node][:, None]                            # (m, 1, 6, 8)
+            t0 = [(b[:, :, c] - oc[c][ni, :, None]) * inv[c][ni, :, None]
+                  for c in range(3)]
+            t1 = [(b[:, :, 3 + c] - oc[c][ni, :, None]) * inv[c][ni, :, None]
+                  for c in range(3)]
+            tn = torch.maximum(
+                torch.maximum(torch.minimum(t0[0], t1[0]),
+                              torch.minimum(t0[1], t1[1])),
+                torch.maximum(torch.minimum(t0[2], t1[2]),
+                              tmin[ni, :, None]))
+            tf = torch.minimum(
+                torch.minimum(torch.maximum(t0[0], t1[0]),
+                              torch.maximum(t0[1], t1[1])),
+                torch.minimum(torch.maximum(t0[2], t1[2]),
+                              t_best[ni, :, None]))
+            # (m, 8) by slot: any live lane hits the child; NaN pads: False
+            hit = ((tn <= tf) & live[:, :, None]).any(1)
+            ent = wo[octant[ni] * w + node]                  # (m, 8) i32
+            push = torch.gather(hit, 1, (ent & 7).long())    # in push order
+            pos = sp[ni, None] + torch.cumsum(push, 1) - push.long()
+            if bool((pos[push] >= STACK_DEPTH).any()):
+                raise RuntimeError("packet walk: stack overflow")
+            rows = ni[:, None].expand(-1, 8)[push]
+            stack[rows, pos[push]] = (ent >> 3)[push]        # arithmetic >>
+            sp[ni] += push.sum(1)
+        li = act[~is_node]
+        if li.numel() > 0:
+            steps[li, 1] += 1
+            cl = (-ref[~is_node] - 1).long()
+            live = alive[li]
+            if any_hit:
+                live = live & (prim[li] < 0)
+            ok, t = leaf_test(cl, [c[li, :, None] for c in oc],
+                              [c[li, :, None] for c in dc],
+                              tmin[li, :, None])             # (m, PACKET, K)
+            valid = (ids[cl] >= 0)[:, None]
+            tb = t_best[li, :, None]
+            acc = ok & valid & live[:, :, None] & (
+                (t < tb) | ((prim[li] < 0)[:, :, None] & (t == tb)))
+            got = acc.any(2)
+            j_first = torch.argmax(acc.to(torch.uint8), 2)
+            j = j_first if any_hit else torch.argmin(
+                torch.where(acc, t, inf), 2)
+            if stats is not None:
+                tested = valid & live[:, :, None]
+                if any_hit:
+                    tested = tested & ~(got[:, :, None] & (
+                        torch.arange(k, device=dev) > j_first[:, :, None]))
+                stats["tri_tests"] += int(tested.sum())
+            t_new = torch.gather(t, 2, j[:, :, None])[:, :, 0]
+            t_best[li] = torch.where(got, t_new, t_best[li])
+            prim[li] = torch.where(
+                got, (cl[:, None] * k + j).to(torch.int32), prim[li])
+            if any_hit:     # the packet ends once no live lane lacks a hit
+                sp[li[~(alive[li] & (prim[li] < 0)).any(1)]] = 0
+        act = act[sp[act] > 0]
+        if stats is not None:
+            stats["rounds"] += 1
+    t_out = torch.where(prim >= 0, t_best, inf).view(-1)[:n]
+    prim = prim.view(-1)[:n]
+    return (t_out, prim, steps) if counters else (t_out, prim)
+
+
+def traverse5_plain(bvh: PackedBVH, o, d, tmin, tmax, *,
+                    any_hit: bool = False, counters: bool = False,
+                    stats=None):
+    """``traverse5`` in plain PyTorch (see ``_packet_plain``)."""
+    return _packet_plain(bvh, o, d, tmin, tmax, any_hit, _leaf_mt(bvh),
+                         counters, stats)
+
+
+def traverse7_plain(bvh: PackedBVH, o, d, tmin, tmax, *,
+                    any_hit: bool = False, counters: bool = False,
+                    stats=None):
+    """``traverse7`` in plain PyTorch (see ``_packet_plain``)."""
+    _require_woop(bvh)
+    return _packet_plain(bvh, o, d, tmin, tmax, any_hit, _leaf_woop(bvh),
+                         counters, stats)
 
 
 # ---------------------------------------------------------------------------
@@ -477,41 +867,66 @@ def _bits_i32(col):
     return col.contiguous().view(torch.int32)
 
 
-def finish_hits(bvh: PackedBVH, perm, o, d, tmin, t_approx, prim_p):
+def _lerped(bvh, rows, pp, time):
+    """v0/e1/e2 component rows of the winners, lerped to the rays' shutter
+    times for a moving scene: the kernel's two operations, a multiply and
+    then an add. Only columns 0-8 of the delta rows are read."""
+    cols = [rows[c] for c in range(9)]
+    if time is not None and bvh.soup16d is not None:
+        rd = bvh.soup16d[pp].t()
+        cols = [a + time * rd[c] for c, a in enumerate(cols)]
+    return cols[0:3], cols[3:6], cols[6:9]
+
+
+def finish_hits(bvh: PackedBVH, perm, o, d, tmin, t_approx, prim_p,
+                time=None):
     """Exact (t, b1, b2) + original prim ids for the kernel's winners: one
-    row gather from soup16, one Moeller-Trumbore evaluation per ray."""
+    row gather from soup16, one Moeller-Trumbore evaluation per ray (on the
+    vertices lerped to `time` for a moving scene)."""
     oc, dc = _components(o, d)
     hit = prim_p >= 0
     pp = prim_p.clamp_min(0).long()
     rows = bvh.soup16[pp].t()                   # (16, R)
-    t_out, u, v = _exact_mt(oc, dc, rows[0:3], rows[3:6], rows[6:9], hit)
+    t_out, u, v = _exact_mt(oc, dc, *_lerped(bvh, rows, pp, time), hit)
     prim = torch.where(hit, _bits_i32(rows[9]), -1)
     return t_out, prim, u, v
 
 
-def finish_hits_rows(bvh: PackedBVH, attrp, o, d, tmin, t_approx, prim_p):
+def finish_hits_rows(bvh: PackedBVH, attrp, o, d, tmin, t_approx, prim_p,
+                     time=None):
     """finish_hits via the COMBINED finish+interaction table: one row gather
     serves both the exact-hit evaluation (cols 0-8 = the packed soup the
     kernel tested, col 36 = original prim id bits) and the shading
-    interaction downstream (cols 9-35, scene/types._pack_attr layout).
+    interaction downstream (cols 9-35, scene/types._pack_attr layout). For a
+    moving scene the finish vertices are lerped to `time`; the shading
+    columns of the returned rows stay at shutter start.
 
     Returns (t, prim, b1, b2, rows) with rows (48, R)."""
     oc, dc = _components(o, d)
     hit = prim_p >= 0
     pp = prim_p.clamp_min(0).long()
     rows = attrp[pp].t().contiguous()           # (48, R)
-    t_out, u, v = _exact_mt(oc, dc, rows[0:3], rows[3:6], rows[6:9], hit)
+    t_out, u, v = _exact_mt(oc, dc, *_lerped(bvh, rows, pp, time), hit)
     prim = torch.where(hit, _bits_i32(rows[36]), -1)
     return t_out, prim, u, v, rows
 
 
-def _sorted_launch(bvh, key, planes, any_hit, mixed):
-    """Stable sort by key, gather the ray planes, traverse, unsort."""
+# which kernel serves which kind of wave, by name (the reference's table also
+# carries a block height; the port's packet width is fixed, so there is none
+# to choose). v6 everywhere, as in the reference; "v5" and "v7" are the
+# packet kernels, kept for coherent (unsorted camera) waves.
+DEFAULT_KERNEL = dict(closest_coherent="v6", closest="v6", any="v6")
+_UNPORTED = ("v1", "v2", "v3", "v4")
+
+
+def _sorted_launch(fn, bvh, key, planes, **kw):
+    """Stable sort by key, gather the ray planes (o, d, tmin, tmax, then the
+    optional per-lane planes named in `kw`), traverse with `fn`, unsort."""
     order = torch.sort(key, stable=True).indices
     s = [p[order] for p in planes]
-    t_s, prim_s = traverse6(bvh, V3(s[0], s[1], s[2]), V3(s[3], s[4], s[5]),
-                            s[6], s[7], any_hit=any_hit,
-                            anyf=s[8] if mixed else None)
+    kw = {k: (v[order] if torch.is_tensor(v) else v) for k, v in kw.items()}
+    t_s, prim_s = fn(bvh, V3(s[0], s[1], s[2]), V3(s[3], s[4], s[5]),
+                     s[6], s[7], **kw)
     t = torch.empty_like(t_s)
     prim_p = torch.empty_like(prim_s)
     t[order] = t_s
@@ -522,37 +937,62 @@ def _sorted_launch(bvh, key, planes, any_hit, mixed):
 @torch.no_grad()
 def intersect_rays(bvh: PackedBVH, perm, lo, hi, o, d, tmin, tmax, *,
                    any_hit: bool = False, sort: bool = True,
-                   rows_table=None):
+                   kernel: str | None = None, time=None, rows_table=None):
     """Full traversal pipeline: coherence sort -> kernel -> unsort -> finish.
 
     Returns (t, prim, b1, b2) in the ORIGINAL ray order; prim indexes the
     original triangle soup (-1 miss). For any_hit, b1/b2 are zeros, t is the
     (approximate) blocker distance and prim is the PERMUTED id (callers only
     test its sign). With rows_table (the geometry's attrp) the return tuple
-    gains the gathered (48, R) rows."""
+    gains the gathered (48, R) rows.
+
+    kernel: "v6", "v5" or "v7"; None takes ``DEFAULT_KERNEL`` by the kind of
+    wave (any-hit, sorted closest, unsorted closest). time: (R,) shutter
+    times in [0, 1] for a scene packed with deltas; it travels with the sort
+    and needs the v6 kernel."""
+    cfg_key = "any" if any_hit else ("closest" if sort else "closest_coherent")
+    which = kernel if kernel else DEFAULT_KERNEL[cfg_key]
+    if which in _UNPORTED:
+        raise NotImplementedError(
+            f"traversal kernel {which!r} (over the binary BVH) is not ported "
+            "(ROADMAP Queue 2)")
+    fns = {"v5": traverse5, "v6": traverse6, "v7": traverse7}
+    if which not in fns:
+        raise ValueError(f"unknown traversal kernel {which!r}")
+    if bvh.soup16d is None:
+        time = None
+    if time is not None and which != "v6":
+        raise ValueError("moving geometry requires the v6 kernel, "
+                         f"not {which!r}")
+    kw = {"any_hit": any_hit}
+    if time is not None:
+        kw["time"] = time
     oc, dc = _components(o, d)
     if sort:
         key = sort_key_i32(oc, dc, tmin, tmax, lo, hi)
-        t, prim_p = _sorted_launch(bvh, key, [*oc, *dc, tmin, tmax],
-                                   any_hit, False)
+        t, prim_p = _sorted_launch(fns[which], bvh, key,
+                                   [*oc, *dc, tmin, tmax], **kw)
     else:
-        t, prim_p = traverse6(bvh, o, d, tmin, tmax, any_hit=any_hit)
+        t, prim_p = fns[which](bvh, o, d, tmin, tmax, **kw)
     if any_hit:
         z = torch.zeros_like(t)
         return t, prim_p, z, z
     if rows_table is not None:
-        return finish_hits_rows(bvh, rows_table, o, d, tmin, t, prim_p)
-    return finish_hits(bvh, perm, o, d, tmin, t, prim_p)
+        return finish_hits_rows(bvh, rows_table, o, d, tmin, t, prim_p,
+                                time=time)
+    return finish_hits(bvh, perm, o, d, tmin, t, prim_p, time=time)
 
 
 @torch.no_grad()
 def intersect_rays_pair(bvh: PackedBVH, perm, lo, hi,
                         o_e, d_e, tmin_e, tmax_e,
-                        o_s, d_s, tmin_s, tmax_s, *, rows_table=None):
+                        o_s, d_s, tmin_s, tmax_s, *,
+                        time_e=None, time_s=None, rows_table=None):
     """ONE traversal launch over 2R lanes: closest-hit extension rays +
-    any-hit shadow rays, told apart by a per-lane flag (the kernel's mixed
+    any-hit shadow rays, told apart by a per-lane flag (the v6 kernel's mixed
     mode). Both sets start at the same hit points, so they share the sort
-    and the launch.
+    and the launch. For a scene packed with deltas the two time planes are
+    concatenated and sorted with the rest.
 
     Returns (t, prim, b1, b2) for the extension half (original order,
     original soup ids) and `occluded` bool for the shadow half
@@ -565,14 +1005,17 @@ def intersect_rays_pair(bvh: PackedBVH, perm, lo, hi,
     tmin = torch.cat([tmin_e, tmin_s])
     tmax = torch.cat([tmax_e, tmax_s])
     af = torch.cat([torch.zeros_like(tmin_e), torch.ones_like(tmin_s)])
+    if time_e is None or bvh.soup16d is None:
+        time_e = None
+    kw = {} if time_e is None else {"time": torch.cat([time_e, time_s])}
     key = sort_key_i32(oc, dc, tmin, tmax, lo, hi, anyflag=af)
-    t, prim_p = _sorted_launch(bvh, key, [*oc, *dc, tmin, tmax, af],
-                               False, True)
+    t, prim_p = _sorted_launch(traverse6, bvh, key, [*oc, *dc, tmin, tmax],
+                               anyf=af, **kw)
     occluded = prim_p[n:] >= 0
     if rows_table is not None:
         te, prime, b1, b2, rows = finish_hits_rows(
-            bvh, rows_table, o_e, d_e, tmin_e, t[:n], prim_p[:n])
+            bvh, rows_table, o_e, d_e, tmin_e, t[:n], prim_p[:n], time=time_e)
         return te, prime, b1, b2, occluded, rows
     te, prime, b1, b2 = finish_hits(bvh, perm, o_e, d_e, tmin_e,
-                                    t[:n], prim_p[:n])
+                                    t[:n], prim_p[:n], time=time_e)
     return te, prime, b1, b2, occluded

@@ -40,16 +40,30 @@ def _v3(t):
     return vm.V3(*(_f32(c) for c in t))
 
 
+def _opt(d, key, conv):
+    return None if d.get(key) is None else conv(d[key])
+
+
+def woop_rows(woop, k):
+    """The reference's (C, 4, 3K) Woop operand (column ``c*K + j`` holds
+    ``[W[c, :], w[c]]`` of triangle j) -> the port's (C*K, 12) row table
+    ``[W_0 w_0 | W_1 w_1 | W_2 w_2]``: the same numbers, bit for bit."""
+    a = _f32(woop)
+    return np.ascontiguousarray(
+        a.reshape(a.shape[0], 4, 3, k).transpose(0, 3, 2, 1)).reshape(-1, 12)
+
+
 def _packed(d) -> tc.PackedBVH:
-    if any(d.get(k) is not None for k in ("tdv0", "tde1", "tde2", "soup16d")):
-        raise NotImplementedError(
-            "moving geometry needs the traversal kernel's motion mode "
-            "(ROADMAP Queue 2, v6 motion)")
+    """The reference's per-component delta soups (``tdv0`` / ``tde1`` /
+    ``tde2``) are not carried: its ``soup16d`` holds the same numbers in the
+    row layout the port's kernel reads."""
     soup16 = _f32(d["soup16"])
     k = int(d["k"])
     tc.check_pads_trail(soup16[:, 9].view(np.int32).reshape(-1, k))
     return tc.PackedBVH(
         wbounds=_f32(d["wbounds"]), worder=_i32(d["worder"]), soup16=soup16,
+        soup16d=_opt(d, "soup16d", _f32),
+        woop=_opt(d, "woop", lambda a: woop_rows(a, k)),
         n_nodes=int(d["n_nodes"]), n_clusters=int(d["n_clusters"]),
         k=k, n_wnodes=int(d["n_wnodes"]))
 
@@ -60,15 +74,17 @@ def _cluster(d) -> cluster_mod.ClusterBVH:
         node_child=_i32(d["node_child"]), node_axis=_i32(d["node_axis"]),
         tri_v0=_f32(d["tri_v0"]), tri_e1=_f32(d["tri_e1"]),
         tri_e2=_f32(d["tri_e2"]), tri_id=_i32(d["tri_id"]),
+        tri_dv0=_opt(d, "tri_dv0", _f32), tri_de1=_opt(d, "tri_de1", _f32),
+        tri_de2=_opt(d, "tri_de2", _f32),
         n_nodes=int(d["n_nodes"]), n_clusters=int(d["n_clusters"]),
         k=int(d["k"]), max_depth=int(d["max_depth"]))
 
 
 def _geometry(d) -> st.Geometry:
-    if d.get("has_alpha") or d.get("has_motion") or d.get("alt_kind"):
+    if d.get("has_alpha") or d.get("alt_kind"):
         raise NotImplementedError(
-            "alpha cut-outs, moving geometry and the grid / kd-tree "
-            "accelerators are not ported (ROADMAP Queue 1 / Queue 2)")
+            "alpha cut-outs and the grid / kd-tree accelerators are not "
+            "ported (ROADMAP Queue 1)")
     return st.Geometry(
         cl=_cluster(d["cl"]), packed=_packed(d["packed"]),
         perm=_i32(d["perm"]), attr=_f32(d["attr"]), attrp=_f32(d["attrp"]),
@@ -78,6 +94,7 @@ def _geometry(d) -> st.Geometry:
         mat_id=_i32(d["mat_id"]), light_id=_i32(d["light_id"]),
         world_bound=_f32(d["world_bound"]),
         n_prims=int(d["n_prims"]), n_nodes=int(d["n_nodes"]),
+        has_motion=bool(d.get("has_motion", False)),
         shutter=tuple(d.get("shutter", (0.0, 1.0))))
 
 

@@ -7,8 +7,14 @@ device once, at render entry. The device side (``intersect``,
 ``intersect_p``, ``intersect_pair``, ``interaction``) works on whole
 wavefronts of rays.
 
-Not ported yet (each raises ``NotImplementedError``): alpha cut-outs, moving
-geometry (the kernel's motion mode), the grid and kd-tree accelerators.
+A mesh with ``verts_end`` makes the scene a moving one: ONE shutter-union BVH
+plus per-triangle (close - open) deltas, every traversal carries the rays'
+normalised shutter time and the kernel lerps the leaf triangles to it.
+Finish vertices are lerped too; shading attributes (normals, uv, ``ng``,
+``dpdu``) stay at shutter start, as in the reference.
+
+Not ported yet (each raises ``NotImplementedError``): alpha cut-outs, the grid
+and kd-tree accelerators.
 """
 from __future__ import annotations
 
@@ -87,10 +93,6 @@ def compile_geometry(meshes, mat_ids=None, light_ids=None,
         raise NotImplementedError(
             f"accelerator {accelerator!r}: only the cluster BVH is ported "
             "(ROADMAP Queue 1, alternate accelerators)")
-    if any(getattr(m, "verts_end", None) is not None for m in meshes):
-        raise NotImplementedError(
-            "moving geometry needs the traversal kernel's motion mode "
-            "(ROADMAP Queue 2, v6 motion)")
     if any(getattr(m, "alpha_tid", -1) >= 0 for m in meshes):
         raise NotImplementedError(
             "alpha cut-outs are not ported (ROADMAP Queue 1, textures)")
@@ -125,10 +127,23 @@ def compile_geometry(meshes, mat_ids=None, light_ids=None,
     v0 = np.concatenate(v0s)
     e1 = np.concatenate(e1s)
     e2 = np.concatenate(e2s)
-    cb = cluster_mod.build(v0, e1, e2, split_method=split_method)
+    # moving geometry: ONE shutter-union BVH + per-triangle (close - open)
+    # soup deltas; leaf tests lerp by ray time
+    has_motion = any(m.verts_end is not None for m in meshes)
+    if has_motion:
+        ends = [bvh_mod.triangles_to_mt(
+            m.verts if m.verts_end is None else m.verts_end, m.faces)
+            for m in meshes]
+        cb = cluster_mod.build_motion(
+            v0, e1, e2, *(np.concatenate([e[c] for e in ends])
+                          for c in range(3)), split_method=split_method)
+    else:
+        cb = cluster_mod.build(v0, e1, e2, split_method=split_method)
     wb = np.stack([np.asarray(cb.node_lo[0]), np.asarray(cb.node_hi[0])])
     packed, perm = tc.pack(cb.node_lo, cb.node_hi, cb.node_child,
-                           cb.tri_v0, cb.tri_e1, cb.tri_e2, cb.tri_id)
+                           cb.tri_v0, cb.tri_e1, cb.tri_e2, cb.tri_id,
+                           deltas=((cb.tri_dv0, cb.tri_de1, cb.tri_de2)
+                                   if has_motion else None))
     vn_all = np.concatenate(vns)          # (F, 3 corners, 3)
     uv_all = np.concatenate(uvs)          # (F, 3 corners, 2)
     mat_all = np.concatenate(mids)
@@ -153,7 +168,7 @@ def compile_geometry(meshes, mat_ids=None, light_ids=None,
         mat_id=mat_all, light_id=light_all,
         world_bound=wb.astype(np.float32),
         n_prims=int(v0.shape[0]), n_nodes=cb.n_nodes,
-        shutter=tuple(shutter))
+        has_motion=has_motion, shutter=tuple(shutter))
 
 
 def _v3_of(a):
@@ -259,11 +274,19 @@ def _bits_i32(col):
     return col.contiguous().view(torch.int32)
 
 
-def _check_static(geom):
-    if geom.has_alpha or geom.has_motion:
+def _check_opaque(geom):
+    if geom.has_alpha:
         raise NotImplementedError(
-            "alpha cut-outs and moving geometry are not ported "
-            "(ROADMAP Queue 1 textures / Queue 2 v6 motion)")
+            "alpha cut-outs are not ported (ROADMAP Queue 1, textures)")
+
+
+def _shutter_time01(geom: Geometry, rays):
+    """The rays' shutter time normalised to [0, 1] for the motion lerp
+    (None for a static scene)."""
+    if not geom.has_motion:
+        return None
+    open_, close = geom.shutter
+    return ((rays.time - open_) / max(close - open_, 1e-9)).clamp(0.0, 1.0)
 
 
 @torch.no_grad()
@@ -271,11 +294,11 @@ def intersect(geom: Geometry, rays, sort: bool = True) -> Hits:
     """Closest hit over the scene BVH. No gradient passes the traversal:
     visibility decisions carry no derivative, shading is evaluated at the
     returned hit points."""
-    _check_static(geom)
+    _check_opaque(geom)
     t, prim, b1, b2, rows = tc.intersect_rays(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
         rays.o, rays.d, rays.tmin, rays.tmax, any_hit=False, sort=sort,
-        rows_table=geom.attrp)
+        time=_shutter_time01(geom, rays), rows_table=geom.attrp)
     return Hits(t=t, prim=prim, b1=b1, b2=b2, rows=rows)
 
 
@@ -286,22 +309,24 @@ def intersect_pair(geom: Geometry, ext_rays, shadow_rays):
     bounce hit points, so they share the coherence sort and the launch.
 
     Returns (Hits for ext_rays, occluded bool for shadow_rays)."""
-    _check_static(geom)
+    _check_opaque(geom)
     t, prim, b1, b2, occ, rows = tc.intersect_rays_pair(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
         ext_rays.o, ext_rays.d, ext_rays.tmin, ext_rays.tmax,
         shadow_rays.o, shadow_rays.d, shadow_rays.tmin, shadow_rays.tmax,
-        rows_table=geom.attrp)
+        time_e=_shutter_time01(geom, ext_rays),
+        time_s=_shutter_time01(geom, shadow_rays), rows_table=geom.attrp)
     return Hits(t=t, prim=prim, b1=b1, b2=b2, rows=rows), occ
 
 
 @torch.no_grad()
 def intersect_p(geom: Geometry, rays, sort: bool = True):
     """Any-hit occlusion: (R,) bool."""
-    _check_static(geom)
+    _check_opaque(geom)
     _, prim, _, _ = tc.intersect_rays(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
-        rays.o, rays.d, rays.tmin, rays.tmax, any_hit=True, sort=sort)
+        rays.o, rays.d, rays.tmin, rays.tmax, any_hit=True, sort=sort,
+        time=_shutter_time01(geom, rays))
     return prim >= 0
 
 
@@ -322,7 +347,12 @@ def interaction(geom: Geometry, rays, hits, diffs=None):
     ng = attr_v3(rows, 9)
     dpdu = attr_v3(rows, 12)
     dpdv = attr_v3(rows, 15)
-    p = v0 + e1g * hits.b1 + e2g * hits.b2
+    if geom.has_motion:
+        # the hit point comes from the ray (exact for the returned t); uv
+        # and normals interpolate the shutter-start triangle
+        p = rays.o + rays.d * hits.t.clamp_max(1e30)
+    else:
+        p = v0 + e1g * hits.b1 + e2g * hits.b2
     b0 = 1.0 - hits.b1 - hits.b2
     vn0 = attr_v3(rows, 18)
     vn1 = attr_v3(rows, 21)

@@ -15,6 +15,7 @@ from dartray_tpu_torch import lights as lt_mod
 from dartray_tpu_torch import materials as mat_mod
 from dartray_tpu_torch import samplers, textures
 from dartray_tpu_torch.core import spectrum as spec
+from dartray_tpu_torch.ops import traverse_cuda as tc
 from dartray_tpu_torch.scene import adapt
 from dartray_tpu_torch.scene import build as sb
 from dartray_tpu_torch.scene import mesh as mesh_mod
@@ -80,7 +81,7 @@ def test_from_reference_round_trip():
 def test_from_reference_refuses_what_is_not_ported():
     ref = th.np_tree(ref_sb.cornell_box(
         sphere_material=None).build())
-    ref["geometry"]["has_motion"] = True
+    ref["geometry"]["alt_kind"] = "grid"
     with pytest.raises(NotImplementedError):
         adapt.from_reference(ref)
     rb = ref_sb.cornell_box()
@@ -89,9 +90,9 @@ def test_from_reference_refuses_what_is_not_ported():
         adapt.from_reference(th.np_tree(rb.build()))
 
 
-def _moving_mesh():
+def _cutout_mesh():
     m = mesh_mod.sphere(nu=8, nv=4)
-    m.verts_end = m.verts + 1.0
+    m.alpha_tid = 0
     return m
 
 
@@ -118,7 +119,9 @@ def _moving_mesh():
     ("spectrum_sampled", lambda: spec.set_mode("sampled")),
     ("accel_grid", lambda: st.compile_geometry(
         [mesh_mod.sphere(nu=8, nv=4)], accelerator="grid")),
-    ("motion", lambda: st.compile_geometry([_moving_mesh()])),
+    ("alpha", lambda: st.compile_geometry([_cutout_mesh()])),
+    ("kernel_v3", lambda: tc.intersect_rays(
+        None, None, None, None, None, None, None, None, kernel="v3")),
     ("image_texture", lambda: textures.check_supported(
         textures.TextureData(kind=None, value=None, n=1,
                              kinds_present=(0, 1)))),

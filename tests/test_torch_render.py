@@ -126,6 +126,67 @@ def test_render_wave_on_the_reference_scene(reference):
     assert sum(tc.LAUNCHES.values()) == 0
 
 
+SPHERE = 6          # the matte sphere among the meshes of cornell_box()
+SHIFT = np.asarray([0.5, 0, 0], np.float32)
+
+
+def _moving_cornell(mod, shift):
+    """The Cornell box with its matte sphere translating by `shift` over the
+    cameras' default shutter [0, 1] (`mod`: either package's scene.build)."""
+    b = mod.cornell_box()
+    b.meshes[SPHERE].verts_end = b.meshes[SPHERE].verts + shift
+    return b.build()
+
+
+def _port_render(host, spp, depth):
+    cam = cameras.perspective(tr.look_at(EYE, LOOK, UP), FOV, W, H,
+                              device="cpu")
+    smp = samplers.make_sampler("lowdiscrepancy", spp=spp)
+    return rend.render(host, cam, smp, _port_li(depth), W, H, device="cpu")
+
+
+def test_render_moving_scene_matches_reference(interpret_kernel):
+    """Moving geometry end to end: camera rays draw their time from the
+    shutter, every traversal (camera wave, merged launches, last shadow
+    wave) runs the motion mode, shadow rays carry their surface ray's time.
+    Reference: its v6 kernel with ``motion=True``, interpreted."""
+    film = _reference_render(_moving_cornell(ref_sb, SHIFT), EYE, LOOK, FOV,
+                             1, 3)
+    host = _moving_cornell(sb, SHIFT)
+    assert host.geometry.has_motion
+    img = _port_render(host, 1, 3)
+    _check_image(img, np.asarray(ref_film.to_rgb(film)))
+    still = _port_render(sb.cornell_box().build(), 1, 3)
+    assert not np.allclose(img, still, rtol=1e-3, atol=1e-4)
+
+
+def test_zero_delta_scene_renders_the_static_image():
+    """``v + t * 0 == v`` bit for bit: a scene whose ``verts_end`` equals its
+    ``verts`` goes through the motion mode and the ray-derived hit point and
+    must still give the static scene's image. The hit point differs in its
+    last bits (``o + t d`` against ``v0 + b1 e1 + b2 e2``), hence a tolerance
+    on the image and equality on what the traversal returns."""
+    moving = _moving_cornell(sb, np.zeros(3, np.float32))
+    static = sb.cornell_box().build()
+    assert moving.geometry.has_motion and not static.geometry.has_motion
+    assert not moving.geometry.packed.soup16d.any()
+    assert th.same_bits(moving.geometry.packed.soup16,
+                        static.geometry.packed.soup16)
+    cam = cameras.perspective(tr.look_at(EYE, LOOK, UP), FOV, W, H,
+                              device="cpu")
+    smp = samplers.make_sampler("lowdiscrepancy", spp=1)
+    px, py = rend.pixel_grid(W, H, device="cpu")
+    cs = samplers.camera_samples(smp, px, py, torch.zeros_like(px))
+    rays, _, _ = cameras.generate_rays(cam, cs, W, H)
+    hm = st.intersect(st.to_device(moving, "cpu").geometry, rays)
+    hs = st.intersect(st.to_device(static, "cpu").geometry, rays)
+    for a, b in zip(hm[:4], hs[:4]):
+        assert torch.equal(a, b)
+    img_m = _port_render(moving, 1, 3)
+    img_s = _port_render(static, 1, 3)
+    _check_image(img_m, img_s)
+
+
 BENCH_TRIS = 2000
 
 

@@ -1,5 +1,6 @@
-"""PyTorch port, traversal: the plain version of the CUDA kernel and the glue
-around it against (a) the reference's v6 Pallas kernel in interpret mode on
+"""PyTorch port, traversal: the plain versions of the CUDA kernels (v6 per-ray
+walk, v5 packet walk, v7 packet walk with the Woop leaf test) and the glue
+around them against (a) the reference's Pallas kernels in interpret mode on
 the SAME packed BVH and (b) brute force.
 
 Tolerances: hit masks agree on >= 0.999 of rays and the 0.999-quantile
@@ -8,6 +9,8 @@ exact tie may pick another triangle; the kernels' raw t is approximate, so
 only finished values are compared); any-hit masks must be equal; packing,
 sort keys and the finish step are exact (same f32 operations).
 """
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -20,6 +23,7 @@ from dartray_tpu.ops import traverse_pallas as tp
 from dartray_tpu_torch.accel import cluster, traverse as tv
 from dartray_tpu_torch.core import math as vm
 from dartray_tpu_torch.ops import traverse_cuda as tc
+from dartray_tpu_torch.scene import adapt
 from dartray_tpu_torch.scene.types import to_device
 
 import torchhelp as th
@@ -43,7 +47,9 @@ def world():
     lo, hi = v0.min(0) - 1.0, v0.max(0) + 1.0
     return dict(v0=v0, e1=e1, e2=e2, packed=packed, perm=perm,
                 bvh=to_device(packed, "cpu"), permt=torch.from_numpy(perm),
-                rpacked=rpacked, rperm=rperm, lo=lo, hi=hi)
+                bvh_woop=to_device(tc.with_woop(packed), "cpu"),
+                rpacked=rpacked, rpacked_woop=tp.with_woop(rpacked),
+                rperm=rperm, lo=lo, hi=hi)
 
 
 def _port_rays(o, d, tmax=None):
@@ -212,23 +218,171 @@ def test_intersect_rays_pair_matches_reference_and_bruteforce(world):
 
 
 def test_cuda_tensor_never_takes_the_plain_version(world, monkeypatch):
-    """For a tensor on the card the wrapper launches the kernel or raises; it
-    must not fall back. Here there is no card: the dispatch is checked by
-    making the kernel path raise and a CPU tensor still succeed."""
+    """For a tensor on the card every wrapper launches its kernel or raises;
+    none may fall back. Here there is no card: the dispatch is checked by
+    making the kernel paths raise and a CPU tensor still succeed."""
     def boom(*a, **k):
         raise RuntimeError("kernel path taken")
-    monkeypatch.setattr(tc, "_traverse6_cuda", boom)
+    for name in ("_traverse6_cuda", "_traverse5_cuda", "_traverse7_cuda"):
+        monkeypatch.setattr(tc, name, boom)
     o, d = th.ray_arrays(8, seed=9)
     rays = _port_rays(o, d)
-    tc.traverse6(world["bvh"], rays.o, rays.d, rays.tmin, rays.tmax)
-    assert tc.LAUNCHES == {"closest": 0, "any": 0, "mixed": 0}
+    moving = dataclasses.replace(
+        world["bvh_woop"], soup16d=torch.zeros_like(world["bvh"].soup16))
+    args = (rays.o, rays.d, rays.tmin, rays.tmax)
+    tc.traverse6(world["bvh"], *args)
+    tc.traverse6(moving, *args, time=rays.time)
+    tc.traverse5(moving, *args)
+    tc.traverse7(moving, *args)
+    assert set(tc.LAUNCHES.values()) == {0} and len(tc.LAUNCHES) == 10
 
     class OnCard:
         """Stands in for a tensor whose device is a CUDA device."""
         device = torch.device("cuda", 0)
     fake = vm.V3(OnCard(), OnCard(), OnCard())
-    with pytest.raises(RuntimeError, match="kernel path taken"):
-        tc.traverse6(world["bvh"], fake, fake, None, None)
+    for call in (lambda: tc.traverse6(world["bvh"], fake, fake, None, None),
+                 lambda: tc.traverse6(moving, fake, fake, None, None,
+                                      time=OnCard()),
+                 lambda: tc.traverse5(moving, fake, fake, None, None),
+                 lambda: tc.traverse7(moving, fake, fake, None, None),
+                 lambda: tc.intersect_rays(moving, None, None, None, fake,
+                                           fake, None, None, sort=False,
+                                           kernel="v5")):
+        with pytest.raises(RuntimeError, match="kernel path taken"):
+            call()
+
+
+def test_woop_pack_exact(world):
+    """The Woop table against the reference's operand, through the adapter
+    that turns its (C, 4, 3K) layout into the port's rows."""
+    want = adapt.woop_rows(np.asarray(world["rpacked_woop"].woop),
+                           world["packed"].k)
+    got = tc.woop_pack(world["packed"].soup16, world["packed"].k)
+    assert got.shape == (world["perm"].shape[0], 12)
+    assert th.same_bits(got, want)
+    pad = world["perm"] < 0
+    assert pad.any() and not got[pad].any()
+    assert world["packed"].woop is None         # opt-in, as in the reference
+    with pytest.raises(ValueError, match="with_woop"):
+        tc.traverse7(world["bvh"], None, None, None, None)
+
+
+@pytest.mark.parametrize("which,any_hit", [("v5", False), ("v5", True),
+                                           ("v7", False), ("v7", True)])
+def test_kernel_choice_matches_reference_and_bruteforce(world, which,
+                                                        any_hit):
+    """``intersect_rays(kernel=)``: the packet walks' plain versions against
+    brute force (the reference's own tolerances for these kernels) and
+    against the reference's kernel of the same name, interpreted, on the
+    same packed scene. The two packages walk packets of different widths in
+    different orders, so only finished values are compared."""
+    o, d = th.ray_arrays(N_RAYS, seed=4 if any_hit else 1)
+    rays, rrays = _port_rays(o, d), _ref_rays(o, d)
+    t, prim, _, _ = tc.intersect_rays(
+        world["bvh_woop"], world["permt"], torch.from_numpy(world["lo"]),
+        torch.from_numpy(world["hi"]), rays.o, rays.d, rays.tmin, rays.tmax,
+        any_hit=any_hit, sort=False, kernel=which)
+    t, prim = t.numpy(), prim.numpy()
+    bf = tv.brute_force_intersect(th.t3(world["v0"]), th.t3(world["e1"]),
+                                  th.t3(world["e2"]), rays)
+    rt, rprim, _, _ = tp.intersect_rays(
+        world["rpacked_woop"], jnp.asarray(world["rperm"]),
+        jnp.asarray(world["lo"]), jnp.asarray(world["hi"]),
+        rrays.o, rrays.d, rrays.tmin, rrays.tmax, any_hit=any_hit, sort=False,
+        kernel=which, interpret=True)
+    rt, rhit = np.asarray(rt), np.asarray(rprim) >= 0
+    if any_hit:
+        assert ((prim >= 0) == bf.hit.numpy()).all()
+        assert ((prim >= 0) == rhit).all()
+        return
+    _check_closest(t, prim, bf.t.numpy(), bf.hit.numpy())
+    assert ((prim >= 0) == rhit).mean() > 0.999
+    both = (prim >= 0) & rhit & (prim == np.asarray(rprim))
+    assert both.sum() > 0.99 * rhit.sum()
+    np.testing.assert_allclose(t[both], rt[both], rtol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["v5", "v7"])
+def test_packet_walk_sorted_with_dead_lanes_and_ragged_tail(world, which):
+    """Sorted waves, a wave that does not fill its last packet, dead lanes
+    and the counters: one entry per packet, nothing walked for a packet
+    whose lanes are all dead."""
+    n = 5 * tc.PACKET + 7
+    o, d = th.ray_arrays(n, seed=51)
+    rng = np.random.RandomState(52)
+    tmax = np.where(rng.rand(n) < 0.3, -1.0, np.inf).astype(np.float32)
+    tmax[2 * tc.PACKET:3 * tc.PACKET] = -1.0            # one dead packet
+    rays = _port_rays(o, d, tmax)
+    bf = tv.brute_force_intersect(th.t3(world["v0"]), th.t3(world["e1"]),
+                                  th.t3(world["e2"]), rays)
+    for any_hit in (False, True):
+        t, prim, _, _ = tc.intersect_rays(
+            world["bvh_woop"], world["permt"], torch.from_numpy(world["lo"]),
+            torch.from_numpy(world["hi"]), rays.o, rays.d, rays.tmin,
+            rays.tmax, any_hit=any_hit, sort=True, kernel=which)
+        assert t.shape == (n,) and torch.equal(prim >= 0, bf.hit)
+        assert not (prim >= 0)[torch.from_numpy(tmax) < 0].any()
+    fn = {"v5": tc.traverse5, "v7": tc.traverse7}[which]
+    stats = {}
+    plain = {"v5": tc.traverse5_plain, "v7": tc.traverse7_plain}[which]
+    plain(world["bvh_woop"], rays.o, rays.d, rays.tmin, rays.tmax,
+          stats=stats)
+    t, prim, cnt = fn(world["bvh_woop"], rays.o, rays.d, rays.tmin,
+                      rays.tmax, counters=True)
+    assert cnt.shape == (6, 2) and cnt.dtype == torch.int32
+    assert (cnt[2] == 0).all() and (cnt[[0, 1, 3, 4, 5]] > 0).all()
+    # a packet's node steps are slab tests of every live lane of it
+    assert cnt[:, 0].sum() <= stats["node_pops"] <= tc.PACKET * cnt[:, 0].sum()
+    assert stats["tri_tests"] > 0
+
+
+@pytest.mark.parametrize("which", ["v1", "v2", "v3", "v4"])
+def test_binary_tree_kernels_raise_by_name(world, which):
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        tc.intersect_rays(world["bvh"], None, None, None, None, None, None,
+                          None, kernel=which)
+
+
+def test_default_kernel_table_routes_waves(world, monkeypatch):
+    """``DEFAULT_KERNEL`` has the reference's keys and kernel names, an
+    unsorted closest-hit wave takes ``closest_coherent``, a sorted one
+    ``closest``, an any-hit one ``any``; moving geometry refuses a packet
+    kernel."""
+    assert tc.DEFAULT_KERNEL == {k: v[0]
+                                 for k, v in tp.DEFAULT_KERNEL.items()}
+    calls = []
+    for name in ("traverse5", "traverse6", "traverse7"):
+        real = getattr(tc, name)
+        monkeypatch.setattr(
+            tc, name, lambda *a, _n=name, _r=real, **k: (calls.append(_n),
+                                                         _r(*a, **k))[1])
+    monkeypatch.setitem(tc.DEFAULT_KERNEL, "closest_coherent", "v5")
+    monkeypatch.setitem(tc.DEFAULT_KERNEL, "any", "v7")
+    o, d = th.ray_arrays(64, seed=61)
+    rays = _port_rays(o, d)
+    run = lambda **kw: tc.intersect_rays(
+        world["bvh_woop"], world["permt"], torch.from_numpy(world["lo"]),
+        torch.from_numpy(world["hi"]), rays.o, rays.d, rays.tmin, rays.tmax,
+        **kw)
+    run(sort=False)
+    run(sort=True)
+    run(any_hit=True)
+    run(sort=False, kernel="v6")
+    assert calls == ["traverse5", "traverse6", "traverse7", "traverse6"]
+    with pytest.raises(ValueError, match="unknown traversal kernel"):
+        run(kernel="v8")
+    moving = dataclasses.replace(
+        world["bvh_woop"], soup16d=torch.zeros_like(world["bvh"].soup16))
+    with pytest.raises(ValueError, match="requires the v6 kernel"):
+        tc.intersect_rays(moving, world["permt"], None, None, rays.o, rays.d,
+                          rays.tmin, rays.tmax, sort=False, time=rays.time)
+    # zero deltas: the motion walk finds exactly the static walk's hits
+    t0, p0, _, _ = run(sort=True, kernel="v6")
+    t1, p1, _, _ = tc.intersect_rays(
+        moving, world["permt"], torch.from_numpy(world["lo"]),
+        torch.from_numpy(world["hi"]), rays.o, rays.d, rays.tmin, rays.tmax,
+        kernel="v6", time=torch.full_like(rays.tmin, 0.37))
+    assert torch.equal(t0, t1) and torch.equal(p0, p1)
 
 
 @pytest.mark.cuda
@@ -256,7 +410,51 @@ def test_kernel_matches_plain_version_on_the_card(world, mode):
                             any_hit=(mode == "any"), anyf=anyf)
     t_p, p_p = tc.traverse6_plain(bvh, rays.o, rays.d, rays.tmin, rays.tmax,
                                   any_hit=(mode == "any"), anyf=anyf)
-    assert tc.LAUNCHES[mode] == before[mode] + 1
+    assert tc.LAUNCHES[f"traverse6:{mode}"] == \
+        before[f"traverse6:{mode}"] + 1
     assert int(tc.overflow_flag(dev).item()) == 0
     assert torch.equal(p_k, p_p)
     assert torch.equal(t_k, t_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kern,mode", [
+    ("traverse6_motion", "closest"), ("traverse6_motion", "any"),
+    ("traverse6_motion", "mixed"), ("traverse5", "closest"),
+    ("traverse5", "any"), ("traverse7", "closest"), ("traverse7", "any")])
+def test_new_kernels_match_plain_version_on_the_card(world, kern, mode):
+    """The motion mode of v6 and the two packet kernels against their plain
+    versions on the same device tensors (4096 + 5 rays: a ragged last
+    packet): identical (t, prim), identical counters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    n = 4096 + 5
+    rng = np.random.RandomState(43)
+    packed = tc.with_woop(world["packed"])
+    delta = (0.2 * rng.randn(*packed.soup16.shape)).astype(np.float32)
+    delta[:, 9:] = 0.0
+    delta[world["perm"] < 0] = 0.0
+    bvh = to_device(dataclasses.replace(packed, soup16d=delta), dev)
+    o, d = th.ray_arrays(n, seed=44)
+    tmax = np.where(rng.rand(n) < 0.2, -1.0, np.inf).astype(np.float32)
+    rays = to_device(_port_rays(o, d, tmax), dev)
+    args = (bvh, rays.o, rays.d, rays.tmin, rays.tmax)
+    kw = {"any_hit": mode == "any"}
+    if kern == "traverse6_motion":
+        kw["time"] = torch.from_numpy(rng.rand(n).astype(np.float32)).to(dev)
+        if mode == "mixed":
+            kw["anyf"] = torch.from_numpy(
+                (rng.rand(n) < 0.5).astype(np.float32)).to(dev)
+        fn, plain = tc.traverse6, tc.traverse6_plain
+    else:
+        kw["counters"] = True
+        fn = getattr(tc, kern)
+        plain = getattr(tc, kern + "_plain")
+    before = tc.LAUNCHES[f"{kern}:{mode}"]
+    tc.reset_overflow(dev)
+    got, want = fn(*args, **kw), plain(*args, **kw)
+    assert tc.LAUNCHES[f"{kern}:{mode}"] == before + 1
+    assert int(tc.overflow_flag(dev).item()) == 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
