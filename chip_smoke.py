@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It needs one CUDA device, `nvcc` (the three traversal kernel libraries are
+It needs one CUDA device, `nvcc` (the seven traversal kernel libraries are
 built from `dartray_tpu_torch/csrc/*.cu` at first use, all `nvcc` runs started
 together) and no network. It imports only the port. Phases, each printing one
 JSON line; any failure raises and the script exits non-zero:
@@ -22,7 +22,10 @@ JSON line; any failure raises and the script exits non-zero:
                v6 closest / any / mixed on the static scene, the v5 and v7
                packet walks on the camera wave (closest) and on sorted
                incoherent rays (any), the v6 motion mode closest / any /
-               mixed on the moving scene
+               mixed on the moving scene, and the four walks over the binary
+               tree (v1-v4) on the same two ray sets: raw (t, prim) and v3's
+               counters EQUAL to the plain version's, hit masks equal to
+               v6's on the same rays
   small_scene  Cornell box 32x32: the whole render on the card against the
                same render on the CPU (plain traversal), pixel by pixel
   motion_small the same with one sphere translating: card against CPU, and
@@ -43,6 +46,20 @@ JSON line; any failure raises and the script exits non-zero:
                launches a wave, image mean within 1 % of the v6 render's),
                and one any-hit call each of intersect_rays(kernel=) on
                sorted incoherent rays, masks against v6's
+  attic_small  the Cornell box through the direct-lighting integrator, with
+               DEFAULT_KERNEL as it is and then with every kind of wave
+               routed to v1, v2, v3 and v4: each image against the v6 image
+  direct_path  the direct-lighting integrator at full width: the bench scene,
+               512x512, strategy ALL, depth 5, 64 spp: 18 launches a wave
+               (6 levels of closest, any, closest), all of the v6 kernel; the
+               path image's mean must exceed this image's
+  attic_path   a few waves of the same render for each of v1-v4 set in
+               DEFAULT_KERNEL: every launch of that kernel, image against
+               direct_path's first waves
+  ao_path      a few waves of the ambient-occlusion integrator with 64 probes
+               (n_samples + 1 launches a wave; the default of 2,048 probes is
+               2,049 launches a wave and belongs to no smoke run)
+  whitted_path a few waves of the Whitted integrator, depth 5
 
 Then one line {"kernels": [...]} (per kernel and mode: launches counted on
 its path, error against the plain version, times, and the least time the
@@ -65,7 +82,10 @@ from dartray_tpu_torch import film as film_mod
 from dartray_tpu_torch.accel import native
 from dartray_tpu_torch.core import math as vm
 from dartray_tpu_torch.core import transform as tr
+from dartray_tpu_torch.integrators import ao as ao_mod
+from dartray_tpu_torch.integrators import direct as di
 from dartray_tpu_torch.integrators import path as pi
+from dartray_tpu_torch.integrators import whitted as wh
 from dartray_tpu_torch.ops import traverse_cuda as tc
 from dartray_tpu_torch.renderers import sampler as rend
 from dartray_tpu_torch.scene import build as sb
@@ -80,6 +100,9 @@ MAX_DEPTH = 5
 SMALL = 32                 # the Cornell renders: SMALL x SMALL pixels,
 SMALL_SPP = 4              # SMALL_SPP samples (one wave each), depth 3
 ALT_WAVES = 4              # waves of the bench scene per packet kernel
+ATTIC_WAVES = 4            # ... per binary-tree kernel, and of AO and Whitted
+AO_SAMPLES = 64            # probes a wave of ao_path
+SAME_MIN = 0.999           # share of pixels two renders of one scene share
 AGREE_MIN = 0.999          # share of lanes whose finished t and prim agree
 T_RTOL = 1e-5              # finished t: both sides finish with the same ops
 # H100 SXM data-sheet peaks: HBM bytes/s, f32 FLOP/s outside tensor cores
@@ -105,6 +128,21 @@ KERNELS = {
                   "dartray_tpu/ops/traverse_pallas.py:521"),
     "traverse7": (CSRC + "traverse7.cu",
                   "dartray_tpu/ops/kernels_attic.py:1169"),
+    "traverse1": (CSRC + "traverse1.cu",
+                  "dartray_tpu/ops/kernels_attic.py:197"),
+    "traverse2": (CSRC + "traverse2.cu",
+                  "dartray_tpu/ops/kernels_attic.py:890"),
+    "traverse3": (CSRC + "traverse3.cu",
+                  "dartray_tpu/ops/kernels_attic.py:843"),
+    "traverse4": (CSRC + "traverse4.cu",
+                  "dartray_tpu/ops/kernels_attic.py:438"),
+}
+# the binary-tree kernels: library -> (name in DEFAULT_KERNEL, wrapper, plain)
+ATTIC = {
+    "traverse1": ("v1", tc.traverse, tc.traverse_plain),
+    "traverse2": ("v2", tc.traverse2, tc.traverse2_plain),
+    "traverse3": ("v3", tc.traverse3, tc.traverse3_plain),
+    "traverse4": ("v4", tc.traverse4, tc.traverse4_plain),
 }
 MOTION_SHIFT = [0.6, 0.0, 0.0]     # the big sphere's travel over the shutter
 
@@ -191,7 +229,11 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
     where they are not the plain version's own counts. A packet walk does
     redundant work (every live lane tests every node and leaf any lane of its
     packet reaches), so the packet kernels' bound takes the per-ray walk's
-    counts on the same rays, and their own are printed beside it."""
+    counts on the same rays, and their own are printed beside it.
+
+    A binary-tree kernel (``ATTIC``) must give its plain version's raw
+    (t, prim) on EVERY lane, and v3 its counters: same tables, same packet,
+    same order of pops, same fold."""
     bvh = geom.packed
     n = rays.n
     any_hit = mode == "any"
@@ -205,6 +247,10 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
         if kern == "traverse6_motion":
             kw["time"] = time = rays.time
             tri_flops += FLOPS_PER_LERP
+    elif kern in ATTIC:
+        _, fn, plain = ATTIC[kern]
+        if kern == "traverse3":
+            kw["counters"] = True
     else:
         fn, plain = getattr(tc, kern), getattr(tc, kern + "_plain")
         if kern == "traverse7":
@@ -214,13 +260,23 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
     run_p = lambda s=None: plain(*args, **kw, stats=s)
     stats = {}
     before = dict(tc.LAUNCHES)
-    t_k, p_k = run_k()
+    t_k, p_k, *cnt_k = run_k()
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in tc.LAUNCHES.items()
                 if v != before[k]}
     require(launched == {f"{kern}:{mode}": 1},
             f"{name}: the wrapper counted {launched}")
-    t_p, p_p = run_p(stats)
+    t_p, p_p, *cnt_p = run_p(stats)
+    extra = {}
+    if kern in ATTIC:
+        require(torch.equal(t_k, t_p) and torch.equal(p_k, p_p),
+                f"{name}: raw (t, prim) differs from the plain version's")
+        if cnt_k:
+            require(torch.equal(cnt_k[0], cnt_p[0]),
+                    f"{name}: counters differ from the plain version's")
+            extra = {"packets": cnt_k[0].shape[0],
+                     "node_steps": int(cnt_k[0][:, 0].sum()),
+                     "leaf_rounds": int(cnt_k[0][:, 1].sum())}
     # compare after the finish step: exact t, original prim ids
     fin = lambda t, p: tc.finish_hits(bvh, geom.perm, rays.o, rays.d,
                                       rays.tmin, t, p, time=time)
@@ -245,14 +301,18 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
     require(masks_equal, f"{name}: any-hit masks differ")
     ms = time_ms(run_k, repeats=7, warmup=2)
     # the packet walks' plain versions take seconds: fewer repeats
-    plain_ms = time_ms(run_p, repeats=5 if kern.startswith("traverse6")
-                       else 3, warmup=0)
+    plain_ms = time_ms(run_p, warmup=0, repeats=5 if kern.startswith(
+        "traverse6") else (1 if kern in ATTIC else 3))
     # the floor: every ray plane read once, (t, prim) written once. What the
     # walk fetches from the tables through L1/L2 depends on the rays and is
     # NOT in the bound; table_bytes (their whole size) is printed beside it
     n_planes = 8 + (anyf is not None) + (time is not None)
-    tables = [bvh.wbounds, bvh.worder,
-              bvh.woop if kern == "traverse7" else bvh.soup16]
+    if kern in ATTIC:
+        tables = [bvh.bounds, bvh.meta2 if tc.ATTIC[kern]["compact"]
+                  else bvh.meta, bvh.soup16]
+    else:
+        tables = [bvh.wbounds, bvh.worder,
+                  bvh.woop if kern == "traverse7" else bvh.soup16]
     if time is not None:
         tables.append(bvh.soup16d)
     table_bytes = sum(x.numel() * x.element_size() for x in tables)
@@ -276,7 +336,8 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
             "packet_node_pops": stats["node_pops"],
             "packet_tri_tests": stats["tri_tests"]}),
         "bytes_ms": bytes_ms, "ops_ms": ops_ms, "table_bytes": table_bytes,
-    }, p_k
+        **extra,
+    }, p_k, ft_k
 
 
 def wave_shapes(geom, dev, cam_rays):
@@ -310,12 +371,13 @@ def kernels_phase(geom, geom_w, shapes, moving, cam_rays, dev):
     cam, inc, mixed, af_s = shapes
     tc.reset_overflow(dev)
     results = []
-    hits = {}
+    hits, finished = {}, {}
 
     def run(kern, mode, g, rays, anyf=None, label=None, need=None):
-        r, p_k = check_kernel(kern, mode, g, rays, anyf, label, need)
+        r, p_k, ft_k = check_kernel(kern, mode, g, rays, anyf, label, need)
         results.append(r)
         hits[r["name"]] = p_k >= 0
+        finished[r["name"]] = ft_k
         return {k: r[k] for k in ("node_pops", "tri_tests")}
 
     per_ray = {"closest": run("traverse6", "closest", geom, cam)}
@@ -327,6 +389,28 @@ def kernels_phase(geom, geom_w, shapes, moving, cam_rays, dev):
     for kern in ("traverse5", "traverse7"):
         run(kern, "closest", geom_w, cam, need=per_ray["closest"])
         run(kern, "any", geom_w, inc, need=per_ray["any"])
+    # the four walks over the BINARY tree, on the same two ray sets, bounded
+    # like the packet walks by what the per-ray walk needed there. Against v6
+    # after the finish step: hit masks EQUAL; closest-hit t within T_RTOL on
+    # all lanes but those where the packed fold (t rounded down by up to 127
+    # ulps, 1.5e-5) took a triangle of a near tie that v6 did not
+    attic_vs_v6 = {}
+    for kern in ATTIC:
+        run(kern, "closest", geom, cam, need=per_ray["closest"])
+        run(kern, "any", geom, inc, need=per_ray["any"])
+        for mode in ("closest", "any"):
+            same = hits[f"{kern}:{mode}"] == hits[f"traverse6:{mode}"]
+            require(bool(same.all()), f"{kern}:{mode}: hit mask differs "
+                    f"from v6's on {int((~same).sum())} lanes")
+        hit = hits[f"{kern}:closest"]
+        t_a, t_6 = finished[f"{kern}:closest"], finished["traverse6:closest"]
+        close = torch.isclose(t_a, t_6, rtol=T_RTOL, atol=0.0) | ~hit
+        share = float(close.float().mean())
+        require(share >= AGREE_MIN, f"{kern}:closest: finished t agrees "
+                f"with v6's on {share} of lanes")
+        attic_vs_v6[kern] = {
+            "masks_equal": True, "t_close_share": share,
+            "t_max_rel_diff": float(((t_a - t_6).abs() / t_6)[hit].max())}
     # the Woop test rounds differently from Moeller-Trumbore and may miss
     # sliver triangles: printed beside v6 on the same rays, not required equal
     v7_vs_v6 = {
@@ -364,8 +448,9 @@ def kernels_phase(geom, geom_w, shapes, moving, cam_rays, dev):
     overflow = int(tc.overflow_flag(dev).item())
     require(overflow == 0, "stack overflow in a kernel")
     say("kernels", kernels=[r["name"] for r in results], overflow=overflow,
-        v7_vs_v6=v7_vs_v6, lerp_cost_same_tree_same_rays=lerp_cost,
-        results=results)
+        v7_vs_v6=v7_vs_v6, attic_vs_v6=attic_vs_v6,
+        packet_lanes={k: v["packet"] for k, v in tc.ATTIC.items()},
+        lerp_cost_same_tree_same_rays=lerp_cost, results=results)
     return results
 
 
@@ -472,23 +557,23 @@ def alt_kernels_phase(dev, v6_img):
     say("alt_kernels", **out)
 
 
-def drive_path(phase, scene, dev, kern, camera_kern=None, waves=None):
-    """`waves` waves (default: all 64) of the path integrator over `scene`
-    through render_wave; requires 7 launches of `kern` per wave and of no
-    other kernel, or, with `camera_kern`, 1 closest-hit launch of that and
-    the other 6 of `kern`."""
+def drive_waves(phase, scene, dev, li, waves, want, snapshot_at=None):
+    """`waves` waves of the integrator `li` over `scene` through
+    render_wave, every count set to 0 just before and read just after;
+    requires the launches `want` (counter -> launches a wave) and no other, a
+    finite image and no stack overflow. Rays are counted as launches times
+    the lanes of a wave. snapshot_at: also return the image after that many
+    waves."""
     cam, smp, px, py, _ = camera_wave(dev)
-    ig = pi.PathIntegrator(max_depth=MAX_DEPTH)
-    li = lambda s, r, d, c: pi.li(ig, s, r, d, c)
     film = film_mod.make_film(WIDTH, HEIGHT, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tc.reset_overflow(dev)
     tc.reset_launches()
     t0 = time.time()
-    t_first = None
+    t_first = snap = None
     with torch.no_grad():
-        for s in range(waves or smp.spp):
+        for s in range(waves):
             film = rend.render_wave(
                 scene, cam, smp, film, px, py,
                 torch.full(px.shape, s, dtype=torch.int32, device=dev),
@@ -497,26 +582,42 @@ def drive_path(phase, scene, dev, kern, camera_kern=None, waves=None):
             if s == 0:
                 torch.cuda.synchronize()
                 t_first = time.time() - t0
+            if s + 1 == snapshot_at:
+                snap = film_mod.to_rgb(film).cpu().numpy()
     torch.cuda.synchronize()
     secs = time.time() - t0
     launches = dict(tc.LAUNCHES)
-    waves = waves or smp.spp
     img = film_mod.to_rgb(film).cpu().numpy()
     overflow = int(tc.overflow_flag(dev).item())
-    rays = px.shape[0] * 2 * (MAX_DEPTH + 1) * waves
+    n_launches = sum(launches.values())
     info = dict(waves=waves, seconds=secs, first_wave_seconds=t_first,
-                rays_per_s=rays / secs,
                 launches={k: v for k, v in launches.items() if v},
+                launches_per_wave=n_launches / waves,
+                launched_rays_per_s=n_launches * px.shape[0] / secs,
                 img_mean=float(img.mean()), overflow=overflow,
                 peak_mem_bytes=torch.cuda.max_memory_allocated(),
                 tris=scene.geometry.n_prims)
-    want = {f"{camera_kern or kern}:closest": waves,
-            f"{kern}:mixed": MAX_DEPTH * waves, f"{kern}:any": waves}
+    want = {k: v * waves for k, v in want.items()}
     require(info["launches"] == want,
             f"{phase}: kernel launches {info['launches']}, expected {want}")
     require(overflow == 0, f"{phase}: stack overflow in the kernel")
     require(img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(img).all(),
             f"{phase}: image not finite or of the wrong shape")
+    return launches, img, info, snap
+
+
+def drive_path(phase, scene, dev, kern, camera_kern=None, waves=None):
+    """`waves` waves (default: all 64) of the path integrator over `scene`;
+    requires 7 launches of `kern` per wave and of no other kernel, or, with
+    `camera_kern`, 1 closest-hit launch of that and the other 6 of `kern`."""
+    ig = pi.PathIntegrator(max_depth=MAX_DEPTH)
+    launches, img, info, _ = drive_waves(
+        phase, scene, dev, lambda s, r, d, c: pi.li(ig, s, r, d, c),
+        waves or SPP, {f"{camera_kern or kern}:closest": 1,
+                       f"{kern}:mixed": MAX_DEPTH, f"{kern}:any": 1})
+    # as the reference's benchmark counts them: two rays a lane and level
+    info["rays_per_s"] = (WIDTH * HEIGHT * 2 * (MAX_DEPTH + 1) * info["waves"]
+                          / info["seconds"])
     return launches, img, info
 
 
@@ -606,6 +707,146 @@ def alt_path_phase(scene_w, dev, inc):
     return counted
 
 
+def direct_li(strategy=di.STRATEGY_ALL, depth=MAX_DEPTH):
+    ig = di.DirectLightingIntegrator(strategy=strategy, max_depth=depth)
+    return lambda s, r, d, c: di.li(ig, s, r, d, c)
+
+
+def same_image(what, ref, img, mean_tol=None):
+    """Two renders of one scene that differ only in the traversal kernel:
+    >= SAME_MIN of pixels within rtol 1e-3 / atol 1e-4 and, where asked, the
+    means within `mean_tol`. A near tie may go to another triangle: the
+    strict fold keeps the first of equal t, the packed fold the lower slot of
+    any two t within 127 ulps."""
+    close = float(np.isclose(img, ref, rtol=1e-3, atol=1e-4).all(-1).mean())
+    rel_mean = float(abs(img.mean() - ref.mean()) / ref.mean())
+    require(close >= SAME_MIN
+            and (mean_tol is None or rel_mean <= mean_tol),
+            f"{what}: {close} of pixels close, mean off {rel_mean}")
+    return {"pixels_close": close, "rel_mean": rel_mean}
+
+
+class default_kernel:
+    """``with default_kernel("v3"):`` routes every kind of wave to one
+    kernel and puts ``DEFAULT_KERNEL`` back on the way out."""
+
+    def __init__(self, which):
+        self.which = which
+
+    def __enter__(self):
+        self.saved = dict(tc.DEFAULT_KERNEL)
+        tc.DEFAULT_KERNEL.update({k: self.which for k in tc.DEFAULT_KERNEL})
+
+    def __exit__(self, *exc):
+        tc.DEFAULT_KERNEL.update(self.saved)
+
+
+def attic_small_phase(dev):
+    """The Cornell box through the direct-lighting integrator (32x32, depth
+    3): on the card against the CPU with the default kernels, then every
+    kind of wave routed to each binary-tree kernel against the v6 image."""
+    host = cornell()
+    w = h = SMALL
+
+    def render(where):
+        cam = cameras.perspective(
+            tr.look_at([0, 1, -3.2], [0, 1, 0], [0, 1, 0]), 40.0, w, h,
+            device=where)
+        smp = samplers.make_sampler("lowdiscrepancy", spp=SMALL_SPP)
+        return rend.render(host, cam, smp, direct_li(depth=3), w, h,
+                           device=where)
+
+    tc.reset_launches()
+    v6_img = render(dev)
+    per_wave = {"traverse6:closest": 8, "traverse6:any": 4}
+    require({k: v for k, v in tc.LAUNCHES.items() if v}
+            == {k: v * SMALL_SPP for k, v in per_wave.items()},
+            f"attic small: default kernels launched {dict(tc.LAUNCHES)}")
+    close, rel_mean = compare_images("direct lighting, card vs CPU",
+                                     render("cpu"), v6_img)
+    out = {"v6": {"pixels_close_to_cpu": close, "rel_mean_to_cpu": rel_mean,
+                  "mean": float(v6_img.mean())}}
+    for kern, (which, _, _) in ATTIC.items():
+        with default_kernel(which):
+            tc.reset_launches()
+            img = render(dev)
+        launched = {k: v for k, v in tc.LAUNCHES.items() if v}
+        require(launched == {f"{kern}:closest": 8 * SMALL_SPP,
+                             f"{kern}:any": 4 * SMALL_SPP},
+                f"attic small: {which} launched {launched}")
+        out[which] = same_image(f"{which} render vs v6 render", v6_img, img,
+                                mean_tol=1e-4)
+    require(tc.DEFAULT_KERNEL == dict(closest_coherent="v6", closest="v6",
+                                      any="v6"),
+            "attic small: DEFAULT_KERNEL was not restored")
+    say("attic_small", **out)
+
+
+def direct_path_phase(scene, dev, path_img):
+    """This slice's path at full width. A level is one closest-hit wave and,
+    for the scene's one light, estimate_direct's any-hit shadow wave and
+    closest-hit BSDF wave: 18 launches a wave at depth 5. The JAX package
+    states no mean for this image; what is held is its own relation, that
+    the path image (indirect light added) is brighter."""
+    launches, img, info, first = drive_waves(
+        "direct_path", scene, dev, direct_li(), SPP,
+        {"traverse6:closest": 2 * (MAX_DEPTH + 1),
+         "traverse6:any": MAX_DEPTH + 1}, snapshot_at=ATTIC_WAVES)
+    say("direct_path", path_img_mean=float(path_img.mean()), **info)
+    require(path_img.mean() > img.mean() > 0,
+            f"direct path: image mean {img.mean()} is not under the path "
+            f"image's {path_img.mean()}")
+    return first
+
+
+def attic_path_phase(scene, dev, v6_first):
+    """ATTIC_WAVES waves of direct_path's render for each binary-tree kernel
+    set in DEFAULT_KERNEL: all 18 launches a wave are that kernel's; the
+    image against direct_path's first waves. Returns the kernels' launches,
+    each run counted from 0."""
+    out, counted = {}, {}
+    for kern, (which, _, _) in ATTIC.items():
+        with default_kernel(which):
+            launches, img, info, _ = drive_waves(
+                f"attic_path {which}", scene, dev, direct_li(), ATTIC_WAVES,
+                {f"{kern}:closest": 2 * (MAX_DEPTH + 1),
+                 f"{kern}:any": MAX_DEPTH + 1})
+        counted.update({k: v for k, v in launches.items() if v})
+        out[which] = {**same_image(f"attic path, {which} vs v6", v6_first,
+                                   img),
+                      **{k: info[k] for k in (
+                          "seconds", "launches", "launches_per_wave",
+                          "launched_rays_per_s", "img_mean")}}
+    say("attic_path", waves=ATTIC_WAVES,
+        v6_img_mean=float(v6_first.mean()), **out)
+    return counted
+
+
+def ao_whitted_phase(scene, dev):
+    """ATTIC_WAVES waves each of the ambient-occlusion integrator (AO_SAMPLES
+    probes: one closest-hit launch and AO_SAMPLES any-hit launches a wave)
+    and of the Whitted integrator (depth 5, one light: a closest-hit and an
+    any-hit launch a level)."""
+    ig = ao_mod.AOIntegrator(n_samples=AO_SAMPLES)
+    _, img, info, _ = drive_waves(
+        "ao_path", scene, dev, lambda s, r, d, c: ao_mod.li(ig, s, r, d, c),
+        ATTIC_WAVES, {"traverse6:closest": 1, "traverse6:any": AO_SAMPLES})
+    # a pixel is a weighted mean of values in [0, 1]: 1e-5 for its rounding
+    require(img.min() >= 0.0 and img.max() <= 1.0 + 1e-5
+            and 0.0 < img.mean() < 1.0,
+            f"ao path: image in [{img.min()}, {img.max()}], mean "
+            f"{img.mean()}")
+    say("ao_path", n_samples=AO_SAMPLES, img_min=float(img.min()),
+        img_max=float(img.max()), **info)
+    wig = wh.WhittedIntegrator(max_depth=MAX_DEPTH)
+    _, img, info, _ = drive_waves(
+        "whitted_path", scene, dev,
+        lambda s, r, d, c: wh.li(wig, s, r, d, c), ATTIC_WAVES,
+        {"traverse6:closest": MAX_DEPTH + 1, "traverse6:any": MAX_DEPTH + 1})
+    require(img.mean() > 0, "whitted path: black image")
+    say("whitted_path", **info)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -656,15 +897,23 @@ def main():
     # static v6 modes on the main path (its sorted closest-hit lanes travel
     # inside the mixed launches), the motion modes on the moving path, the
     # packet kernels on the bench scene's camera waves (closest) and through
-    # intersect_rays(kernel=...) at full width (any)
+    # intersect_rays(kernel=...) at full width (any), the binary-tree
+    # kernels on the direct-lighting waves of attic_path
     launches_alt = alt_path_phase(
         dataclasses.replace(scene, geometry=geom_w), dev, shapes[1])
+    # this slice's paths: direct lighting with the default kernels, then
+    # with each binary-tree kernel serving every launch, AO and Whitted
+    attic_small_phase(dev)
+    direct_first = direct_path_phase(scene, dev, static_img)
+    launches_attic = attic_path_phase(scene, dev, direct_first)
+    ao_whitted_phase(scene, dev)
     counted = {**{k: v for k, v in launches.items()
                   if k.startswith("traverse6:")},
                **{k: v for k, v in launches_m.items()
                   if k.startswith("traverse6_motion:")},
                **{k: v for k, v in launches_alt.items()
-                  if k.startswith(("traverse5:", "traverse7:"))}}
+                  if k.startswith(("traverse5:", "traverse7:"))},
+               **launches_attic}
     line = []
     for r in results:
         if r["name"] != r["counter"]:
@@ -672,7 +921,7 @@ def main():
         require(counted[r["counter"]] > 0,
                 f"{r['name']} was never launched on its path")
         line.append({**r, "launches": counted[r["counter"]]})
-    require(len(line) == 10, f"kernels line lists {len(line)} kernels")
+    require(len(line) == 18, f"kernels line lists {len(line)} kernels")
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,8 @@ each multiply, add and left shift is followed by ``& M32``, and right shifts
 always see a non-negative value, so they are logical shifts.
 
 Ported: the hash RNG, ``index_permute``, ``van_der_corput``, ``sobol2``,
-``sample02`` and the warps the path integrator uses (concentric disk, cosine
-hemisphere, uniform triangle, power heuristic). Halton / radical inverse,
+``sample02`` and the warps the integrators use (concentric disk, cosine
+hemisphere, uniform sphere, uniform triangle, power heuristic). Halton / radical inverse,
 stratified and Latin-hypercube helpers and the 1D/2D distributions are not
 ported yet.
 """
@@ -159,6 +159,15 @@ def cosine_sample_hemisphere(u):
 
 def cosine_hemisphere_pdf(costheta):
     return costheta * float(np.float32(1.0 / np.pi))
+
+
+def uniform_sample_sphere(u):
+    """pdf = 1 / (4 pi). Returns V3."""
+    u = vm.from_arr2(u)
+    z = 1.0 - 2.0 * u.x
+    r = torch.sqrt((1.0 - z * z).clamp_min(0.0))
+    phi = 2.0 * np.pi * u.y
+    return vm.V3(r * torch.cos(phi), r * torch.sin(phi), z)
 
 
 def uniform_sample_triangle(u):

@@ -1,0 +1,25 @@
+// traverse1.cu — the v1 walk over the binary cluster tree for NVIDIA Hopper
+// (sm_90a).
+//
+// Replaces the JAX reference's Pallas kernel `_kernel` / launcher `traverse`
+// (ops/kernels_attic.py), closest-hit and any-hit: rays (o, d, tmin, tmax) in,
+// `t` (+inf on a miss) and the PERMUTED prim id `cluster * K + j` (-1 on a
+// miss) out; the finish step outside the kernel makes them exact.
+//
+// What this one is: ONE stack for a packet of 128 rays (the thread block), the
+// full `meta` (N, 4) node table, the strict sequential fold, and a hit leaf
+// tested AT THE POP by the lanes that hit its box.
+// The walk, the two folds and what of the reference has no counterpart on this
+// card are described in binary_walk.cuh.
+// What bounds it: the chain of dependent table fetches; a block visits the
+// union of 128 rays' walks, so incoherent rays make every step serve few
+// lanes, and every step holds two block barriers.
+//
+// Build (plain C interface, loaded with ctypes):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
+//        -shared -Xcompiler -fPIC -o libtraverse1.so traverse1.cu
+
+#include "binary_walk.cuh"
+
+// (the packet is the thread block, leaf-buffer entries, meta2, packed fold)
+BINARY_WALK_ENTRY(traverse1, true, 0, false, false)

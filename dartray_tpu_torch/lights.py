@@ -1,16 +1,19 @@
-"""Light table: diffuse area lights flattened into parameter rows + CDF
-arrays (counterpart of the JAX reference's ``lights.py``).
+"""Light table: all lights flattened into typed parameter rows + CDF arrays
+(counterpart of the JAX reference's ``lights.py``).
 
 An area light references a contiguous triangle range of the global prim
 arrays with a per-light area CDF; its sampled triangles come from a compact
 ``tri_rows`` table [v0 e1 e2 ng] copied out of the geometry attr table at
-build. ``sample_li`` is evaluated for a wavefront with per-ray light indices.
+build. ``sample_li`` is evaluated for a wavefront with per-ray light
+indices: each light type present in the table is evaluated for all lanes and
+the row's type selects the result.
 
-Ported: diffuse area lights (``area_light``, the area branch of
-``sample_li``, ``pdf_li_area``, ``le_emitted``, ``sample_light_index``).
-Point, spot, distant, projection, goniometric and infinite (environment)
-lights raise ``NotImplementedError`` in ``build_table`` (ROADMAP Queue 1,
-remaining lights).
+Ported: diffuse area lights and the three delta lights, point, spot and
+distant (``area_light``, ``point_light``, ``spot_light``, ``distant_light``,
+their branches of ``sample_li``, ``pdf_li_area``, ``le_emitted``,
+``sample_light_index``). Projection, goniometric and infinite (environment)
+lights need image maps and raise ``NotImplementedError`` in ``build_table``
+(ROADMAP Queue 1, remaining lights); ``env_light_index`` stays -1.
 """
 from __future__ import annotations
 
@@ -32,13 +35,18 @@ AREA = 3
 INFINITE = 4
 PROJECTION = 5
 GONIOMETRIC = 6
+_PORTED = (POINT, SPOT, DISTANT, AREA)
+
+INF_DIST = 1e7  # "escaped" shadow-ray length for distant lights
 
 
 @dataclasses.dataclass
 class LightTable:
     kind: Any            # (L,) int32
-    intensity: Any       # (L, 3) emitted radiance
-    params: Any          # (L, 8): area: [n_samples, ...]
+    p: Any               # (L, 3) position (point/spot) | direction (distant)
+    intensity: Any       # (L, 3) I / L / radiance scale
+    params: Any          # (L, 8): spot: [cosTotal, cosFalloff, ...]
+    w2l: Any             # (L, 4, 4) world->light (spot)
     tri_offset: Any      # (L,) int32 first prim id
     tri_count: Any       # (L,) int32
     tri_area_cdf: Any    # (sum_tris + L,) flattened per-light CDFs
@@ -58,9 +66,29 @@ class LightSpec(NamedTuple):
     p: tuple = (0.0, 0.0, 0.0)
     intensity: tuple = (1.0, 1.0, 1.0)
     params: tuple = (0.0,) * 8
+    w2l: Optional[np.ndarray] = None
     tri_offset: int = 0
     tri_count: int = 0
     tri_areas: Optional[np.ndarray] = None
+
+
+def point_light(p, intensity=(1.0,) * 3):
+    return LightSpec(POINT, p=tuple(p), intensity=tuple(intensity))
+
+
+def spot_light(p, w2l, intensity=(1.0,) * 3, cone_angle=30.0,
+               cone_delta=5.0):
+    """Falloff between cos(total) and cos(total - delta)."""
+    ct = float(np.cos(np.radians(cone_angle)))
+    cf = float(np.cos(np.radians(cone_angle - cone_delta)))
+    return LightSpec(SPOT, p=tuple(p), intensity=tuple(intensity),
+                     params=(ct, cf) + (0.0,) * 6, w2l=w2l)
+
+
+def distant_light(direction, radiance=(1.0,) * 3):
+    d = np.asarray(direction, np.float64)
+    d = d / np.linalg.norm(d)
+    return LightSpec(DISTANT, p=tuple(d), intensity=tuple(radiance))
 
 
 def area_light(tri_offset, tri_areas, L=(1.0,) * 3, n_samples=1):
@@ -76,14 +104,16 @@ def build_table(specs, scene_radius=10.0, attr=None) -> LightTable:
     if attr is None:
         raise ValueError("build_table needs the geometry attr table")
     for s in specs:
-        if s.kind != AREA:
+        if s.kind not in _PORTED:
             raise NotImplementedError(
-                f"light kind {s.kind}: only diffuse area lights are ported "
-                "(ROADMAP Queue 1, remaining lights)")
+                f"light kind {s.kind}: infinite, projection and goniometric "
+                "lights are not ported (ROADMAP Queue 1, remaining lights)")
     l = max(len(specs), 1)
     kind = np.zeros(l, np.int32)
+    p = np.zeros((l, 3), np.float32)
     inten = np.zeros((l, 3), np.float32)
     params = np.zeros((l, 8), np.float32)
+    w2l = np.tile(np.eye(4, dtype=np.float32), (l, 1, 1))
     tri_offset = np.zeros(l, np.int32)
     tri_count = np.zeros(l, np.int32)
     cdf_offset = np.zeros(l, np.int32)
@@ -95,8 +125,13 @@ def build_table(specs, scene_radius=10.0, attr=None) -> LightTable:
     off = 0
     for i, s in enumerate(specs):
         kind[i] = s.kind
+        p[i] = s.p
         inten[i] = s.intensity
         params[i] = s.params
+        if s.w2l is not None:
+            w2l[i] = np.asarray(s.w2l, np.float32)
+        if s.kind != AREA:
+            continue
         cdf = np.concatenate([[0.0], np.cumsum(s.tri_areas)])
         total_area[i] = cdf[-1]
         cdf = cdf / max(cdf[-1], 1e-20)
@@ -115,11 +150,19 @@ def build_table(specs, scene_radius=10.0, attr=None) -> LightTable:
     powers = np.zeros(l, np.float32)
     for i, s in enumerate(specs):
         lum = float(np.dot(spec.RGB_TO_XYZ[1], np.asarray(s.intensity)))
-        powers[i] = np.pi * total_area[i] * lum
+        if s.kind == POINT:
+            powers[i] = 4 * np.pi * lum
+        elif s.kind == SPOT:
+            powers[i] = 2 * np.pi * (1 - 0.5 * (params[i, 0]
+                                                + params[i, 1])) * lum
+        elif s.kind == DISTANT:
+            powers[i] = np.pi * scene_radius ** 2 * lum
+        else:
+            powers[i] = np.pi * total_area[i] * lum
     pc = np.concatenate([[0.0], np.cumsum(powers)])
     pc = pc / max(pc[-1], 1e-20)
     return LightTable(
-        kind=kind, intensity=inten, params=params,
+        kind=kind, p=p, intensity=inten, params=params, w2l=w2l,
         tri_offset=tri_offset, tri_count=tri_count,
         tri_area_cdf=tri_area_cdf, cdf_offset=cdf_offset,
         total_area=total_area, power_cdf=np.asarray(pc, np.float32),
@@ -142,18 +185,20 @@ class LiSample(NamedTuple):
     is_delta: torch.Tensor   # (R,) bool
 
 
-def sample_li(lt: LightTable, geom, light_idx, p_surf: V3, u,
-              uc=None) -> LiSample:
-    """Per-ray light sampling (area lights): CDF-sample a triangle of the
-    light by `uc`, a uniform point on it by `u`.
+def _kinds_present(lt: LightTable):
+    """The light kinds of the table, read once per table object (the only
+    read of ``lt.kind`` on the host) and kept on it: ``sample_li`` evaluates
+    no branch that no light of the table takes."""
+    kinds = lt.__dict__.get("_kinds")
+    if kinds is None:
+        kinds = frozenset(int(k) for k in lt.kind[:lt.n].tolist())
+        lt.__dict__["_kinds"] = kinds
+    return kinds
 
-    light_idx: (R,) int32. u: V2 (or (R, 2)). uc: optional (R,) component
-    sample for the triangle choice."""
-    u = vm.from_arr2(u)
-    li_ = light_idx.clamp_min(0).long()
-    inten = _g3(lt.intensity, li_)
-    if uc is None:
-        uc = u.x
+
+def _sample_area(lt: LightTable, li_, inten, p_surf: V3, u, uc):
+    """CDF-sample a triangle of the light by `uc`, a uniform point on it by
+    `u`. Returns (wi, li, pdf, dist)."""
     nt = lt.tri_count[li_].clamp_min(1).long()
     # fixed-trip binary search for uc in the light's cdf segment
     lo = lt.cdf_offset[li_].long()
@@ -184,8 +229,65 @@ def sample_li(lt: LightTable, geom, light_idx, p_surf: V3, u,
     li_area = vm.where3(cos_l > 0, inten, 0.0)
     # pdf: uniform by area -> solid angle: dist^2 / (cos * A)
     pdf_area = d2a / (torch.abs(cos_l) * lt.total_area[li_]).clamp_min(1e-9)
-    return LiSample(wi=wi_area, li=li_area, pdf=pdf_area, dist=dist_a,
-                    is_delta=torch.zeros_like(cos_l, dtype=torch.bool))
+    return wi_area, li_area, pdf_area, dist_a
+
+
+def sample_li(lt: LightTable, geom, light_idx, p_surf: V3, u,
+              uc=None) -> LiSample:
+    """Per-ray light sampling.
+
+    light_idx: (R,) int32. u: V2 (or (R, 2)). uc: optional (R,) component
+    sample for an area light's triangle choice. Point and spot lights sit at
+    ``lt.p`` (delta, inverse-square; the spot's falloff between its two
+    cosines), a distant light shines along ``lt.p`` from ``INF_DIST``."""
+    u = vm.from_arr2(u)
+    li_ = light_idx.clamp_min(0).long()
+    inten = _g3(lt.intensity, li_)
+    if uc is None:
+        uc = u.x
+    kinds = _kinds_present(lt)
+    if AREA in kinds:
+        wi_area, li_area, pdf_area, dist_a = _sample_area(lt, li_, inten,
+                                                          p_surf, u, uc)
+        if kinds == {AREA}:
+            return LiSample(wi=wi_area, li=li_area, pdf=pdf_area, dist=dist_a,
+                            is_delta=torch.zeros_like(pdf_area,
+                                                      dtype=torch.bool))
+    kind = lt.kind[li_]
+    lp = _g3(lt.p, li_)
+    # --- point / spot (delta, at a position) ------------------------------
+    to_l = lp - p_surf
+    d2 = vm.length_sq(to_l).clamp_min(1e-12)
+    dist = torch.sqrt(d2)
+    wi = to_l * (1.0 / dist)
+    li_v = inten * (1.0 / d2)
+    if SPOT in kinds:
+        # falloff: the local -wi angle against the cone
+        m = [[lt.w2l[:, i, j][li_] for j in range(3)] for i in range(3)]
+        nwi = -wi
+        wl = vm.normalize(V3(*(m[i][0] * nwi.x + m[i][1] * nwi.y
+                               + m[i][2] * nwi.z for i in range(3))))
+        cos_t = wl.z
+        ct = lt.params[:, 0][li_]
+        cf = lt.params[:, 1][li_]
+        delta = ((cos_t - ct) / (cf - ct).clamp_min(1e-8)).clamp(0.0, 1.0)
+        d2_ = delta * delta
+        falloff = torch.where(cos_t < ct, 0.0,
+                              torch.where(cos_t > cf, 1.0, d2_ * d2_))
+        li_v = vm.where3(kind == SPOT, li_v * falloff, li_v)
+    pdf = torch.ones_like(dist)
+    if DISTANT in kinds:
+        is_dist = kind == DISTANT
+        wi = vm.where3(is_dist, lp, wi)
+        li_v = vm.where3(is_dist, inten, li_v)
+        dist = torch.where(is_dist, INF_DIST, dist)
+    if AREA in kinds:
+        is_area = kind == AREA
+        wi = vm.where3(is_area, wi_area, wi)
+        li_v = vm.where3(is_area, li_area, li_v)
+        pdf = torch.where(is_area, pdf_area, pdf)
+        dist = torch.where(is_area, dist_a, dist)
+    return LiSample(wi=wi, li=li_v, pdf=pdf, dist=dist, is_delta=kind != AREA)
 
 
 def pdf_li_area(lt: LightTable, light_idx, p_surf, wi, hit_t, hit_cos):

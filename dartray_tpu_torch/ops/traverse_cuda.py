@@ -1,10 +1,10 @@
-"""Wide-BVH traversal: the CUDA kernels' wrappers, their plain PyTorch
-versions and the wavefront glue around them (counterpart of the JAX
-reference's ``ops/traverse_pallas.py`` and of the v7 part of its
-``ops/kernels_attic.py``).
+"""BVH traversal: the CUDA kernels' wrappers, their plain PyTorch versions
+and the wavefront glue around them (counterpart of the JAX reference's
+``ops/traverse_pallas.py`` and of its ``ops/kernels_attic.py``).
 
-Three kernels, each built with ``nvcc`` for ``sm_90a`` at first use from its
-source under ``csrc/`` and loaded with ``ctypes``:
+Seven kernel libraries, each built with ``nvcc`` for ``sm_90a`` at first use
+from its source under ``csrc/`` and loaded with ``ctypes``. Over the WIDE
+(8-ary) tree:
 
 * ``traverse6`` (``csrc/traverse6.cu``) replaces ``_kernel6`` in its
   closest-hit, any-hit and mixed modes: one stack per ray. With ``time=`` on
@@ -19,15 +19,43 @@ source under ``csrc/`` and loaded with ``ctypes``:
   walk with the Woop unit-triangle leaf test over the opt-in ``woop`` table
   (``with_woop``).
 
+Over the BINARY cluster tree (``bounds`` / ``meta`` / ``meta2``), the
+reference's four older kernels; all share ``csrc/binary_walk.cuh`` and differ
+in what differs as a function (``ATTIC`` holds the table):
+
+* ``traverse`` (v1, ``csrc/traverse1.cu``) replaces ``_kernel``: ONE stack for
+  a packet of 128 rays (a thread block), the popped node is slab-tested at
+  the pop, a popped leaf is tested at once by the lanes that hit its box,
+  strict sequential fold.
+* ``traverse2`` (v2, ``csrc/traverse2.cu``) replaces ``_kernel2``: a packet of
+  32 rays (a warp) with its own stack and a leaf buffer of 8, strict fold.
+* ``traverse3`` (v3, ``csrc/traverse3.cu``) replaces ``_kernel3``: v1's packet
+  with the compact ``meta2`` table, a leaf buffer of 16 flushed in buffer
+  order, the index-packed fold, and optional counters.
+* ``traverse4`` (v4, ``csrc/traverse4.cu``) replaces ``_kernel4``: v2's packet
+  with ``meta2`` and the packed fold.
+
+Their tie rules are the reference's own and differ from the wide kernels':
+the strict fold accepts ``t < t_best`` only (``tmax`` itself is outside the
+interval, the first of equal t wins); the packed fold clears the low 7 bits
+of t's pattern, puts the triangle's slot there and takes the integer minimum,
+so t is rounded DOWN by up to 127 ulps, ``t_best`` culls with the rounded
+value and the lowest slot wins a tie. An any-hit lane still folds over all K
+triangles of the leaf that blocks it. What has no counterpart here, because
+it is a shape of the other machine and not part of the function: the
+(rows, 128) ray tiles, the sentinel null node and null cluster that keep
+lockstep packets branch-free, the spill round-trip that turns the majority
+sign into scalars, and the SMEM-or-VMEM placement of ``meta2``. The triangle
+operand stays ``soup16`` (48 B a triangle), not nine (C, K) planes.
+
 All return ``(t, permuted prim)`` only; exact ``t`` and barycentrics are
 recomputed for the winners by one gathered Moeller-Trumbore evaluation
 (``finish_hits`` / ``finish_hits_rows``), so results are compared after that
 finish step, never on a kernel's raw ``t``. Tie rule of every kernel and
 plain version here: the nearest accepted ``t`` in ``(tmin, tmax]`` wins, equal
 ``t`` keeps the first triangle met (cluster order inside a leaf); an any-hit
-lane takes the first accepted triangle and stops. The reference's packed fold
-(index bits in ``t``'s mantissa) is a reduction trick of its machine and is
-not reproduced.
+lane takes the first accepted triangle and stops. That is the rule of the
+three wide kernels; the binary-tree kernels keep the reference's, above.
 
 The reference kernels' ablation and work-around switches (the ``DR_V6_*``
 environment knobs, ``bf16=``, ``push_bits``, the ``block_rows`` widths) have no
@@ -37,8 +65,9 @@ dispatch around a scratch-memory limit is dropped too: one launch covers the
 whole wave, and dead lanes (``tmax < tmin``) leave the kernel at once.
 
 Each wrapper takes its plain version (``traverse6_plain``,
-``traverse5_plain``, ``traverse7_plain``) only for tensors that lie on the
-CPU. For a CUDA tensor it launches the kernel or raises.
+``traverse5_plain``, ``traverse7_plain``, ``traverse_plain``,
+``traverse2_plain``, ``traverse3_plain``, ``traverse4_plain``) only for
+tensors that lie on the CPU. For a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -58,8 +87,19 @@ from ..core.math import V3
 
 TRI_EPS = 1e-10
 BARY_EPS = 1e-6
-STACK_DEPTH = 96          # stack entries per ray (v6) or per packet (v5, v7)
+STACK_DEPTH = 96          # stack entries per ray (v6) or per packet (the rest)
 PACKET = 32               # rays that share a stack in v5 / v7: one warp
+IDX_MASK = 127            # the packed fold keeps a triangle's slot here: K <= 128
+
+# the four kernels over the binary tree: library -> lanes that share a stack
+# (128: a thread block, 32: a warp), leaf-buffer entries (0: a leaf is tested
+# at the pop), which node table, which fold
+ATTIC = {
+    "traverse1": dict(packet=128, lbuf=0, compact=False, packed=False),
+    "traverse2": dict(packet=32, lbuf=8, compact=False, packed=False),
+    "traverse3": dict(packet=128, lbuf=16, compact=True, packed=True),
+    "traverse4": dict(packet=32, lbuf=8, compact=True, packed=True),
+}
 
 MODE_CLOSEST, MODE_ANY, MODE_MIXED = 0, 1, 2
 MODE_NAMES = ("closest", "any", "mixed")
@@ -70,7 +110,8 @@ LAUNCHES = {f"{kern}:{mode}": 0
             for kern, modes in (("traverse6", MODE_NAMES),
                                 ("traverse6_motion", MODE_NAMES),
                                 ("traverse5", MODE_NAMES[:2]),
-                                ("traverse7", MODE_NAMES[:2]))
+                                ("traverse7", MODE_NAMES[:2]),
+                                *((k, MODE_NAMES[:2]) for k in ATTIC))
             for mode in modes}
 
 
@@ -81,8 +122,16 @@ def reset_launches():
 
 @dataclasses.dataclass
 class PackedBVH:
-    """Kernel-ready scene: wide-node tables + cluster-permuted triangle soup.
+    """Kernel-ready scene: node tables + cluster-permuted triangle soup.
 
+    The binary cluster tree, read by ``traverse`` .. ``traverse4``:
+    bounds: (N, 8) f32 rows [lox loy loz hix hiy hiz 0 0]
+    meta:   (N, 4) i32 rows [child0, child1, axis, 0]; a leaf has
+            child0 = -(cluster + 1)
+    meta2:  (N, 2) i32 rows [child0 * 4 + axis (interior) or -(cluster + 1)
+            (leaf), child1]: the compact form v3 and v4 read
+
+    Its 8-ary collapse, read by ``traverse5`` .. ``traverse7``:
     wbounds: (W, 48) f32 rows [lox*8 loy*8 loz*8 hix*8 hiy*8 hiz*8], NaN pads
     worder:  (8 W, 8) i32 rows of far-first child entries per octant,
              entry = ref*8 + slot, ref < 0 -> leaf cluster -ref-1.
@@ -99,10 +148,10 @@ class PackedBVH:
     woop: (C*K, 12) f32 rows [W_0 w_0 | W_1 w_1 | W_2 w_2] of the
           unit-triangle transforms ``traverse7`` reads, or None: ``pack``
           does not build it, ``with_woop`` adds it.
-
-    The binary-tree tables of the reference's older kernels are not built:
-    they come back with the kernels that read them.
     """
+    bounds: object
+    meta: object
+    meta2: object
     wbounds: object
     worder: object
     soup16: object
@@ -127,7 +176,8 @@ def check_pads_trail(tid):
                          "triangle: pad slots must trail in every cluster")
 
 
-def pack(node_lo, node_hi, node_child, tv0, te1, te2, tid, deltas=None):
+def pack(node_lo, node_hi, node_child, node_axis, tv0, te1, te2, tid,
+         deltas=None):
     """Build PackedBVH from ClusterBVH-style arrays ((C,K,3) tris, (C,K) ids).
 
     Returns (packed, perm) where perm (C*K,) maps permuted prim id -> original
@@ -150,13 +200,25 @@ def pack(node_lo, node_hi, node_child, tv0, te1, te2, tid, deltas=None):
                   for a in soups)
         return soup_pack16(*planes, ids)
 
+    n = node_lo.shape[0]
+    bounds = np.zeros((n, 8), np.float32)
+    bounds[:, 0:3] = np.asarray(node_lo, np.float32)
+    bounds[:, 3:6] = np.asarray(node_hi, np.float32)
+    meta = np.zeros((n, 4), np.int32)
+    meta[:, 0:2] = np.asarray(node_child, np.int32)
+    meta[:, 2] = np.asarray(node_axis, np.int32)
+    meta2 = np.zeros((n, 2), np.int32)
+    meta2[:, 0] = np.where(meta[:, 0] < 0, meta[:, 0],
+                           meta[:, 0] * 4 + meta[:, 2])
+    meta2[:, 1] = meta[:, 1]
     wbounds, worder, n_w = build_wide(node_lo, node_hi, node_child)
     packed = PackedBVH(
+        bounds=bounds, meta=meta, meta2=meta2,
         wbounds=wbounds, worder=worder,
         soup16=rows16((tv0, te1, te2), perm_flat),
         soup16d=(None if deltas is None
                  else rows16(deltas, np.zeros_like(perm_flat))),
-        n_nodes=node_lo.shape[0], n_clusters=c, k=k, n_wnodes=n_w)
+        n_nodes=n, n_clusters=c, k=k, n_wnodes=n_w)
     return packed, perm_flat
 
 
@@ -220,7 +282,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 # one library per source; every source includes the headers beside it
 KERNEL_SOURCES = {name: os.path.join(CSRC_DIR, name + ".cu")
-                  for name in ("traverse6", "traverse5", "traverse7")}
+                  for name in ("traverse6", "traverse5", "traverse7", *ATTIC)}
 # -fmad=false: products and sums round as the plain versions' separate ops
 # do, so kernel and plain version take the same walk; -Xptxas -v: the
 # assembler reports each kernel's registers and spills into BUILD_LOG
@@ -267,12 +329,16 @@ def _bind(name, lib):
     else:
         launch = getattr(lib, name + "_launch")
         launch.restype = i
-        launch.argtypes = [p] * 15 + [i] * 4 + [p]
-        width = getattr(lib, name + "_packet_width")
-        width.restype, width.argtypes = i, []
-        if width() != PACKET:
-            raise RuntimeError(f"{name}.cu PACKET_WIDTH differs from the "
-                               "wrapper's")
+        launch.argtypes = [p] * 15 + [i] * (3 if name in ATTIC else 4) + [p]
+        want = {"packet_width": ATTIC[name]["packet"],
+                "leaf_buffer": ATTIC[name]["lbuf"]} if name in ATTIC else {
+                    "packet_width": PACKET}
+        for what, value in want.items():
+            fn = getattr(lib, f"{name}_{what}")
+            fn.restype, fn.argtypes = i, []
+            if fn() != value:
+                raise RuntimeError(f"{name}.cu {what} differs from the "
+                                   "wrapper's")
     depth = getattr(lib, name + "_stack_depth")
     depth.restype, depth.argtypes = i, []
     if depth() != STACK_DEPTH:
@@ -355,17 +421,23 @@ def _check_table(x, name, shape, device, dtype=torch.float32):
 _PLANE_NAMES = ("ox", "oy", "oz", "dx", "dy", "dz", "tmin", "tmax")
 
 
-def _launch_args(bvh, oc, dc, tmin, tmax):
-    """Checked ray planes, node tables and fresh outputs of one launch."""
+def _ray_args(oc, dc, tmin, tmax):
+    """Checked ray planes and fresh outputs of one launch."""
     dev = oc[0].device
     n = oc[0].shape[0]
     planes = [_check_plane(x, nm, n, dev)
               for x, nm in zip((*oc, *dc, tmin, tmax), _PLANE_NAMES)]
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    return dev, n, planes, t, prim
+
+
+def _launch_args(bvh, oc, dc, tmin, tmax):
+    """``_ray_args`` and the checked wide-node tables."""
+    dev, n, planes, t, prim = _ray_args(oc, dc, tmin, tmax)
     w = bvh.n_wnodes
     wb = _check_table(bvh.wbounds, "wbounds", (w, 48), dev)
     wo = _check_table(bvh.worder, "worder", (8 * w, 8), dev, torch.int32)
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    prim = torch.empty(n, dtype=torch.int32, device=dev)
     return dev, n, planes, wb, wo, t, prim
 
 
@@ -497,6 +569,84 @@ def traverse7(bvh: PackedBVH, o, d, tmin, tmax, *, any_hit: bool = False,
             return _traverse7_cuda(bvh, oc, dc, tmin, tmax, any_hit, counters)
         return traverse7_plain(bvh, o, d, tmin, tmax, any_hit=any_hit,
                                counters=counters)
+
+
+def _binary_cuda(name, bvh, oc, dc, tmin, tmax, any_hit, counters):
+    """Launch the binary-tree kernel `name` ("traverse1" .. "traverse4")."""
+    cfg = ATTIC[name]
+    dev, n, planes, t, prim = _ray_args(oc, dc, tmin, tmax)
+    if cfg["packed"] and bvh.k > IDX_MASK + 1:
+        raise ValueError(f"{name}: clusters of {bvh.k} triangles, the packed "
+                         f"fold holds a slot in {IDX_MASK + 1}")
+    bounds = _check_table(bvh.bounds, "bounds", (bvh.n_nodes, 8), dev)
+    meta = (_check_table(bvh.meta2, "meta2", (bvh.n_nodes, 2), dev,
+                         torch.int32) if cfg["compact"] else
+            _check_table(bvh.meta, "meta", (bvh.n_nodes, 4), dev,
+                         torch.int32))
+    soup = _check_table(bvh.soup16, "soup16", (bvh.n_clusters * bvh.k, 16),
+                        dev)
+    cnt = (torch.zeros((-(-n // cfg["packet"]), 2), dtype=torch.int32,
+                       device=dev) if counters else None)
+    if n > 0:
+        lib = load_kernel(name)
+        ptr = lambda x: x.data_ptr()
+        with torch.cuda.device(dev):
+            rc = getattr(lib, name + "_launch")(
+                ptr(bounds), ptr(meta), ptr(soup), *map(ptr, planes), ptr(t),
+                ptr(prim), None if cnt is None else ptr(cnt),
+                ptr(overflow_flag(dev)), n, bvh.k, int(bool(any_hit)),
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+        LAUNCHES[f"{name}:{MODE_NAMES[int(bool(any_hit))]}"] += 1
+    return (t, prim, cnt) if counters else (t, prim)
+
+
+def _binary_wrapper(name, bvh, o, d, tmin, tmax, any_hit, counters=False):
+    oc, dc = _components(o, d)
+    with torch.no_grad():
+        if oc[0].device.type == "cuda":
+            return _binary_cuda(name, bvh, oc, dc, tmin, tmax, any_hit,
+                                counters)
+        return _binary_plain(bvh, o, d, tmin, tmax, any_hit, **ATTIC[name],
+                             counters=counters)
+
+
+def traverse(bvh: PackedBVH, o, d, tmin, tmax, *, any_hit: bool = False):
+    """v1: block walk of the BINARY tree. 128 consecutive rays share one
+    stack; the popped node's box is tested at the pop, both children are
+    pushed (far first by the packet's majority direction sign on the split
+    axis) when any live lane hits it, and a popped leaf is tested at once by
+    the lanes that hit its box. Returns ``(t, prim)`` as ``traverse6`` does;
+    an any-hit lane's t is the nearest blocker of the leaf that stopped it.
+    CUDA tensors go to the kernel, CPU tensors to ``traverse_plain``."""
+    return _binary_wrapper("traverse1", bvh, o, d, tmin, tmax, any_hit)
+
+
+def traverse2(bvh: PackedBVH, o, d, tmin, tmax, *, any_hit: bool = False):
+    """v2: every packet of 32 rays walks the binary tree alone, with its own
+    stack and its own buffer of 8 hit leaf clusters, flushed when it is full
+    or the stack is empty. CUDA tensors go to the kernel, CPU tensors to
+    ``traverse2_plain``."""
+    return _binary_wrapper("traverse2", bvh, o, d, tmin, tmax, any_hit)
+
+
+def traverse3(bvh: PackedBVH, o, d, tmin, tmax, *, any_hit: bool = False,
+              counters: bool = False):
+    """v3: v1's packet over the compact ``meta2`` table; the node loop only
+    buffers hit leaf clusters (16), a flush tests them in buffer order with
+    the index-packed fold. counters=True adds a ``(ceil(R / 128), 2)`` int32
+    tensor: node steps (every pop, missed boxes included) and leaf rounds of
+    each packet. CUDA tensors go to the kernel, CPU tensors to
+    ``traverse3_plain``."""
+    return _binary_wrapper("traverse3", bvh, o, d, tmin, tmax, any_hit,
+                           counters)
+
+
+def traverse4(bvh: PackedBVH, o, d, tmin, tmax, *, any_hit: bool = False):
+    """v4: v2's packet with ``meta2`` and the index-packed fold. CUDA tensors
+    go to the kernel, CPU tensors to ``traverse4_plain``."""
+    return _binary_wrapper("traverse4", bvh, o, d, tmin, tmax, any_hit)
 
 
 # ---------------------------------------------------------------------------
@@ -812,6 +962,175 @@ def traverse7_plain(bvh: PackedBVH, o, d, tmin, tmax, *,
                          counters, stats)
 
 
+@torch.no_grad()
+def _binary_plain(bvh, o, d, tmin, tmax, any_hit, *, packet, lbuf, compact,
+                  packed, counters=False, stats=None):
+    """The walk of ``csrc/binary_walk.cuh`` in plain PyTorch: rays are padded
+    with dead lanes to whole packets of `packet`, every packet keeps one
+    stack row (and one leaf-buffer row of `lbuf` entries; 0: a leaf is tested
+    at the pop, by the lanes that hit its box), and every live packet takes
+    one node step or one flush per round. Same tables, operations, order of
+    pops and fold as the kernels, so kernel and plain version agree lane for
+    lane, counters included. `packet` is a parameter so that the walk can
+    also be held against the reference's at ITS packet (1,024 lanes).
+
+    stats: optional dict that receives ``node_pops`` (slab tests, one per
+    live lane of the packet that popped the node) and ``tri_tests`` (valid
+    triangles tested per lane), for the kernel's own work beside its bound."""
+    if stats is not None:
+        stats.update(node_pops=0, tri_tests=0, rounds=0)
+    oc, dc = _components(o, d)
+    dev = oc[0].device
+    n = oc[0].shape[0]
+    k = bvh.k
+    npk = -(-n // packet)
+
+    def lanes(x, fill):
+        pad = x.new_full((npk * packet - n,), fill)
+        return torch.cat([x, pad]).view(npk, packet)
+
+    oc = [lanes(c, 0.0) for c in oc]
+    dc = [lanes(c, 1.0) for c in dc]
+    tmin, tmax = lanes(tmin, 0.0), lanes(tmax, -1.0)
+    soup = bvh.soup16.view(bvh.n_clusters, k, 16)
+    ids = bvh.soup16[:, 9].contiguous().view(torch.int32).view(-1, k)
+    inv = [_safe_inv(c) for c in dc]
+    alive = tmax >= tmin
+    # the majority sign counts every lane of the packet, dead pads included
+    neg = torch.stack([(c < 0).sum(1) > packet // 2 for c in dc], 1)  # (P, 3)
+    inf = float("inf")
+    t_best = torch.where(alive, tmax, -inf)
+    prim = torch.full((npk, packet), -1, dtype=torch.int32, device=dev)
+    stack = torch.zeros((npk, STACK_DEPTH), dtype=torch.int32, device=dev)
+    sp = torch.ones(npk, dtype=torch.long, device=dev)      # the root
+    buf = torch.zeros((npk, max(lbuf, 1)), dtype=torch.int32, device=dev)
+    nlb = torch.zeros(npk, dtype=torch.long, device=dev)
+    steps = torch.zeros((npk, 2), dtype=torch.int32, device=dev)
+    slots = torch.arange(k, dtype=torch.int32, device=dev)
+
+    def live_of(pi):
+        return alive[pi] & (prim[pi] < 0) if any_hit else alive[pi]
+
+    def leaf_test(pi, cl, mask):
+        """Packets `pi` test clusters `cl` on their lanes in `mask`."""
+        tri = soup[cl][:, None]                              # (m, 1, K, 16)
+        ok, t = _mt([c[pi, :, None] for c in oc], [c[pi, :, None] for c in dc],
+                    tmin[pi, :, None], [tri[..., c] for c in range(3)],
+                    [tri[..., 3 + c] for c in range(3)],
+                    [tri[..., 6 + c] for c in range(3)])     # (m, packet, K)
+        tested = (ids[cl] >= 0)[:, None] & mask[:, :, None]
+        if stats is not None:
+            stats["tri_tests"] += int(tested.sum())
+        tm = torch.where(ok & tested, t, inf)
+        if packed:      # slot in the low bits of t's pattern, integer minimum
+            key = (tm.view(torch.int32) & ~IDX_MASK) | slots
+            kmin = key.min(2).values
+            j = kmin & IDX_MASK
+            t_win = (kmin & ~IDX_MASK).view(torch.float32)
+        else:           # strict and sequential: the first of equal t wins
+            j = torch.argmin(tm, 2)
+            t_win = torch.gather(tm, 2, j[:, :, None])[:, :, 0]
+        better = t_win < t_best[pi]
+        t_best[pi] = torch.where(better, t_win, t_best[pi])
+        prim[pi] = torch.where(better, (cl[:, None] * k + j).to(torch.int32),
+                               prim[pi])
+
+    # an any-hit packet with no live lane never starts
+    active = (alive.any(1) if any_hit
+              else torch.ones(npk, dtype=torch.bool, device=dev))
+    act = torch.nonzero(active).squeeze(1)
+    while act.numel() > 0:
+        stepping = (sp[act] > 0) & (nlb[act] < lbuf) if lbuf else sp[act] > 0
+        si, fi = act[stepping], act[~stepping]
+        if si.numel() > 0:
+            # ---- node step: pop, slab-test the POPPED node, push or keep
+            steps[si, 0] += 1
+            sp[si] -= 1
+            node = stack[si, sp[si]].long()
+            b = bvh.bounds[node]                             # (m, 8)
+            t0 = [(b[:, c, None] - oc[c][si]) * inv[c][si] for c in range(3)]
+            t1 = [(b[:, 3 + c, None] - oc[c][si]) * inv[c][si]
+                  for c in range(3)]
+            tn = torch.maximum(
+                torch.maximum(torch.minimum(t0[0], t1[0]),
+                              torch.minimum(t0[1], t1[1])),
+                torch.maximum(torch.minimum(t0[2], t1[2]), tmin[si]))
+            tf = torch.minimum(
+                torch.minimum(torch.maximum(t0[0], t1[0]),
+                              torch.maximum(t0[1], t1[1])),
+                torch.minimum(torch.maximum(t0[2], t1[2]), t_best[si]))
+            live = live_of(si)
+            if stats is not None:
+                stats["node_pops"] += int(live.sum())
+            slab = (tn <= tf) & live                         # (m, packet)
+            nhit = slab.any(1)
+            if compact:
+                m0, c1 = bvh.meta2[node, 0], bvh.meta2[node, 1]
+                is_leaf = m0 < 0
+                c0, axis, cluster = m0 >> 2, m0 & 3, -m0 - 1
+            else:
+                c0, c1, axis = (bvh.meta[node, 0], bvh.meta[node, 1],
+                                bvh.meta[node, 2])
+                is_leaf = c0 < 0
+                cluster = -c0 - 1
+            ng = torch.gather(neg[si], 1, axis.clamp(0, 2).long()[:, None])
+            ng = ng[:, 0]
+            near = torch.where(ng, c1, c0)
+            far = torch.where(ng, c0, c1)
+            push = nhit & ~is_leaf
+            pp = si[push]
+            if bool((sp[pp] + 2 > STACK_DEPTH).any()):
+                raise RuntimeError("binary walk: stack overflow")
+            stack[pp, sp[pp]] = far[push]
+            stack[pp, sp[pp] + 1] = near[push]
+            sp[pp] += 2
+            take = nhit & is_leaf
+            tk = si[take]
+            if lbuf:
+                buf[tk, nlb[tk]] = cluster[take]
+                nlb[tk] += 1
+            elif tk.numel() > 0:
+                steps[tk, 1] += 1
+                leaf_test(tk, cluster[take].long(), slab[take])
+        if fi.numel() > 0:
+            # ---- flush: the buffered clusters in buffer order
+            for q in range(int(nlb[fi].max())):
+                fq = fi[nlb[fi] > q]
+                leaf_test(fq, buf[fq, q].long(), live_of(fq))
+            steps[fi, 1] += nlb[fi].to(torch.int32)
+            nlb[fi] = 0
+        going = (sp[act] > 0) | (nlb[act] > 0)
+        if any_hit:     # the packet ends once no live lane lacks a hit
+            going &= (alive[act] & (prim[act] < 0)).any(1)
+        act = act[going]
+        if stats is not None:
+            stats["rounds"] += 1
+    t_out = torch.where(prim >= 0, t_best, inf).view(-1)[:n]
+    prim = prim.view(-1)[:n]
+    return (t_out, prim, steps) if counters else (t_out, prim)
+
+
+def _attic_plain(name):
+    cfg = ATTIC[name]
+
+    def plain(bvh: PackedBVH, o, d, tmin, tmax, *, any_hit: bool = False,
+              counters: bool = False, packet: int = cfg["packet"],
+              stats=None):
+        return _binary_plain(bvh, o, d, tmin, tmax, any_hit,
+                             **{**cfg, "packet": packet}, counters=counters,
+                             stats=stats)
+    plain.__doc__ = (f"The kernel of ``csrc/{name}.cu`` in plain PyTorch (see "
+                     "``_binary_plain``); `packet` overrides the lanes that "
+                     "share a stack.")
+    return plain
+
+
+traverse_plain = _attic_plain("traverse1")
+traverse2_plain = _attic_plain("traverse2")
+traverse3_plain = _attic_plain("traverse3")
+traverse4_plain = _attic_plain("traverse4")
+
+
 # ---------------------------------------------------------------------------
 # Wavefront glue: coherence sort + exact hit finishing (plain tensor ops)
 # ---------------------------------------------------------------------------
@@ -914,9 +1233,9 @@ def finish_hits_rows(bvh: PackedBVH, attrp, o, d, tmin, t_approx, prim_p,
 # which kernel serves which kind of wave, by name (the reference's table also
 # carries a block height; the port's packet width is fixed, so there is none
 # to choose). v6 everywhere, as in the reference; "v5" and "v7" are the
-# packet kernels, kept for coherent (unsorted camera) waves.
+# packet kernels over the wide tree, "v1" .. "v4" the older ones over the
+# binary tree.
 DEFAULT_KERNEL = dict(closest_coherent="v6", closest="v6", any="v6")
-_UNPORTED = ("v1", "v2", "v3", "v4")
 
 
 def _sorted_launch(fn, bvh, key, planes, **kw):
@@ -946,17 +1265,14 @@ def intersect_rays(bvh: PackedBVH, perm, lo, hi, o, d, tmin, tmax, *,
     test its sign). With rows_table (the geometry's attrp) the return tuple
     gains the gathered (48, R) rows.
 
-    kernel: "v6", "v5" or "v7"; None takes ``DEFAULT_KERNEL`` by the kind of
-    wave (any-hit, sorted closest, unsorted closest). time: (R,) shutter
+    kernel: "v1" .. "v7"; None takes ``DEFAULT_KERNEL`` by the kind of wave
+    (any-hit, sorted closest, unsorted closest). time: (R,) shutter
     times in [0, 1] for a scene packed with deltas; it travels with the sort
     and needs the v6 kernel."""
     cfg_key = "any" if any_hit else ("closest" if sort else "closest_coherent")
     which = kernel if kernel else DEFAULT_KERNEL[cfg_key]
-    if which in _UNPORTED:
-        raise NotImplementedError(
-            f"traversal kernel {which!r} (over the binary BVH) is not ported "
-            "(ROADMAP Queue 2)")
-    fns = {"v5": traverse5, "v6": traverse6, "v7": traverse7}
+    fns = {"v1": traverse, "v2": traverse2, "v3": traverse3,
+           "v4": traverse4, "v5": traverse5, "v6": traverse6, "v7": traverse7}
     if which not in fns:
         raise ValueError(f"unknown traversal kernel {which!r}")
     if bvh.soup16d is None:

@@ -61,7 +61,8 @@ def _packed(d) -> tc.PackedBVH:
     k = int(d["k"])
     tc.check_pads_trail(soup16[:, 9].view(np.int32).reshape(-1, k))
     return tc.PackedBVH(
-        wbounds=_f32(d["wbounds"]), worder=_i32(d["worder"]), soup16=soup16,
+        bounds=_f32(d["bounds"]), meta=_i32(d["meta"]),
+        meta2=_i32(d["meta2"]), wbounds=_f32(d["wbounds"]), worder=_i32(d["worder"]), soup16=soup16,
         soup16d=_opt(d, "soup16d", _f32),
         woop=_opt(d, "woop", lambda a: woop_rows(a, k)),
         n_nodes=int(d["n_nodes"]), n_clusters=int(d["n_clusters"]),
@@ -114,15 +115,17 @@ def _materials(d) -> mat_mod.MaterialTable:
 def _lights(d) -> lt_mod.LightTable:
     n = int(d["n"])
     kind = _i32(d["kind"])
-    if np.any(kind[:n] != lt_mod.AREA) or int(d["env_light_index"]) >= 0:
+    if (not np.isin(kind[:n], lt_mod._PORTED).all()
+            or int(d["env_light_index"]) >= 0):
         raise NotImplementedError(
-            "only diffuse area lights are ported (ROADMAP Queue 1, "
-            "remaining lights)")
+            "infinite, projection and goniometric lights are not ported "
+            "(ROADMAP Queue 1, remaining lights)")
     if d.get("tri_rows") is None:
         raise ValueError("the reference light table was built without the "
                          "geometry attr table (tri_rows is None)")
     return lt_mod.LightTable(
-        kind=kind, intensity=_f32(d["intensity"]), params=_f32(d["params"]),
+        kind=kind, p=_f32(d["p"]), intensity=_f32(d["intensity"]),
+        params=_f32(d["params"]), w2l=_f32(d["w2l"]),
         tri_offset=_i32(d["tri_offset"]), tri_count=_i32(d["tri_count"]),
         tri_area_cdf=_f32(d["tri_area_cdf"]),
         cdf_offset=_i32(d["cdf_offset"]), total_area=_f32(d["total_area"]),

@@ -34,7 +34,8 @@ from ..ops import traverse_cuda as tc
 
 @dataclasses.dataclass
 class Geometry:
-    """Triangle soup + packed wide BVH + per-face attribute tables.
+    """Triangle soup + packed BVH (binary and wide tables) + per-face
+    attribute tables.
 
     vn: 3 corner V3s of (F,) shading normals (the geometric normal repeated
     when the mesh has none); uv: 3 corner V2s (barycentric default when
@@ -141,7 +142,7 @@ def compile_geometry(meshes, mat_ids=None, light_ids=None,
         cb = cluster_mod.build(v0, e1, e2, split_method=split_method)
     wb = np.stack([np.asarray(cb.node_lo[0]), np.asarray(cb.node_hi[0])])
     packed, perm = tc.pack(cb.node_lo, cb.node_hi, cb.node_child,
-                           cb.tri_v0, cb.tri_e1, cb.tri_e2, cb.tri_id,
+                           cb.node_axis, cb.tri_v0, cb.tri_e1, cb.tri_e2, cb.tri_id,
                            deltas=((cb.tri_dv0, cb.tri_de1, cb.tri_de2)
                                    if has_motion else None))
     vn_all = np.concatenate(vns)          # (F, 3 corners, 3)

@@ -43,6 +43,21 @@ def _assert_same_leaves(port_tree, ref_tree):
 
 
 def _builders(variant):
+    if variant == "lights":     # a point, a spot and a distant light added
+        from dartray_tpu import lights as ref_lt
+        from dartray_tpu.core import transform as ref_tr
+        from dartray_tpu_torch.core import transform as tr
+        pair = []
+        for mod, lt, trm in ((sb, lt_mod, tr), (ref_sb, ref_lt, ref_tr)):
+            b = mod.cornell_box()
+            b.add_light(lt.point_light((0.3, 1.6, -0.2), (2.0, 1.5, 1.0)))
+            b.add_light(lt.spot_light(
+                (-0.5, 1.8, -0.5), np.asarray(trm.look_at(
+                    [-0.5, 1.8, -0.5], [0.2, 0, 0.3], [0, 1, 0]).m_inv),
+                cone_angle=40.0, cone_delta=15.0))
+            b.add_light(lt.distant_light((0.2, 1.0, -0.6), (0.5, 0.6, 0.7)))
+            pair.append(b)
+        return pair[0], None, pair[1], None
     if variant == "glass":
         return (sb.cornell_box(sphere2_material=None), mat_mod.glass(),
                 ref_sb.cornell_box(sphere2_material=None), ref_mat.glass())
@@ -51,7 +66,8 @@ def _builders(variant):
 
 @pytest.mark.parametrize("variant,split", [("mirror", "sah"),
                                            ("glass", "sah"),
-                                           ("mirror", "middle")])
+                                           ("mirror", "middle"),
+                                           ("lights", "sah")])
 def test_scene_compiler_matches_reference(variant, split):
     """sah goes through the native C++ builder, middle through the numpy
     builder; both must give the reference's tables exactly."""
@@ -108,8 +124,9 @@ def _cutout_mesh():
         [mat_mod._row(kr=(1, 1, 1), spec_fresnel=mat_mod.FR_CONDUCTOR)])),
     ("bump", lambda: mat_mod.build_table(
         [mat_mod.matte(tex_ids={mat_mod.TEX_BUMP: 0})])),
-    ("point_light", lambda: lt_mod.build_table(
-        [lt_mod.LightSpec(lt_mod.POINT)], attr=np.zeros((1, 48), np.float32))),
+    ("goniometric_light", lambda: lt_mod.build_table(
+        [lt_mod.LightSpec(lt_mod.GONIOMETRIC)],
+        attr=np.zeros((1, 48), np.float32))),
     ("sampler_random", lambda: samplers.make_sampler("random")),
     ("sampler_halton", lambda: samplers.make_sampler("halton")),
     ("filter_gaussian", lambda: film_mod.make_film(4, 4, "gaussian",
@@ -120,8 +137,9 @@ def _cutout_mesh():
     ("accel_grid", lambda: st.compile_geometry(
         [mesh_mod.sphere(nu=8, nv=4)], accelerator="grid")),
     ("alpha", lambda: st.compile_geometry([_cutout_mesh()])),
-    ("kernel_v3", lambda: tc.intersect_rays(
-        None, None, None, None, None, None, None, None, kernel="v3")),
+    ("infinite_light", lambda: lt_mod.build_table(
+        [lt_mod.LightSpec(lt_mod.INFINITE)],
+        attr=np.zeros((1, 48), np.float32))),
     ("image_texture", lambda: textures.check_supported(
         textures.TextureData(kind=None, value=None, n=1,
                              kinds_present=(0, 1)))),

@@ -21,7 +21,10 @@ from dartray_tpu import film as ref_film
 from dartray_tpu import materials as ref_mat
 from dartray_tpu import samplers as ref_samplers
 from dartray_tpu.core import transform as ref_tr
+from dartray_tpu.integrators import ao as ref_ao
+from dartray_tpu.integrators import direct as ref_di
 from dartray_tpu.integrators import path as ref_pi
+from dartray_tpu.integrators import whitted as ref_wh
 from dartray_tpu.renderers import sampler as ref_rend
 from dartray_tpu.scene import build as ref_sb
 from dartray_tpu.scene import mesh as ref_mesh
@@ -29,7 +32,9 @@ from dartray_tpu.scene import types as ref_st
 
 from dartray_tpu_torch import cameras, samplers
 from dartray_tpu_torch import film as film_mod
+from dartray_tpu_torch import materials as mat_mod
 from dartray_tpu_torch.core import transform as tr
+from dartray_tpu_torch.integrators import ao, direct, whitted
 from dartray_tpu_torch.integrators import path as pi
 from dartray_tpu_torch.ops import traverse_cuda as tc
 from dartray_tpu_torch.renderers import sampler as rend
@@ -47,13 +52,15 @@ DEPTH = 2
 EYE, LOOK, UP, FOV = [0, 1, -3.2], [0, 1, 0], [0, 1, 0], 40.0
 
 
-def _reference_render(host, eye, look, fov, spp, depth):
-    """The reference's film after `spp` waves of ``render_wave``."""
+def _reference_render(host, eye, look, fov, spp, depth, li=None):
+    """The reference's film after `spp` waves of ``render_wave`` (the path
+    integrator unless `li` is given)."""
     scene = ref_st.to_device(host)
     cam = ref_cam.perspective(ref_tr.look_at(eye, look, UP), fov, W, H)
     smp = ref_samplers.make_sampler("lowdiscrepancy", spp=spp)
-    ig = ref_pi.PathIntegrator(max_depth=depth, remat=False)
-    li = lambda s, r, d, c: ref_pi.li(ig, s, r, d, c)
+    if li is None:
+        ig = ref_pi.PathIntegrator(max_depth=depth, remat=False)
+        li = lambda s, r, d, c: ref_pi.li(ig, s, r, d, c)
     film = ref_film.make_film(W, H)
     px, py = ref_rend.pixel_grid(W, H)
     for s in range(smp.spp):
@@ -185,6 +192,40 @@ def test_zero_delta_scene_renders_the_static_image():
     img_m = _port_render(moving, 1, 3)
     img_s = _port_render(static, 1, 3)
     _check_image(img_m, img_s)
+
+
+@pytest.mark.parametrize("name", ["direct", "whitted", "ao"])
+def test_render_other_integrators_match_reference(name):
+    """The three integrators that trace closest-hit and any-hit rays in
+    SEPARATE launches, through the port's OWN scene compiler and ``render``
+    (``tests/test_torch_integrators.py`` holds them on the reference's
+    scene): the glass-and-mirror box, so the specular continuation runs."""
+    rig, ig, rmod, mod = {
+        "direct": (ref_di.DirectLightingIntegrator(max_depth=3),
+                   direct.DirectLightingIntegrator(max_depth=3), ref_di,
+                   direct),
+        "whitted": (ref_wh.WhittedIntegrator(max_depth=3),
+                    whitted.WhittedIntegrator(max_depth=3), ref_wh, whitted),
+        "ao": (ref_ao.AOIntegrator(n_samples=3, max_dist=1.5),
+               ao.AOIntegrator(n_samples=3, max_dist=1.5), ref_ao, ao),
+    }[name]
+    rb, b = ref_sb.cornell_box(), sb.cornell_box()
+    rb.mat_rows[-2], b.mat_rows[-2] = ref_mat.glass(), mat_mod.glass()
+    mp = pytest.MonkeyPatch()
+    try:
+        th.eager_reference(mp)
+        film = _reference_render(
+            rb.build(), EYE, LOOK, FOV, 1, 3,
+            li=lambda s, r, d, c: rmod.li(rig, s, r, d, c))
+    finally:
+        mp.undo()
+    cam = cameras.perspective(tr.look_at(EYE, LOOK, UP), FOV, W, H,
+                              device="cpu")
+    smp = samplers.make_sampler("lowdiscrepancy", spp=1)
+    img = rend.render(b.build(), cam, smp,
+                      lambda s, r, d, c: mod.li(ig, s, r, d, c), W, H,
+                      device="cpu")
+    _check_image(img, np.asarray(ref_film.to_rgb(film)))
 
 
 BENCH_TRIS = 2000

@@ -39,7 +39,7 @@ def world():
     v0, e1, e2 = th.soup()
     cb = cluster.build(v0, e1, e2, k=32)
     packed, perm = tc.pack(cb.node_lo, cb.node_hi, cb.node_child,
-                           cb.tri_v0, cb.tri_e1, cb.tri_e2, cb.tri_id)
+                           cb.node_axis, cb.tri_v0, cb.tri_e1, cb.tri_e2, cb.tri_id)
     rcb = ref_cluster.build(v0, e1, e2, k=32)
     rpacked, rperm = tp.pack(rcb.node_lo, rcb.node_hi, rcb.node_child,
                              rcb.node_axis, rcb.tri_v0, rcb.tri_e1,
@@ -96,7 +96,7 @@ def test_pack_keeps_pad_slots_last(world):
     bad[c, 0] = -1
     z = np.zeros(bad.shape + (3,), np.float32)
     with pytest.raises(ValueError, match="pad slot"):
-        tc.pack(None, None, None, z, z, z, bad)
+        tc.pack(None, None, None, None, z, z, z, bad)
 
 
 @pytest.mark.parametrize("with_flag", [False, True])
@@ -234,7 +234,7 @@ def test_cuda_tensor_never_takes_the_plain_version(world, monkeypatch):
     tc.traverse6(moving, *args, time=rays.time)
     tc.traverse5(moving, *args)
     tc.traverse7(moving, *args)
-    assert set(tc.LAUNCHES.values()) == {0} and len(tc.LAUNCHES) == 10
+    assert set(tc.LAUNCHES.values()) == {0} and len(tc.LAUNCHES) == 18
 
     class OnCard:
         """Stands in for a tensor whose device is a CUDA device."""
@@ -338,9 +338,19 @@ def test_packet_walk_sorted_with_dead_lanes_and_ragged_tail(world, which):
 
 @pytest.mark.parametrize("which", ["v1", "v2", "v3", "v4"])
 def test_binary_tree_kernels_raise_by_name(world, which):
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tc.intersect_rays(world["bvh"], None, None, None, None, None, None,
-                          None, kernel=which)
+    """The kernels over the binary tree are served now; what still raises,
+    naming the kernel, is moving geometry through one of them."""
+    o, d = th.ray_arrays(8, seed=62)
+    rays = _port_rays(o, d)
+    args = (world["permt"], None, None, rays.o, rays.d, rays.tmin, rays.tmax)
+    t, prim, _, _ = tc.intersect_rays(world["bvh"], *args, sort=False,
+                                      kernel=which)
+    assert t.shape == prim.shape == (8,)
+    moving = dataclasses.replace(
+        world["bvh"], soup16d=torch.zeros_like(world["bvh"].soup16))
+    with pytest.raises(ValueError, match=f"v6 kernel, not '{which}'"):
+        tc.intersect_rays(moving, *args, sort=False, kernel=which,
+                          time=rays.time)
 
 
 def test_default_kernel_table_routes_waves(world, monkeypatch):

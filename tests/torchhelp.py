@@ -101,3 +101,28 @@ def j3(a):
 def n3(v):
     """V3 of either package -> (R, 3) numpy."""
     return np.stack([np.asarray(v.x), np.asarray(v.y), np.asarray(v.z)], -1)
+
+
+def eager_reference(mp):
+    """Put the reference into the mode the whole-wave tests compare against,
+    through the MonkeyPatch `mp`: its Pallas traversal kernels in interpret
+    mode, and ``jax.lax.fori_loop`` as a Python loop where its bounds are
+    Python ints (the loops over lights and probes, which would otherwise
+    compile a traversal loop for a minute): the body runs eagerly, with an
+    int32 array for its index as it would see when traced. A loop with traced
+    bounds (inside the Pallas kernels) stays the real one."""
+    import jax
+    import jax.numpy as jnp
+    from dartray_tpu.scene import types as ref_st
+    real = jax.lax.fori_loop
+
+    def fori_loop(lower, upper, body, init):
+        if not (isinstance(lower, int) and isinstance(upper, int)):
+            return real(lower, upper, body, init)
+        val = init
+        for i in range(lower, upper):
+            val = body(jnp.int32(i), val)
+        return val
+
+    mp.setattr(ref_st, "FORCE_PALLAS_INTERPRET", True)
+    mp.setattr(jax.lax, "fori_loop", fori_loop)

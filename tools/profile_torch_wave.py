@@ -1,9 +1,12 @@
 """Where one wave of the PyTorch port spends its time on the GPU.
 
     python tools/profile_torch_wave.py [--waves 4] [--res 512] [--depth 5]
+                                       [--integrator path|direct|whitted|ao]
 
 Builds the bench scene, warms up, then runs `--waves` waves of
-renderers.sampler.render_wave under torch.profiler with the port's stages
+renderers.sampler.render_wave of the chosen integrator (default: the path
+integrator; ``ao`` takes ``--ao-samples`` probes, default 64) under
+torch.profiler with the port's stages
 wrapped in named ranges (wrapped from here, the package carries no
 instrumentation). Prints one JSON object: wave time on the host clock, the
 device's busy share, kernel launches per wave, time by stage and the top
@@ -24,7 +27,9 @@ from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E
 from dartray_tpu_torch import bsdf, cameras, film as film_mod  # noqa: E402
 from dartray_tpu_torch import materials, samplers  # noqa: E402
 from dartray_tpu_torch.core import transform as tr  # noqa: E402
-from dartray_tpu_torch.integrators import common, path as pi  # noqa: E402
+from dartray_tpu_torch.integrators import ao, common, direct  # noqa: E402
+from dartray_tpu_torch.integrators import path as pi, whitted  # noqa: E402
+from dartray_tpu_torch import lights  # noqa: E402
 from dartray_tpu_torch.ops import traverse_cuda as tc  # noqa: E402
 from dartray_tpu_torch.renderers import sampler as rend  # noqa: E402
 from dartray_tpu_torch.scene import build as sb, types as st  # noqa: E402
@@ -34,6 +39,7 @@ STAGES = [
     (cameras, "generate_rays"), (st, "interaction"),
     (materials, "eval_params"), (bsdf, "make_frame"), (bsdf, "sample_f"),
     (common, "nee_prepare"), (common, "emitter_hit_mis"),
+    (common, "estimate_direct"), (lights, "sample_li"), (bsdf, "f"),
     (tc, "sort_key_i32"), (tc, "_sorted_launch"), (tc, "traverse6"),
     (tc, "finish_hits_rows"), (film_mod, "add_samples"),
 ]
@@ -49,12 +55,28 @@ def wrap_stages():
         setattr(mod, name, wrapped)
 
 
+def integrator(name, depth, ao_samples):
+    """li_fn of the integrator `name` at `depth`."""
+    if name == "path":
+        ig, mod = pi.PathIntegrator(max_depth=depth), pi
+    elif name == "direct":
+        ig, mod = direct.DirectLightingIntegrator(max_depth=depth), direct
+    elif name == "whitted":
+        ig, mod = whitted.WhittedIntegrator(max_depth=depth), whitted
+    else:
+        ig, mod = ao.AOIntegrator(n_samples=ao_samples), ao
+    return lambda s, r, d, c: mod.li(ig, s, r, d, c)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--waves", type=int, default=4)
     ap.add_argument("--res", type=int, default=512)
     ap.add_argument("--depth", type=int, default=5)
     ap.add_argument("--spp", type=int, default=64)
+    ap.add_argument("--integrator", default="path",
+                    choices=("path", "direct", "whitted", "ao"))
+    ap.add_argument("--ao-samples", type=int, default=64)
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs one CUDA device", file=sys.stderr)
@@ -69,8 +91,7 @@ def main():
         tr.look_at([0, 2.2, -5.0], [0, 0.9, 0], [0, 1, 0]), 42.0, a.res,
         a.res, device=dev)
     smp = samplers.make_sampler("lowdiscrepancy", spp=a.spp)
-    ig = pi.PathIntegrator(max_depth=a.depth)
-    li = lambda s, r, d, c: pi.li(ig, s, r, d, c)
+    li = integrator(a.integrator, a.depth, a.ao_samples)
     film = film_mod.make_film(a.res, a.res, device=dev)
     px, py = rend.pixel_grid(a.res, a.res, device=dev)
 
@@ -121,7 +142,10 @@ def main():
     self_dev = lambda e: e.self_device_time_total
     top = sorted(kernels, key=lambda e: -self_dev(e))[:12]
     print(json.dumps({
-        "card": smi, "res": a.res, "depth": a.depth, "waves": a.waves,
+        "card": smi, "integrator": a.integrator, "res": a.res,
+        "depth": a.depth, "waves": a.waves,
+        "traversal_launches_per_wave": {
+            k: v / (2 + 2 * a.waves) for k, v in tc.LAUNCHES.items() if v},
         "wave_ms": plain_wave_ms, "wave_ms_traced": traced_wave_ms,
         "device_busy_ms_per_wave": busy_us / a.waves / 1e3,
         "device_busy_share": busy_us / 1e3 / a.waves / traced_wave_ms,
