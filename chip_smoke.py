@@ -19,10 +19,11 @@ JSON line; any failure raises and the script exits non-zero:
                PyTorch version on the same tensors on the card (finished
                t/prim agree on >= 0.999 of lanes, any-hit masks equal,
                stack-overflow flag 0); median kernel and plain times:
-               v6 closest / any / mixed on the static scene, the v5 and v7
+               v6 closest / any / mixed on the static scene and its motion
+               mode closest / any / mixed on the moving scene (raw (t, prim)
+               EQUAL to the plain version's on every lane), the v5 and v7
                packet walks on the camera wave (closest) and on sorted
-               incoherent rays (any), the v6 motion mode closest / any /
-               mixed on the moving scene, and the four walks over the binary
+               incoherent rays (any), and the four walks over the binary
                tree (v1-v4) on the same two ray sets: raw (t, prim) and v3's
                counters EQUAL to the plain version's, hit masks equal to
                v6's on the same rays
@@ -233,7 +234,9 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
 
     A binary-tree kernel (``ATTIC``) must give its plain version's raw
     (t, prim) on EVERY lane, and v3 its counters: same tables, same packet,
-    same order of pops, same fold."""
+    same order of pops, same fold. So must the per-ray walk (v6, static and
+    motion), any-hit lanes included: every ray pops its own stack in the
+    plain version's order, whichever lanes of its warp do the arithmetic."""
     bvh = geom.packed
     n = rays.n
     any_hit = mode == "any"
@@ -268,7 +271,7 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
             f"{name}: the wrapper counted {launched}")
     t_p, p_p, *cnt_p = run_p(stats)
     extra = {}
-    if kern in ATTIC:
+    if kern in ATTIC or kern in ("traverse6", "traverse6_motion"):
         require(torch.equal(t_k, t_p) and torch.equal(p_k, p_p),
                 f"{name}: raw (t, prim) differs from the plain version's")
         if cnt_k:
@@ -300,6 +303,11 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
             f"on {share} of lanes")
     require(masks_equal, f"{name}: any-hit masks differ")
     ms = time_ms(run_k, repeats=7, warmup=2)
+    # `ms` is one launch through the wrapper between two events, so it holds
+    # the host's time to enqueue it, which a short kernel does not hide;
+    # beside it, the device's time a launch with 20 queued back to back
+    ms_queued = time_ms(lambda: [run_k() for _ in range(20)], repeats=3,
+                        warmup=1) / 20
     # the packet walks' plain versions take seconds: fewer repeats
     plain_ms = time_ms(run_p, warmup=0, repeats=5 if kern.startswith(
         "traverse6") else (1 if kern in ATTIC else 3))
@@ -329,6 +337,7 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "ms_queued": ms_queued,
         "counter": f"{kern}:{mode}", "lanes": n, "agree": share,
         "hit_share": float((p_k >= 0).float().mean()),
         "node_pops": need["node_pops"], "tri_tests": need["tri_tests"],

@@ -14,21 +14,61 @@
 // with tmax < tmin is dead. The exact (t, b1, b2) and the original prim id are
 // recomputed outside the kernel by the finish step (ops/traverse_cuda.py).
 //
-// Design (simple and right first): one thread per ray, a per-thread stack of
-// child refs in local memory, the ray's OWN direction octant selects the
-// far-first push-order row, so pops come near first. A popped interior ref
-// slab-tests the node's 8 child boxes; a popped leaf ref tests the cluster's
-// K triangles inline (Moeller-Trumbore). (t, prim) stay in two registers.
-// Tables are read from global memory through L1/L2 with 16-byte loads: a node
-// is one 192-byte row, an order row is 32 bytes, a triangle is the first 48
-// bytes of its 64-byte soup16 row.
+// What it computes is one walk per ray: a per-thread stack of child refs in
+// local memory, the ray's OWN direction octant selects the far-first
+// push-order row, so pops come near first; a popped interior ref slab-tests
+// the node's 8 child boxes, a popped leaf ref tests the cluster's K triangles
+// in slot order (Moeller-Trumbore) up to the first pad slot. The nearest
+// accepted t in (tmin, tmax] wins, the first triangle met wins a tie, an
+// any-hit lane stops at its first accepted triangle. Tables are read through
+// L1/L2 with 16-byte loads: a node is one 192-byte row, an order row 32
+// bytes, a triangle the first 48 bytes of its 64-byte soup16 row.
 //
-// What bounds it: neither the ray planes' bytes (40 B a ray in and out) nor
-// f32 arithmetic, but the latency of dependent table fetches along each
-// ray's walk and the divergence of the 32 walks of a warp. The caller's
-// coherence sort keeps a warp's rays in one region and one octant; nothing
-// else is done about it here (warp-cooperative packets, shared-memory stacks
-// and persistent blocks are later work).
+// What bounds it on this card: neither the ray planes' bytes (40 B a ray in
+// and out) nor f32 arithmetic. A wave's mean work is tiny (1-8 node pops and
+// 2-140 triangle tests a ray on the bench scene) and its time is set by its
+// heaviest warps: a few rays visit tens of times the mean number of leaves,
+// and for each leaf the one-thread-a-ray loop is a chain of about 22
+// dependent triangle tests, each behind a row fetch that cannot start before
+// the previous test has ended. So the design shortens the chain of a ray;
+// each ray still pops its own stack in the same order, and only WHEN a lane
+// does a step and WHICH lane does its arithmetic change, so (t, prim) stay
+// those of the plain version bit for bit:
+//
+//  * Postponed leaves. A lane pops and slab-tests interior refs until it pops
+//    a leaf, which it HOLDS, or its stack is empty; when every lane of the
+//    warp has got there the warp serves the held leaves. Lanes do node work
+//    together and leaf work together instead of a slab test and a whole leaf
+//    loop in one divergent step.
+//  * Few lanes hold a leaf (at most TRANSPOSE_MAX of 32: the long rays of a
+//    warp whose other rays have ended, and incoherent waves): the warp serves
+//    them one RAY at a time. The ray is broadcast by shuffles, lane j fetches
+//    and tests triangle j of its cluster (K = 32 is the warp's width; wider
+//    clusters take rounds of 32 slots), and the warp folds the 32 results as
+//    the sequential loop would have: the least accepted t by an integer
+//    `__reduce_min_sync` over an order-preserving key, the first slot among
+//    equal t by a ballot; an any-hit ray takes the first accepted slot. A
+//    leaf costs that ray one triangle test, not K in a row. Consecutive rays
+//    that hold the same cluster reuse the rows already in registers.
+//  * Many lanes hold a leaf (coherent waves): every lane runs the sequential
+//    loop for itself, all together, and the rows of slot j + 1 are loaded
+//    before slot j is tested, so the fetch is off the chain. L1 broadcasts
+//    the rows that neighbouring lanes share.
+//  * All 32 lanes of a warp stay in the walk until the warp is done: lanes
+//    past the end of the wave, dead lanes and finished lanes idle with an
+//    empty stack, because every `*_sync` below names the full warp.
+//
+// Measured and left out (tools/compare_traverse6.py, each alone against the
+// earlier one-thread-a-ray kernel and on top of this design; PERF.md has the
+// numbers): warps that fetch batches of 32 rays from a global counter, and
+// blocks of 64 threads (slower or level: neighbouring batches land on
+// different SMs and share no L1); a cluster that several lanes share staged
+// in shared memory (slower: L1 already broadcasts equal addresses, and the
+// staging costs registers and a barrier); node rows shared the same way
+// (level); the bottom of the stack in shared memory (level); two rows a turn
+// in the sequential loop, two rays a round in the transposed one, order rows
+// fetched beside the node row, an early exit from a triangle test whose u is
+// far outside [0, 1] (all level within the spread).
 //
 // Arithmetic: compile WITHOUT --use_fast_math (NaN pad boxes and +-inf tmax
 // must compare per IEEE; the id column of the soup rows is an int32 bit
@@ -44,12 +84,193 @@
 #include "ray_tests.cuh"
 
 #define BLOCK_THREADS 128
+#define FULL_WARP 0xffffffffu
+// a leaf phase in which at most this many lanes hold a leaf is served one
+// ray at a time by the whole warp; above it every lane loops for itself.
+// Measured level from 8 to 24; at 32 the coherent camera waves take a
+// quarter to a half longer
+#define TRANSPOSE_MAX 16
 
 #define MODE_CLOSEST 0
 #define MODE_ANY 1
 #define MODE_MIXED 2
 
 namespace {
+
+// the 48 bytes of a soup16 row a test reads: v0.xyz e1.x | e1.yz e2.xy |
+// e2.z id_bits 0 0
+struct Tri {
+  float4 a, c, g;
+};
+
+__device__ __forceinline__ bool is_pad(const Tri& t) {
+  return __float_as_int(t.g.y) < 0;  // the id column: bits, never a number
+}
+
+// row `row` of the soup (and, MOTION, of the delta table) where `on`
+template <bool MOTION>
+__device__ __forceinline__ void load_row(const float4* __restrict__ soup,
+                                         const float4* __restrict__ soupd,
+                                         int row, bool on, Tri& t, Tri& d) {
+  if (on) {
+    const float4* p = soup + (size_t)row * 4;
+    t.a = __ldg(p);
+    t.c = __ldg(p + 1);
+    t.g = __ldg(p + 2);
+    if (MOTION) {
+      const float4* q = soupd + (size_t)row * 4;
+      d.a = __ldg(q);
+      d.c = __ldg(q + 1);
+      d.g = __ldg(q + 2);
+    }
+  }
+}
+
+// the triangle at the ray's time; the id column is not touched (the delta
+// table's is zero and is never added to it)
+template <bool MOTION>
+__device__ __forceinline__ Tri lerped(Tri t, const Tri& d, float time) {
+  if (MOTION) {
+    t.a.x = t.a.x + time * d.a.x;
+    t.a.y = t.a.y + time * d.a.y;
+    t.a.z = t.a.z + time * d.a.z;
+    t.a.w = t.a.w + time * d.a.w;
+    t.c.x = t.c.x + time * d.c.x;
+    t.c.y = t.c.y + time * d.c.y;
+    t.c.z = t.c.z + time * d.c.z;
+    t.c.w = t.c.w + time * d.c.w;
+    t.g.x = t.g.x + time * d.g.x;
+  }
+  return t;
+}
+
+__device__ __forceinline__ bool hits(const dr::Ray& r, const Tri& w,
+                                     float* t) {
+  return dr::mt_test(r, w.a.x, w.a.y, w.a.z, w.a.w, w.c.x, w.c.y, w.c.z,
+                     w.c.w, w.g.x, t);
+}
+
+// Slab-test wide node `ref` and push the hit children, far first.
+__device__ __forceinline__ void node_step(const float4* __restrict__ wbounds,
+                                          const int4* __restrict__ order_rows,
+                                          int ref, const dr::Ray& r,
+                                          float t_best, int* stack, int& sp,
+                                          int* overflow) {
+  const unsigned mask = dr::slab8(wbounds + (size_t)ref * 12, r, t_best);
+  if (mask != 0u) {
+    const int4* orow = order_rows + (size_t)ref * 2;
+    const int4 e0 = __ldg(orow), e1 = __ldg(orow + 1);
+    const int ent[8] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // far first, so near pops first
+      const int e = ent[j];
+      if ((mask >> (e & 7)) & 1u) {
+        if (sp < STACK_DEPTH) {
+          stack[sp++] = e >> 3;  // arithmetic shift: ref < 0 is a leaf
+        } else {
+          atomicOr(overflow, 1);
+        }
+      }
+    }
+  }
+}
+
+// One lane tests the triangles of its held leaf `ref` in slot order (pad
+// slots trail, id < 0); slot j + 1 is on its way while slot j is tested.
+template <bool MOTION>
+__device__ __forceinline__ void leaf_by_lane(
+    const dr::Ray& r, int ref, int k, const float4* __restrict__ soup,
+    const float4* __restrict__ soupd, float time, bool any_lane,
+    float& t_best, int& prim, int& sp) {
+  const int base = (-ref - 1) * k;
+  Tri next{}, dnext{};
+  load_row<MOTION>(soup, soupd, base, true, next, dnext);
+  for (int j = 0; j < k; ++j) {
+    const Tri tri = next, dtri = dnext;
+    if (is_pad(tri)) break;
+    load_row<MOTION>(soup, soupd, base + j + 1, j + 1 < k, next, dnext);
+    float t;
+    const bool ok = hits(r, lerped<MOTION>(tri, dtri, time), &t);
+    if (ok && dr::nearer(t, t_best, prim)) {
+      t_best = t;
+      prim = base + j;
+      if (any_lane) {  // first blocker is enough
+        sp = 0;
+        break;
+      }
+    }
+  }
+}
+
+// Order-preserving integer key of a float that is not NaN; -0 counts as +0.
+__device__ __forceinline__ unsigned order_key(float t) {
+  const unsigned u = __float_as_uint(t + 0.0f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The whole warp serves the held leaves of the lanes in `holders`, one ray
+// at a time: lane j tests slot c0 + j of the ray's cluster. Within a round
+// of 32 slots every candidate is held against the (t_best, prim) the ray
+// had when the round began, and the least t wins, the lower slot on a tie:
+// what the sequential loop over those slots leaves behind. Executed by all
+// 32 lanes; only the ray's own lane takes the result.
+template <bool MOTION>
+__device__ __forceinline__ void leaves_by_warp(
+    unsigned holders, int lane, const dr::Ray& r, int held, int k,
+    const float4* __restrict__ soup, const float4* __restrict__ soupd,
+    float time, bool any_lane, float& t_best, int& prim, int& sp) {
+  int in_regs = 0;  // k <= 32: the cluster whose row `lane` is in (tri, dtri)
+  Tri tri{}, dtri{};
+  for (unsigned todo = holders; todo != 0u; todo &= todo - 1u) {
+    const int src = __ffs(todo) - 1;
+    const int ref = __shfl_sync(FULL_WARP, held, src);
+    dr::Ray q = r;  // mt_test reads o, d and tmin only
+    q.ox = __shfl_sync(FULL_WARP, r.ox, src);
+    q.oy = __shfl_sync(FULL_WARP, r.oy, src);
+    q.oz = __shfl_sync(FULL_WARP, r.oz, src);
+    q.dx = __shfl_sync(FULL_WARP, r.dx, src);
+    q.dy = __shfl_sync(FULL_WARP, r.dy, src);
+    q.dz = __shfl_sync(FULL_WARP, r.dz, src);
+    q.tmin = __shfl_sync(FULL_WARP, r.tmin, src);
+    float best = __shfl_sync(FULL_WARP, t_best, src);
+    int winner = __shfl_sync(FULL_WARP, prim, src);
+    const bool any_ray = __shfl_sync(FULL_WARP, (int)any_lane, src) != 0;
+    const float when = MOTION ? __shfl_sync(FULL_WARP, time, src) : 0.0f;
+    const int base = (-ref - 1) * k;
+    bool got = false;
+    for (int c0 = 0; c0 < k; c0 += 32) {  // the same for all lanes
+      const bool mine = c0 + lane < k;
+      if (k > 32 || ref != in_regs)
+        load_row<MOTION>(soup, soupd, base + c0 + lane, mine, tri, dtri);
+      bool accept = false;
+      float t = 0.0f;
+      if (mine) {
+        const bool ok = hits(q, lerped<MOTION>(tri, dtri, when), &t);
+        accept = ok && !is_pad(tri) && dr::nearer(t, best, winner);
+      }
+      const unsigned accepted = __ballot_sync(FULL_WARP, accept);
+      if (accepted == 0u) continue;
+      int slot;
+      if (any_ray) {
+        slot = __ffs(accepted) - 1;
+      } else {
+        const unsigned key = accept ? order_key(t) : 0xffffffffu;
+        const unsigned least = __reduce_min_sync(FULL_WARP, key);
+        slot = __ffs(__ballot_sync(FULL_WARP, accept && key == least)) - 1;
+      }
+      best = __shfl_sync(FULL_WARP, t, slot);
+      winner = base + c0 + slot;
+      got = true;
+      if (any_ray) break;  // first blocker is enough
+    }
+    in_regs = ref;
+    if (lane == src && got) {
+      t_best = best;
+      prim = winner;
+      if (any_ray) sp = 0;
+    }
+  }
+}
 
 template <bool MOTION>
 __global__ void __launch_bounds__(BLOCK_THREADS)
@@ -68,91 +289,65 @@ traverse6_kernel(const float4* __restrict__ wbounds,  // (W, 12) float4
                  int* __restrict__ overflow, int n, int n_wnodes, int k,
                  int mode) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int lane = threadIdx.x & 31;
   const float inf = __int_as_float(0x7f800000);
-  const float tmin = tmin_[i];
-  const float tmax = tmax_[i];
-  if (!(tmax >= tmin)) {  // dead lane (also NaN bounds)
-    t_out[i] = inf;
-    prim_out[i] = -1;
-    return;
+  // a lane past the end of the wave stays, as a dead lane: no early return
+  const bool in_wave = i < n;
+  float tmin = 0.0f, tmax = -1.0f, time = 0.0f;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  bool any_lane = mode == MODE_ANY;
+  if (in_wave) {
+    tmin = tmin_[i];
+    tmax = tmax_[i];
+    ox = ox_[i];
+    oy = oy_[i];
+    oz = oz_[i];
+    dx = dx_[i];
+    dy = dy_[i];
+    dz = dz_[i];
+    if (mode == MODE_MIXED) any_lane = anyf_[i] > 0.0f;
+    if (MOTION) time = time_[i];
   }
-  const dr::Ray r =
-      dr::make_ray(ox_[i], oy_[i], oz_[i], dx_[i], dy_[i], dz_[i], tmin);
+  const dr::Ray r = dr::make_ray(ox, oy, oz, dx, dy, dz, tmin);
   const int octant = (r.dx < 0.0f ? 1 : 0) + (r.dy < 0.0f ? 2 : 0) +
                      (r.dz < 0.0f ? 4 : 0);
-  const bool any_lane =
-      mode == MODE_ANY || (mode == MODE_MIXED && anyf_[i] > 0.0f);
-  const float time = MOTION ? time_[i] : 0.0f;
   const int4* order_rows = worder + (size_t)octant * n_wnodes * 2;
 
   int stack[STACK_DEPTH];
   int sp = 0;
-  stack[sp++] = 0;  // root wide node
+  if (tmax >= tmin) stack[sp++] = 0;  // live (not dead, no NaN bound): root
   float t_best = tmax;
   int prim = -1;
+  int held = 0;  // the leaf ref (< 0) this lane has popped and not yet tested
 
-  while (sp > 0) {
-    const int ref = stack[--sp];
-    if (ref >= 0) {
-      // ---- interior: slab-test the 8 child boxes of wide node `ref`
-      const unsigned mask = dr::slab8(wbounds + (size_t)ref * 12, r, t_best);
-      if (mask != 0u) {
-        const int4* orow = order_rows + (size_t)ref * 2;
-        const int4 e0 = __ldg(orow), e1 = __ldg(orow + 1);
-        const int ent[8] = {e0.x, e0.y, e0.z, e0.w, e1.x, e1.y, e1.z, e1.w};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {  // far first, so near pops first
-          const int e = ent[j];
-          if ((mask >> (e & 7)) & 1u) {
-            if (sp < STACK_DEPTH) {
-              stack[sp++] = e >> 3;  // arithmetic shift: ref < 0 is a leaf
-            } else {
-              atomicOr(overflow, 1);
-            }
-          }
-        }
-      }
-    } else {
-      // ---- leaf: test the cluster's triangles (pad slots trail, id < 0)
-      const int base = (-ref - 1) * k;
-      const float4* tri = soup + (size_t)base * 4;
-      const float4* trd = MOTION ? soupd + (size_t)base * 4 : nullptr;
-      for (int j = 0; j < k; ++j, tri += 4) {
-        float4 a = __ldg(tri);      // v0.xyz e1.x
-        float4 c = __ldg(tri + 1);  // e1.yz e2.xy
-        float4 g = __ldg(tri + 2);  // e2.z id_bits 0 0
-        if (__float_as_int(g.y) < 0) break;
-        if (MOTION) {  // lerp to the ray's time; the id column is not touched
-          const float4 da = __ldg(trd + 4 * j);
-          const float4 dc = __ldg(trd + 4 * j + 1);
-          const float4 dg = __ldg(trd + 4 * j + 2);
-          a.x = a.x + time * da.x;
-          a.y = a.y + time * da.y;
-          a.z = a.z + time * da.z;
-          a.w = a.w + time * da.w;
-          c.x = c.x + time * dc.x;
-          c.y = c.y + time * dc.y;
-          c.z = c.z + time * dc.z;
-          c.w = c.w + time * dc.w;
-          g.x = g.x + time * dg.x;
-        }
-        float t;
-        const bool ok =
-            dr::mt_test(r, a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w, g.x, &t);
-        if (ok && dr::nearer(t, t_best, prim)) {
-          t_best = t;
-          prim = base + j;
-          if (any_lane) {  // first blocker is enough
-            sp = 0;
-            break;
-          }
-        }
-      }
+  for (;;) {
+    // ---- nodes: pop until this lane holds a leaf or its stack is empty
+    while (held == 0 && sp > 0) {
+      const int ref = stack[--sp];
+      if (ref < 0)
+        held = ref;
+      else
+        node_step(wbounds, order_rows, ref, r, t_best, stack, sp, overflow);
     }
+    // ---- leaves, once every lane of the warp has got here (the barrier
+    // gathers the lanes at once: without it the ballot is reached in ragged
+    // groups, measured 4 % slower); a lane that holds none has an empty
+    // stack, so no holder ends the warp's walk
+    __syncwarp();
+    const unsigned holders = __ballot_sync(FULL_WARP, held < 0);
+    if (holders == 0u) break;
+    if (__popc(holders) <= TRANSPOSE_MAX)
+      leaves_by_warp<MOTION>(holders, lane, r, held, k, soup, soupd, time,
+                             any_lane, t_best, prim, sp);
+    else if (held < 0)
+      leaf_by_lane<MOTION>(r, held, k, soup, soupd, time, any_lane, t_best,
+                           prim, sp);
+    held = 0;  // tested; an any-hit lane that was blocked also has sp == 0
   }
-  t_out[i] = prim >= 0 ? t_best : inf;
-  prim_out[i] = prim;
+  if (in_wave) {
+    t_out[i] = prim >= 0 ? t_best : inf;
+    prim_out[i] = prim;
+  }
 }
 
 template <bool MOTION>

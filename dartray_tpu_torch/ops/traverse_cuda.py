@@ -7,7 +7,15 @@ from its source under ``csrc/`` and loaded with ``ctypes``. Over the WIDE
 (8-ary) tree:
 
 * ``traverse6`` (``csrc/traverse6.cu``) replaces ``_kernel6`` in its
-  closest-hit, any-hit and mixed modes: one stack per ray. With ``time=`` on
+  closest-hit, any-hit and mixed modes: one stack per ray, one thread per
+  ray, and every ray pops its own stack in its own octant's order. The warp
+  only decides WHEN and BY WHOM a step is done: a lane holds a popped leaf
+  until all 32 lanes hold one or have an empty stack; where at most 16
+  lanes hold one, the warp tests them one ray at a time, lane j on triangle
+  j, and folds the 32 results as the sequential loop would; otherwise every
+  lane loops over its own leaf, the next row fetched before the current
+  test. A ray's raw ``(t, prim)`` therefore does not depend on the lanes
+  beside it and equals ``traverse6_plain``'s bit for bit. With ``time=`` on
   a scene packed with deltas it launches the kernel's motion instantiation,
   which lerps every leaf triangle to the ray's shutter time.
 * ``traverse5`` (``csrc/traverse5.cu``) replaces ``_kernel5``: a PACKET walk,

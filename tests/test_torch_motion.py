@@ -214,3 +214,100 @@ def test_motion_walk_matches_bruteforce_with_time(world, mode):
     t0, prim0 = tc.traverse6(bvh, rays.o, rays.d, rays.tmin, rays.tmax,
                              any_hit=(mode == "any"), anyf=anyf)
     assert not torch.equal(prim0 >= 0, bf.hit)
+
+
+MODES = ["closest", "any", "mixed"]
+
+
+def _swept_wave(n, seed):
+    """Rays around the swept volume that partly miss, with random times and
+    per-lane any-hit flags, a fifth of the lanes dead (numpy arrays)."""
+    rng = np.random.RandomState(seed)
+    o = (rng.randn(n, 3) * 1.5 + [1.0, 0, 0]).astype(np.float32)
+    aim = np.stack([2.0 * rng.rand(n), np.zeros(n), np.zeros(n)], -1)
+    d = (aim + 0.3 * rng.randn(n, 3) - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ts = rng.rand(n).astype(np.float32)
+    tmax = np.where(rng.rand(n) < 0.2, -1.0, np.inf).astype(np.float32)
+    anyf = (rng.rand(n) < 0.5).astype(np.float32)
+    return o, d, ts, tmax, anyf
+
+
+def _rays_of(o, d, ts, tmax):
+    return vm.make_rays(th.t3(o), th.t3(d), tmax=torch.from_numpy(tmax),
+                        time=torch.from_numpy(ts))
+
+
+def _mode_kw(mode, anyf):
+    return {"any_hit": mode == "any",
+            "anyf": torch.from_numpy(anyf) if mode == "mixed" else None}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_motion_ray_result_does_not_depend_on_its_neighbours(world, mode):
+    """The motion walk, like the static one, gives every ray the raw
+    (t, prim) it would get alone: permuted, in batches of 32 with a ragged
+    tail, with dead lanes in between. Its own time travels with the ray."""
+    n = 512
+    o, d, ts, tmax, anyf = _swept_wave(n, seed=31)
+    bvh = world["geom"].packed
+
+    def walk(sel):
+        dead = sel < 0
+        s = np.where(dead, 0, sel)
+        rays = _rays_of(o[s], d[s], ts[s],
+                        np.where(dead, -1.0, tmax[s]).astype(np.float32))
+        t, p = tc.traverse6_plain(bvh, rays.o, rays.d, rays.tmin, rays.tmax,
+                                  time=rays.time, **_mode_kw(mode, anyf[s]))
+        return t.numpy(), p.numpy()
+
+    th.hold_rays_independent(walk, n, seed=33)
+
+
+_moving_k = {}
+
+
+def _moving_sphere_packed(k):
+    """The moving sphere packed with clusters of `k` triangles, with its
+    open soup and deltas for the brute-force oracle (cached)."""
+    if k not in _moving_k:
+        from dartray_tpu_torch.accel import bvh as bvh_mod, cluster
+        m = _moving_sphere(mesh_mod)
+        a = bvh_mod.triangles_to_mt(m.verts, m.faces)
+        b = bvh_mod.triangles_to_mt(m.verts_end, m.faces)
+        cb = cluster.build_motion(*a, *b, k=k)
+        packed, perm = tc.pack(cb.node_lo, cb.node_hi, cb.node_child,
+                               cb.node_axis, cb.tri_v0, cb.tri_e1, cb.tri_e2,
+                               cb.tri_id,
+                               deltas=(cb.tri_dv0, cb.tri_de1, cb.tri_de2))
+        assert packed.k == k and packed.soup16d is not None
+        _moving_k[k] = (st.to_device(packed, "cpu"), torch.from_numpy(perm),
+                        a, [y - x for x, y in zip(a, b)])
+    return _moving_k[k]
+
+
+@pytest.mark.parametrize("k", [8, 40])
+@pytest.mark.parametrize("mode", MODES)
+def test_motion_other_cluster_sizes_match_bruteforce(k, mode):
+    """The moving sphere in clusters narrower and wider than a warp: after
+    the finish step closest lanes equal the per-ray-time brute force (prim
+    equal, t to rtol 1e-5), any-hit lanes have its mask, dead lanes miss."""
+    bvh, perm, soup, deltas = _moving_sphere_packed(k)
+    n = 512
+    o, d, ts, tmax, anyf = _swept_wave(n, seed=41)
+    rays = _rays_of(o, d, ts, tmax)
+    t, prim = tc.traverse6(bvh, rays.o, rays.d, rays.tmin, rays.tmax,
+                           time=rays.time, **_mode_kw(mode, anyf))
+    ft, fprim, _, _ = tc.finish_hits(bvh, perm, rays.o, rays.d, rays.tmin, t,
+                                     prim, time=rays.time)
+    bf = tv.brute_force_intersect(
+        *(torch.from_numpy(x) for x in soup), rays,
+        deltas=[torch.from_numpy(x) for x in deltas])
+    assert torch.equal(prim >= 0, bf.hit) and bf.hit.any()
+    assert not (prim >= 0)[torch.from_numpy(tmax) < 0].any()
+    closest = torch.from_numpy({"closest": np.ones_like(anyf),
+                                "any": np.zeros_like(anyf),
+                                "mixed": 1.0 - anyf}[mode] > 0)
+    sel = closest & bf.hit
+    assert torch.equal(fprim[sel], bf.prim[sel])
+    np.testing.assert_allclose(ft[sel].numpy(), bf.t[sel].numpy(), rtol=1e-5)

@@ -395,67 +395,169 @@ def test_default_kernel_table_routes_waves(world, monkeypatch):
     assert torch.equal(t0, t1) and torch.equal(p0, p1)
 
 
+MODES = ["closest", "any", "mixed"]
+
+
+def _wave(n, seed, dead=0.2):
+    """Rays with dead lanes and per-lane any-hit flags, as numpy arrays."""
+    o, d = th.ray_arrays(n, seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    tmax = np.where(rng.rand(n) < dead, -1.0, np.inf).astype(np.float32)
+    anyf = (rng.rand(n) < 0.5).astype(np.float32)
+    return o, d, tmax, anyf
+
+
+def _mode_kw(mode, anyf, to=torch.from_numpy):
+    return {"any_hit": mode == "any",
+            "anyf": to(anyf) if mode == "mixed" else None}
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_ray_result_does_not_depend_on_its_neighbours(world, mode):
+    """What the kernel's design rests on: every ray walks alone. The kernel
+    hands rays to warps in batches, postpones a lane's leaves until its
+    neighbours hold one too and lets the whole warp test one ray's leaf;
+    none of that may show in a ray's raw (t, prim)."""
+    o, d, tmax, anyf = _wave(N_RAYS, seed=71)
+
+    def walk(sel):
+        dead = sel < 0
+        s = np.where(dead, 0, sel)
+        rays = _port_rays(o[s], d[s], np.where(dead, -1.0, tmax[s]).astype(
+            np.float32))
+        t, p = tc.traverse6_plain(world["bvh"], rays.o, rays.d, rays.tmin,
+                                  rays.tmax, **_mode_kw(mode, anyf[s]))
+        return t.numpy(), p.numpy()
+
+    th.hold_rays_independent(walk, N_RAYS, seed=73)
+
+
+_other_k = {}
+
+
+def _packed_with_k(world, k):
+    """The test soup packed with clusters of `k` triangles (cached)."""
+    if k not in _other_k:
+        cb = cluster.build(world["v0"], world["e1"], world["e2"], k=k)
+        packed, perm = tc.pack(cb.node_lo, cb.node_hi, cb.node_child,
+                               cb.node_axis, cb.tri_v0, cb.tri_e1, cb.tri_e2,
+                               cb.tri_id)
+        assert packed.k == k and packed.soup16.shape[0] == packed.n_clusters * k
+        _other_k[k] = packed, perm
+    return _other_k[k]
+
+
+@pytest.mark.parametrize("k", [8, 40])
+@pytest.mark.parametrize("mode", MODES)
+def test_other_cluster_sizes_match_bruteforce(world, k, mode):
+    """Clusters narrower and wider than a warp (the kernel stages a leaf in
+    rounds of 32 slots): after the finish step closest lanes equal brute
+    force (prim equal, t to rtol 1e-5: both evaluate the same triangle), any-hit
+    lanes have its mask, dead lanes miss."""
+    packed, perm = _packed_with_k(world, k)
+    bvh = to_device(packed, "cpu")
+    o, d, tmax, anyf = _wave(N_RAYS, seed=81)
+    rays = _port_rays(o, d, tmax)
+    t, prim = tc.traverse6(bvh, rays.o, rays.d, rays.tmin, rays.tmax,
+                           **_mode_kw(mode, anyf))
+    ft, fprim, _, _ = tc.finish_hits(bvh, torch.from_numpy(perm), rays.o,
+                                     rays.d, rays.tmin, t, prim)
+    bf = tv.brute_force_intersect(th.t3(world["v0"]), th.t3(world["e1"]),
+                                  th.t3(world["e2"]), rays)
+    assert torch.equal(prim >= 0, bf.hit) and bf.hit.any()
+    assert not (prim >= 0)[torch.from_numpy(tmax) < 0].any()
+    closest = torch.from_numpy({"closest": np.ones_like(anyf),
+                                "any": np.zeros_like(anyf),
+                                "mixed": 1.0 - anyf}[mode] > 0)
+    sel = closest & bf.hit
+    assert torch.equal(fprim[sel], bf.prim[sel])
+    np.testing.assert_allclose(ft[sel].numpy(), bf.t[sel].numpy(), rtol=1e-5)
+
+
+# wave shapes the v6 kernel's warp-level steps can get wrong
+CARD_SHAPES = ["ragged", "dead_batch", "short", "copies", "k8", "k40"]
+
+
+def _card_case(world, shape, seed):
+    """(host packed BVH, perm, o, d, tmax, anyf) of one card-only case, all
+    unsorted (an incoherent wave): `ragged` 4,101 rays (the last warp holds
+    5), a fifth dead; `dead_batch` the same with one warp of 32 wholly dead
+    lanes in the middle; `short` 19 rays (less than a warp); `copies` 32
+    copies of one ray that hits (every lane holds the same leaves); `k8` /
+    `k40` the soup packed in clusters narrower / wider than a warp."""
+    k = {"k8": 8, "k40": 40}.get(shape, 32)
+    packed, perm = ((world["packed"], world["perm"]) if k == 32
+                    else _packed_with_k(world, k))
+    n = {"short": 19, "copies": 32}.get(shape, 4096 + 5)
+    o, d, tmax, anyf = _wave(n, seed)
+    if shape == "dead_batch":
+        tmax[64 * 32:65 * 32] = -1.0
+    if shape == "copies":
+        o[:] = np.asarray([3.0, 0.1, 0.2], np.float32)
+        d[:] = -o / np.linalg.norm(o, axis=-1, keepdims=True)
+        tmax[:] = np.inf
+    return packed, perm, o, d, tmax, anyf
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["closest", "any", "mixed"])
-def test_kernel_matches_plain_version_on_the_card(world, mode):
+@pytest.mark.parametrize("shape", CARD_SHAPES)
+@pytest.mark.parametrize("mode", MODES)
+def test_kernel_matches_plain_version_on_the_card(world, mode, shape):
     """The CUDA kernel against its plain version on the same device tensors.
-    Both round every operation alike and take the same walk, so (t, prim)
-    must be identical."""
+    Both round every operation alike and every ray takes the same walk,
+    whichever lanes of its warp do the arithmetic, so the raw (t, prim) must
+    be identical on every lane, any-hit lanes included."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     dev = torch.device("cuda", 0)
-    bvh = to_device(world["packed"], dev)
-    o, d = th.ray_arrays(4096, seed=41)
-    rng = np.random.RandomState(42)
-    tmax = np.where(rng.rand(4096) < 0.2, -1.0, np.inf).astype(np.float32)
-    rays = _port_rays(o, d, tmax)
-    rays = to_device(rays, dev)
-    anyf = None
-    if mode == "mixed":
-        anyf = torch.from_numpy((rng.rand(4096) < 0.5).astype(np.float32)
-                                ).to(dev)
+    packed, _, o, d, tmax, anyf = _card_case(world, shape, seed=41)
+    bvh = to_device(packed, dev)
+    rays = to_device(_port_rays(o, d, tmax), dev)
+    kw = _mode_kw(mode, anyf, lambda a: torch.from_numpy(a).to(dev))
     before = dict(tc.LAUNCHES)
     tc.reset_overflow(dev)
-    t_k, p_k = tc.traverse6(bvh, rays.o, rays.d, rays.tmin, rays.tmax,
-                            any_hit=(mode == "any"), anyf=anyf)
+    t_k, p_k = tc.traverse6(bvh, rays.o, rays.d, rays.tmin, rays.tmax, **kw)
     t_p, p_p = tc.traverse6_plain(bvh, rays.o, rays.d, rays.tmin, rays.tmax,
-                                  any_hit=(mode == "any"), anyf=anyf)
+                                  **kw)
     assert tc.LAUNCHES[f"traverse6:{mode}"] == \
         before[f"traverse6:{mode}"] + 1
     assert int(tc.overflow_flag(dev).item()) == 0
+    assert bool((p_p >= 0).any())
     assert torch.equal(p_k, p_p)
     assert torch.equal(t_k, t_p)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kern,mode", [
-    ("traverse6_motion", "closest"), ("traverse6_motion", "any"),
-    ("traverse6_motion", "mixed"), ("traverse5", "closest"),
-    ("traverse5", "any"), ("traverse7", "closest"), ("traverse7", "any")])
-def test_new_kernels_match_plain_version_on_the_card(world, kern, mode):
-    """The motion mode of v6 and the two packet kernels against their plain
-    versions on the same device tensors (4096 + 5 rays: a ragged last
-    packet): identical (t, prim), identical counters."""
+@pytest.mark.parametrize("kern,mode,shape", [
+    *(("traverse6_motion", mode, shape) for mode in MODES
+      for shape in CARD_SHAPES),
+    ("traverse5", "closest", "ragged"), ("traverse5", "any", "ragged"),
+    ("traverse7", "closest", "ragged"), ("traverse7", "any", "ragged")])
+def test_new_kernels_match_plain_version_on_the_card(world, kern, mode,
+                                                     shape):
+    """The motion mode of v6 (on every shape of ``CARD_SHAPES``) and the two
+    packet kernels against their plain versions on the same device tensors:
+    identical (t, prim), identical counters."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda", 0)
-    n = 4096 + 5
+    packed, perm, o, d, tmax, anyf = _card_case(world, shape, seed=44)
+    n = o.shape[0]
     rng = np.random.RandomState(43)
-    packed = tc.with_woop(world["packed"])
+    packed = tc.with_woop(packed)
     delta = (0.2 * rng.randn(*packed.soup16.shape)).astype(np.float32)
     delta[:, 9:] = 0.0
-    delta[world["perm"] < 0] = 0.0
+    delta[perm < 0] = 0.0
     bvh = to_device(dataclasses.replace(packed, soup16d=delta), dev)
-    o, d = th.ray_arrays(n, seed=44)
-    tmax = np.where(rng.rand(n) < 0.2, -1.0, np.inf).astype(np.float32)
     rays = to_device(_port_rays(o, d, tmax), dev)
     args = (bvh, rays.o, rays.d, rays.tmin, rays.tmax)
     kw = {"any_hit": mode == "any"}
     if kern == "traverse6_motion":
         kw["time"] = torch.from_numpy(rng.rand(n).astype(np.float32)).to(dev)
+        if shape == "copies":
+            kw["time"][:] = 0.37
         if mode == "mixed":
-            kw["anyf"] = torch.from_numpy(
-                (rng.rand(n) < 0.5).astype(np.float32)).to(dev)
+            kw["anyf"] = torch.from_numpy(anyf).to(dev)
         fn, plain = tc.traverse6, tc.traverse6_plain
     else:
         kw["counters"] = True

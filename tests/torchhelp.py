@@ -126,3 +126,37 @@ def eager_reference(mp):
 
     mp.setattr(ref_st, "FORCE_PALLAS_INTERPRET", True)
     mp.setattr(jax.lax, "fori_loop", fori_loop)
+
+
+def hold_rays_independent(walk, n, seed):
+    """The raw (t, prim) of a ray must not depend on the lanes beside it.
+
+    `walk(sel)` runs the wave made of rays `sel` (indices into a base wave
+    of `n` rays; -1 stands for a dead lane put in between) and returns raw
+    (t, prim) as numpy arrays. Held against the base wave walked at once: the
+    wave permuted, cut into batches of 32 with a ragged tail, and with dead
+    lanes interleaved (one after every third ray and a whole batch of 32 in
+    the middle). A kernel may hand rays to warps in any of these ways."""
+    base_t, base_p = walk(np.arange(n))
+    assert (base_p >= 0).any() and (base_p < 0).any()
+    perm = np.random.RandomState(seed).permutation(n)
+    t, p = walk(perm)
+    assert same_bits(t, base_t[perm]) and same_bits(p, base_p[perm])
+    m = n - 12                       # the last batch holds 20 rays
+    for s in range(0, m, 32):
+        sel = np.arange(s, min(s + 32, m))
+        t, p = walk(sel)
+        assert same_bits(t, base_t[sel]) and same_bits(p, base_p[sel]), s
+    sel = []
+    for i in range(n):
+        sel.append(i)
+        if i % 3 == 2:
+            sel.append(-1)
+        if i == n // 2:
+            sel += [-1] * 32
+    sel = np.asarray(sel)
+    t, p = walk(sel)
+    live = sel >= 0
+    assert same_bits(t[live], base_t[sel[live]])
+    assert same_bits(p[live], base_p[sel[live]])
+    assert np.isposinf(t[~live]).all() and (p[~live] == -1).all()

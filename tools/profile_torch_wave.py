@@ -2,15 +2,21 @@
 
     python tools/profile_torch_wave.py [--waves 4] [--res 512] [--depth 5]
                                        [--integrator path|direct|whitted|ao]
+                                       [--moving]
 
-Builds the bench scene, warms up, then runs `--waves` waves of
+Builds the bench scene (with `--moving` its big sphere translates by
+(0.6, 0, 0) over the shutter, so every launch is the motion kernel's), warms
+up, then runs `--waves` waves of
 renderers.sampler.render_wave of the chosen integrator (default: the path
 integrator; ``ao`` takes ``--ao-samples`` probes, default 64) under
 torch.profiler with the port's stages
 wrapped in named ranges (wrapped from here, the package carries no
 instrumentation). Prints one JSON object: wave time on the host clock, the
-device's busy share, kernel launches per wave, time by stage and the top
-device kernels. Needs one CUDA device; writes nothing.
+device's busy share, kernel launches per wave, time by stage, the top
+device kernels, and `traversal_launches`: mode, lanes and the kernel's own
+time from the trace for each traversal launch of a wave in order (for a path
+wave the camera launch, the five mixed launches and the last any-hit one),
+the mean over the waves. Needs one CUDA device; writes nothing.
 """
 import argparse
 import json
@@ -21,6 +27,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
@@ -55,6 +62,16 @@ def wrap_stages():
         setattr(mod, name, wrapped)
 
 
+def log_traversal_launches(log):
+    """Make every v6 launch append its (mode, lanes) to `log`."""
+    real = tc._traverse6_cuda
+
+    def logged(bvh, oc, dc, tmin, tmax, mode, anyf, time):
+        log.append((tc.MODE_NAMES[mode], oc[0].shape[0]))
+        return real(bvh, oc, dc, tmin, tmax, mode, anyf, time)
+    tc._traverse6_cuda = logged
+
+
 def integrator(name, depth, ao_samples):
     """li_fn of the integrator `name` at `depth`."""
     if name == "path":
@@ -77,6 +94,7 @@ def main():
     ap.add_argument("--integrator", default="path",
                     choices=("path", "direct", "whitted", "ao"))
     ap.add_argument("--ao-samples", type=int, default=64)
+    ap.add_argument("--moving", action="store_true")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs one CUDA device", file=sys.stderr)
@@ -86,7 +104,11 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    scene = st.to_device(sb.bench_scene().build(), dev)
+    bench = sb.bench_scene()
+    if a.moving:
+        big = bench.meshes[0]
+        big.verts_end = big.verts + np.asarray([0.6, 0.0, 0.0], np.float32)
+    scene = st.to_device(bench.build(), dev)
     cam = cameras.perspective(
         tr.look_at([0, 2.2, -5.0], [0, 0.9, 0], [0, 1, 0]), 42.0, a.res,
         a.res, device=dev)
@@ -111,6 +133,8 @@ def main():
         torch.cuda.synchronize()
         plain_wave_ms = (time.time() - t0) / a.waves * 1e3
 
+        launched = []
+        log_traversal_launches(launched)
         wrap_stages()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -121,6 +145,20 @@ def main():
             traced_wave_ms = (time.time() - t0) / a.waves * 1e3
 
     ka = prof.key_averages()
+    # every traversal kernel of the traced waves, in launch order
+    walks = sorted((e for e in prof.events()
+                    if "traverse6_kernel" in e.name and e.cpu_time_total == 0
+                    and e.self_device_time_total > 0),
+                   key=lambda e: e.time_range.start)
+    if len(walks) != len(launched):
+        raise RuntimeError(f"the trace holds {len(walks)} traversal kernels "
+                           f"for {len(launched)} launches")
+    per_wave = len(launched) // a.waves
+    launches_of_a_wave = [
+        {"mode": launched[j][0], "lanes": launched[j][1],
+         "kernel_ms": sum(walks[w * per_wave + j].self_device_time_total
+                          for w in range(a.waves)) / a.waves / 1e3}
+        for j in range(per_wave)]
     # an entry with host time is a CPU op or a named range; an entry with
     # device time and no host time lies on the card's own timeline. Device
     # kernels are the latter (the CPU ops that launched them repeat their
@@ -142,10 +180,12 @@ def main():
     self_dev = lambda e: e.self_device_time_total
     top = sorted(kernels, key=lambda e: -self_dev(e))[:12]
     print(json.dumps({
-        "card": smi, "integrator": a.integrator, "res": a.res,
+        "card": smi, "integrator": a.integrator, "moving": a.moving,
+        "res": a.res,
         "depth": a.depth, "waves": a.waves,
         "traversal_launches_per_wave": {
             k: v / (2 + 2 * a.waves) for k, v in tc.LAUNCHES.items() if v},
+        "traversal_launches": launches_of_a_wave,
         "wave_ms": plain_wave_ms, "wave_ms_traced": traced_wave_ms,
         "device_busy_ms_per_wave": busy_us / a.waves / 1e3,
         "device_busy_share": busy_us / 1e3 / a.waves / traced_wave_ms,
