@@ -1,18 +1,16 @@
-// binary_walk.cuh — the PACKET walk over the BINARY cluster tree that
-// traverse1.cu .. traverse4.cu share. They replace the JAX reference's four
-// older Pallas kernels (ops/kernels_attic.py: `_kernel`, `_kernel2`,
-// `_kernel3`, `_kernel4`) and differ only in what differs as a FUNCTION:
+// binary_walk.cuh — the WARP-packet walk over the BINARY cluster tree that
+// traverse2.cu and traverse4.cu share, and the per-lane leaf fold. They
+// replace the JAX reference's Pallas kernels `_kernel2` and `_kernel4`
+// (ops/kernels_attic.py) and differ only in what differs as a FUNCTION:
 //
 //   kernel  lanes sharing a stack     node table     fold     leaves
-//   v1      128 (the thread block)    meta  (N, 4)   strict   tested at the pop
 //   v2       32 (a warp)              meta  (N, 4)   strict   buffer of 8, flushed
-//   v3      128 (the thread block)    meta2 (N, 2)   packed   buffer of 16, flushed
 //   v4       32 (a warp)              meta2 (N, 2)   packed   buffer of 8, flushed
 //
-// The two stack choices are this card's form of the reference's two
-// topologies, "a block of rays visits the union of its rays' nodes" and "each
-// packet walks alone". Every thread block has 128 threads; with a warp stack
-// it holds four independent packets.
+// The block packets v1 and v3 (128 lanes, the thread block, share a stack)
+// are the same walk on another packet; they live in block_walk.cuh, which
+// includes this header for the constants and the fold convention. Every
+// thread block has 128 threads and holds four independent warp packets.
 //
 // The walk. A packet starts with the root on its stack. A node step pops one
 // node and slab-tests THAT node's box for every live lane (the test is at the
@@ -20,14 +18,13 @@
 // was hit). If any live lane hits an interior node, its far child and then
 // its near child are pushed; near and far follow the packet's MAJORITY
 // direction sign on the node's split axis, counted over every lane of the
-// packet, dead pad lanes included. A hit leaf is tested at once by the lanes
-// that hit its box (v1) or its cluster id goes to the packet's leaf buffer
-// (v2-v4); node steps go on until the stack is empty or the buffer is full,
-// then a flush tests the buffered clusters in buffer order on every live
-// lane. Any-hit: a lane with a blocker stops testing, and the packet ends
-// once no live lane is without one; within the leaf that blocks it a lane
-// still folds over all K triangles, so its t is the nearest blocker of that
-// cluster.
+// packet, dead pad lanes included. A hit leaf's cluster id goes to the
+// packet's leaf buffer; node steps go on until the stack is empty or the
+// buffer is full, then a flush tests the buffered clusters in buffer order on
+// every live lane. Any-hit: a lane with a blocker stops testing, and the
+// packet ends once no live lane is without one; within the leaf that blocks
+// it a lane still folds over all K triangles, so its t is the nearest blocker
+// of that cluster.
 //
 // The folds. Strict: sequential, `t < t_best`, so the first of equal t wins
 // and tmax itself is outside the interval. Packed: the key
@@ -38,18 +35,15 @@
 // floats). Dead lanes carry t_best = -inf and never win.
 //
 // Shared state. Stack and leaf buffer live in shared memory; lane 0 of the
-// packet writes them, and a barrier (`__syncthreads` for a block packet,
-// `__syncwarp` for a warp packet) orders the writes against the reads. With a
-// block packet EVERY warp must reach every barrier, so no thread leaves
-// early: lanes past the end of the wave are padded as dead lanes (o = 0,
-// d = 1, tmax < tmin) and stay in, as do lanes that are done; every branch
-// around a barrier depends on packet-uniform values only. A full stack drops
-// the push and ORs a device flag.
+// warp writes them, and `__syncwarp` orders the writes against the reads.
+// No lane leaves early: lanes past the end of the wave are padded as dead
+// lanes (o = 0, d = 1, tmax < tmin) and stay in, as do lanes that are done;
+// every branch around a collective depends on packet-uniform values only. A
+// full stack drops the push and ORs a device flag.
 //
 // What bounds it: as the other walks, the chain of dependent table fetches,
 // here one 32-byte box row per step against eight boxes per step in the wide
-// tree, plus two barriers a step. A block packet visits the union of 128
-// rays' walks, which is ruinous for incoherent rays.
+// tree.
 //
 // What has no counterpart here, because it is a shape of the reference's
 // machine and not of the function: the (rows, 128) ray tiles, the sentinel
@@ -65,24 +59,9 @@
 #define BINARY_BLOCK_THREADS 128
 #define WARP_LANES 32
 #define IDX_MASK 127  // the packed fold keeps a triangle's slot in these bits
+#define FULL_MASK 0xffffffffu
 
 namespace dr {
-
-// Collectives of one packet: the whole thread block, or one warp of it.
-template <bool BLOCK>
-struct Packet {
-  static __device__ __forceinline__ void sync() {
-    if (BLOCK) __syncthreads(); else __syncwarp();
-  }
-  static __device__ __forceinline__ bool any(bool p) {
-    if (BLOCK) return __syncthreads_or(p) != 0;
-    return __any_sync(0xffffffffu, p) != 0;
-  }
-  static __device__ __forceinline__ int count(bool p) {
-    if (BLOCK) return __syncthreads_count(p);
-    return __popc(__ballot_sync(0xffffffffu, p));
-  }
-};
 
 // One cluster's triangles against one lane's ray, folded into (t_best, prim).
 // The loop ends at the first pad row (pads trail, id < 0, never hit).
@@ -118,10 +97,9 @@ __device__ __forceinline__ void leaf_fold(const float4* __restrict__ soup,
   }
 }
 
-// BLOCK: the packet is the thread block (else a warp). LBUF: leaf-buffer
-// entries (0: a hit leaf is tested at the pop). COMPACT: node table meta2
-// (N, 2) instead of meta (N, 4). PACKED: the index-packed fold.
-template <bool BLOCK, int LBUF, bool COMPACT, bool PACKED>
+// LBUF: leaf-buffer entries. COMPACT: node table meta2 (N, 2) instead of
+// meta (N, 4). PACKED: the index-packed fold.
+template <int LBUF, bool COMPACT, bool PACKED>
 __global__ void __launch_bounds__(BINARY_BLOCK_THREADS)
 binary_kernel(const float4* __restrict__ bounds,  // (N, 2) float4
               const int* __restrict__ meta,       // (N, 4) or (N, 2) i32
@@ -134,11 +112,10 @@ binary_kernel(const float4* __restrict__ bounds,  // (N, 2) float4
               int* __restrict__ prim_out,
               int* __restrict__ counters,  // (packets, 2) or null
               int* __restrict__ overflow, int n, int k, int any_hit) {
-  constexpr int LANES = BLOCK ? BINARY_BLOCK_THREADS : WARP_LANES;
+  constexpr int LANES = WARP_LANES;
   constexpr int PACKETS = BINARY_BLOCK_THREADS / LANES;
-  typedef Packet<BLOCK> P;
   __shared__ int stacks[PACKETS][STACK_DEPTH];
-  __shared__ int lbufs[PACKETS][LBUF > 0 ? LBUF : 1];
+  __shared__ int lbufs[PACKETS][LBUF];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x % LANES;
   int* stack = stacks[threadIdx.x / LANES];
@@ -151,25 +128,25 @@ binary_kernel(const float4* __restrict__ bounds,  // (N, 2) float4
                          in ? oz_[i] : 0.0f, in ? dx_[i] : 1.0f,
                          in ? dy_[i] : 1.0f, in ? dz_[i] : 1.0f, tmin);
   const bool alive = tmax >= tmin;
-  const bool negx = P::count(r.dx < 0.0f) > LANES / 2;
-  const bool negy = P::count(r.dy < 0.0f) > LANES / 2;
-  const bool negz = P::count(r.dz < 0.0f) > LANES / 2;
+  const bool negx = __popc(__ballot_sync(FULL_MASK, r.dx < 0.0f)) > LANES / 2;
+  const bool negy = __popc(__ballot_sync(FULL_MASK, r.dy < 0.0f)) > LANES / 2;
+  const bool negz = __popc(__ballot_sync(FULL_MASK, r.dz < 0.0f)) > LANES / 2;
 
   float t_best = alive ? tmax : -inf;
   int prim = -1;
   // packet-uniform: the same value in every lane
   int sp = 1, nlb = 0, n_steps = 0, n_leaves = 0;
   if (lane == 0) stack[0] = 0;  // the root
-  P::sync();
+  __syncwarp();
   // an any-hit packet ends once no live lane lacks a blocker
-  bool done = any_hit && !P::any(alive);
+  bool done = any_hit && !__any_sync(FULL_MASK, alive);
 
   while ((sp > 0 || nlb > 0) && !done) {
-    if (sp > 0 && (LBUF == 0 || nlb < LBUF)) {
+    if (sp > 0 && nlb < LBUF) {
       // ---- node step: pop, test the POPPED node's box, push or keep
       ++n_steps;
       const int node = stack[--sp];
-      P::sync();  // every lane has read the top before lane 0 pushes over it
+      __syncwarp();  // every lane has read the top before lane 0 pushes over it
       const float4 b0 = __ldg(bounds + (size_t)node * 2);      // lo.xyz hi.x
       const float4 b1 = __ldg(bounds + (size_t)node * 2 + 1);  // hi.yz 0 0
       const float t0x = (b0.x - r.ox) * r.ix, t1x = (b0.w - r.ox) * r.ix;
@@ -181,7 +158,7 @@ binary_kernel(const float4* __restrict__ bounds,  // (N, 2) float4
                              fminf(fmaxf(t0z, t1z), t_best));
       const bool live = alive && !(any_hit && prim >= 0);
       const bool hit = live && tn <= tf;
-      const bool nhit = P::any(hit);
+      const bool nhit = __any_sync(FULL_MASK, hit);
       int c0, c1, axis;
       if (COMPACT) {
         const int2 m = __ldg((const int2*)meta + node);
@@ -207,16 +184,12 @@ binary_kernel(const float4* __restrict__ bounds,  // (N, 2) float4
           } else if (lane == 0) {
             atomicOr(overflow, 1);
           }
-        } else if (LBUF == 0) {
-          ++n_leaves;
-          if (hit) leaf_fold<PACKED>(soup, -c0 - 1, k, r, &t_best, &prim);
-          if (any_hit) done = !P::any(alive && prim < 0);
         } else {
           if (lane == 0) lbuf[nlb] = -c0 - 1;
           ++nlb;
         }
       }
-      P::sync();  // lane 0's writes are visible to the next pop or flush
+      __syncwarp();  // lane 0's writes are visible to the next pop or flush
     } else {
       // ---- flush: the buffered clusters, in buffer order, on live lanes
       for (int q = 0; q < nlb; ++q) {
@@ -226,8 +199,8 @@ binary_kernel(const float4* __restrict__ bounds,  // (N, 2) float4
       }
       n_leaves += nlb;
       nlb = 0;
-      P::sync();  // every lane has read the buffer before lane 0 refills it
-      if (any_hit) done = !P::any(alive && prim < 0);
+      __syncwarp();  // every lane has read the buffer before lane 0 refills it
+      if (any_hit) done = !__any_sync(FULL_MASK, alive && prim < 0);
     }
   }
   if (in) {
@@ -242,7 +215,7 @@ binary_kernel(const float4* __restrict__ bounds,  // (N, 2) float4
 
 // Launch one thread per lane of ceil(n / 128) thread blocks on `stream`;
 // returns cudaGetLastError() (0 = launched).
-template <bool BLOCK, int LBUF, bool COMPACT, bool PACKED>
+template <int LBUF, bool COMPACT, bool PACKED>
 int binary_launch(const void* bounds, const void* meta, const void* soup,
                   const void* ox, const void* oy, const void* oz,
                   const void* dx, const void* dy, const void* dz,
@@ -251,7 +224,7 @@ int binary_launch(const void* bounds, const void* meta, const void* soup,
                   int any_hit, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + BINARY_BLOCK_THREADS - 1) / BINARY_BLOCK_THREADS;
-  binary_kernel<BLOCK, LBUF, COMPACT, PACKED>
+  binary_kernel<LBUF, COMPACT, PACKED>
       <<<blocks, BINARY_BLOCK_THREADS, 0, (cudaStream_t)stream>>>(
           (const float4*)bounds, (const int*)meta, (const float4*)soup,
           (const float*)ox, (const float*)oy, (const float*)oz,
@@ -265,12 +238,10 @@ int binary_launch(const void* bounds, const void* meta, const void* soup,
 
 // The C interface of one instantiation: `NAME_launch` and the three constants
 // the Python wrapper checks against its own.
-#define BINARY_WALK_ENTRY(NAME, BLOCK, LBUF, COMPACT, PACKED)                 \
+#define BINARY_WALK_ENTRY(NAME, LBUF, COMPACT, PACKED)                        \
   extern "C" {                                                                \
   int NAME##_stack_depth() { return STACK_DEPTH; }                            \
-  int NAME##_packet_width() {                                                 \
-    return BLOCK ? BINARY_BLOCK_THREADS : WARP_LANES;                         \
-  }                                                                           \
+  int NAME##_packet_width() { return WARP_LANES; }                            \
   int NAME##_leaf_buffer() { return LBUF; }                                   \
   int NAME##_launch(const void* bounds, const void* meta, const void* soup,   \
                     const void* ox, const void* oy, const void* oz,           \
@@ -278,7 +249,7 @@ int binary_launch(const void* bounds, const void* meta, const void* soup,
                     const void* tmin, const void* tmax, void* t_out,          \
                     void* prim_out, void* counters, void* overflow, int n,    \
                     int k, int any_hit, void* stream) {                       \
-    return dr::binary_launch<BLOCK, LBUF, COMPACT, PACKED>(                   \
+    return dr::binary_launch<LBUF, COMPACT, PACKED>(                          \
         bounds, meta, soup, ox, oy, oz, dx, dy, dz, tmin, tmax, t_out,        \
         prim_out, counters, overflow, n, k, any_hit, stream);                 \
   }                                                                           \

@@ -9,17 +9,17 @@
 // What this one is: ONE stack for a packet of 128 rays (the thread block), the
 // full `meta` (N, 4) node table, the strict sequential fold, and a hit leaf
 // tested AT THE POP by the lanes that hit its box.
-// The walk, the two folds and what of the reference has no counterpart on this
-// card are described in binary_walk.cuh.
-// What bounds it: the chain of dependent table fetches; a block visits the
-// union of 128 rays' walks, so incoherent rays make every step serve few
-// lanes, and every step holds two block barriers.
+// The walk, the two folds, what bounds it on this card and what the design
+// does about it (a leaf that at most 16 lanes of a warp test served one ray
+// at a time by the warp, the next triangle row and the next node's rows
+// fetched early) are described in block_walk.cuh.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
 //        -shared -Xcompiler -fPIC -o libtraverse1.so traverse1.cu
 
-#include "binary_walk.cuh"
+#include "block_walk.cuh"
 
-// (the packet is the thread block, leaf-buffer entries, meta2, packed fold)
-BINARY_WALK_ENTRY(traverse1, true, 0, false, false)
+// (leaf-buffer entries, meta2, packed fold, most testers a warp serves one
+// ray at a time)
+BLOCK_WALK_ENTRY(traverse1, 0, false, false, 16)

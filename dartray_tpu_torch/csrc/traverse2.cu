@@ -21,5 +21,5 @@
 
 #include "binary_walk.cuh"
 
-// (the packet is the thread block, leaf-buffer entries, meta2, packed fold)
-BINARY_WALK_ENTRY(traverse2, false, 8, false, false)
+// (leaf-buffer entries, meta2, packed fold)
+BINARY_WALK_ENTRY(traverse2, 8, false, false)

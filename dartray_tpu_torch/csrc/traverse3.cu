@@ -13,16 +13,18 @@
 // boxes included) and leaf rounds of each packet. The buffer size decides WHEN
 // t_best tightens and so how many nodes are popped: it stays 16, the
 // reference's, so that the counters can be held against the reference's.
-// The walk, the two folds and what of the reference has no counterpart on this
-// card are described in binary_walk.cuh.
-// What bounds it: as traverse1.cu, with the leaf tests batched behind the node
-// steps.
+// The walk, the two folds, what bounds it on this card and what the design
+// does about it are described in block_walk.cuh: the buffered clusters are
+// staged in shared memory by `cp.async` as they are buffered, and the flush
+// folds them per lane (or, where at most 8 lanes of a warp are live, one
+// ray at a time by the warp).
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
 //        -shared -Xcompiler -fPIC -o libtraverse3.so traverse3.cu
 
-#include "binary_walk.cuh"
+#include "block_walk.cuh"
 
-// (the packet is the thread block, leaf-buffer entries, meta2, packed fold)
-BINARY_WALK_ENTRY(traverse3, true, 16, true, true)
+// (leaf-buffer entries, meta2, packed fold, most testers a warp serves one
+// ray at a time)
+BLOCK_WALK_ENTRY(traverse3, 16, true, true, 8)

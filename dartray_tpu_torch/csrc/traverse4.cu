@@ -18,5 +18,5 @@
 
 #include "binary_walk.cuh"
 
-// (the packet is the thread block, leaf-buffer entries, meta2, packed fold)
-BINARY_WALK_ENTRY(traverse4, false, 8, true, true)
+// (leaf-buffer entries, meta2, packed fold)
+BINARY_WALK_ENTRY(traverse4, 8, true, true)

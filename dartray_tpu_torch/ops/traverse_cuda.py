@@ -28,8 +28,11 @@ from its source under ``csrc/`` and loaded with ``ctypes``. Over the WIDE
   (``with_woop``).
 
 Over the BINARY cluster tree (``bounds`` / ``meta`` / ``meta2``), the
-reference's four older kernels; all share ``csrc/binary_walk.cuh`` and differ
-in what differs as a function (``ATTIC`` holds the table):
+reference's four older kernels, one stack a packet; they differ in what
+differs as a function (``ATTIC`` holds the table). The block packets v1 and v3
+share ``csrc/block_walk.cuh`` (a leaf that few lanes of a warp test is served
+one ray at a time by the warp; v3 stages its buffered clusters in shared
+memory), the warp packets v2 and v4 ``csrc/binary_walk.cuh``:
 
 * ``traverse`` (v1, ``csrc/traverse1.cu``) replaces ``_kernel``: ONE stack for
   a packet of 128 rays (a thread block), the popped node is slab-tested at
@@ -973,7 +976,8 @@ def traverse7_plain(bvh: PackedBVH, o, d, tmin, tmax, *,
 @torch.no_grad()
 def _binary_plain(bvh, o, d, tmin, tmax, any_hit, *, packet, lbuf, compact,
                   packed, counters=False, stats=None):
-    """The walk of ``csrc/binary_walk.cuh`` in plain PyTorch: rays are padded
+    """The walk of ``csrc/block_walk.cuh`` (v1, v3) and
+    ``csrc/binary_walk.cuh`` (v2, v4) in plain PyTorch: rays are padded
     with dead lanes to whole packets of `packet`, every packet keeps one
     stack row (and one leaf-buffer row of `lbuf` entries; 0: a leaf is tested
     at the pop, by the lanes that hit its box), and every live packet takes

@@ -304,23 +304,102 @@ def test_cuda_tensor_never_takes_the_plain_version(world, monkeypatch):
     assert tc.LAUNCHES == before        # the plain version counts nothing
 
 
+_other_k = {}
+
+
+def _packed_with_k(world, k):
+    """The test soup clustered by the port in clusters of `k` triangles and
+    packed (cached): (host packed BVH, perm)."""
+    if k not in _other_k:
+        cb = cluster.build(world["v0"], world["e1"], world["e2"], k=k)
+        packed, perm = tc.pack(cb.node_lo, cb.node_hi, cb.node_child,
+                               cb.node_axis, cb.tri_v0, cb.tri_e1, cb.tri_e2,
+                               cb.tri_id)
+        assert packed.k == k
+        _other_k[k] = packed, perm
+    return _other_k[k]
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("k", [8, 40])
+@pytest.mark.parametrize("which", ["v1", "v3"])
+def test_block_walks_at_other_cluster_sizes_match_bruteforce(world, which, k,
+                                                             any_hit):
+    """The plain versions of the block-packet walks (v1, v3), which the card
+    holds their kernels to, at clusters narrower and wider than a warp: after
+    the finish step closest lanes equal brute force (prim equal, t to rtol
+    1e-5: both evaluate the same triangle), any-hit lanes have its mask, dead
+    lanes miss."""
+    packed, perm = _packed_with_k(world, k)
+    bvh = to_device(packed, "cpu")
+    n = 384 + 7
+    o, d = th.ray_arrays(n, seed=91)
+    rng = np.random.RandomState(92)
+    tmax = np.where(rng.rand(n) < 0.2, -1.0, np.inf).astype(np.float32)
+    rays = _port_rays(o, d, tmax)
+    t, prim = KERNELS[which][2](bvh, rays.o, rays.d, rays.tmin, rays.tmax,
+                                any_hit=any_hit)
+    bf = tv.brute_force_intersect(th.t3(world["v0"]), th.t3(world["e1"]),
+                                  th.t3(world["e2"]), rays)
+    assert torch.equal(prim >= 0, bf.hit) and bf.hit.any()
+    assert not (prim >= 0)[torch.from_numpy(tmax) < 0].any()
+    if any_hit:
+        return
+    ft, fprim, _, _ = tc.finish_hits(bvh, torch.from_numpy(perm), rays.o,
+                                     rays.d, rays.tmin, t, prim)
+    assert torch.equal(fprim[bf.hit], bf.prim[bf.hit])
+    np.testing.assert_allclose(ft[bf.hit].numpy(), bf.t[bf.hit].numpy(),
+                               rtol=1e-5)
+
+
+# wave shapes a block-level (128-lane) packet can get wrong, beside the
+# ragged wave every kernel is held on
+BLOCK_SHAPES = ["short", "one_live", "copies", "k8", "k40", "k128", "early"]
+
+
+def _card_case(world, shape):
+    """(host packed BVH, o, d, tmax) of one card-only case. `ragged`: 4,101
+    rays (a ragged last packet), a fifth of them dead, the packet of lanes
+    1024-1151 wholly dead; `short` 19 rays (one partial packet); `one_live`
+    one packet of 128 with a single live lane; `copies` 128 copies of one ray
+    that hits; `k8` / `k40` / `k128` the ragged wave over clusters of 8 /
+    40 / 128 triangles (v3 stages 16 buffered clusters in shared memory: at
+    k = 128 that is past the default 48 KB); `early` origins inside the
+    soup, so that an any-hit wave's lanes all find blockers within a few
+    leaves."""
+    k = {"k8": 8, "k40": 40, "k128": 128}.get(shape, 32)
+    packed = world["packed"] if k == 32 else _packed_with_k(world, k)[0]
+    n = {"short": 19, "one_live": 128, "copies": 128}.get(shape, 4096 + 5)
+    rng = np.random.RandomState(43)
+    o, d = th.ray_arrays(n, seed=44)
+    tmax = np.where(rng.rand(n) < 0.2, -1.0, np.inf).astype(np.float32)
+    if n > 1152:
+        tmax[1024:1152] = -1.0
+    if shape in ("one_live", "copies"):
+        o[:] = np.asarray([3.0, 0.1, 0.2], np.float32)
+        d[:] = -o / np.linalg.norm(o, axis=-1, keepdims=True)
+        tmax[:] = np.inf if shape == "copies" else -1.0
+        tmax[77] = np.inf
+    if shape == "early":
+        o = (rng.randn(n, 3) * 0.3).astype(np.float32)
+    return packed, o, d, tmax
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("any_hit", [False, True])
-@pytest.mark.parametrize("which", list(KERNELS))
-def test_attic_kernel_matches_plain_version_on_the_card(world, which,
+@pytest.mark.parametrize("which,shape", [
+    *((which, "ragged") for which in KERNELS),
+    *((which, shape) for which in ("v1", "v3") for shape in BLOCK_SHAPES)])
+def test_attic_kernel_matches_plain_version_on_the_card(world, which, shape,
                                                         any_hit):
     """The CUDA kernel against its plain version on the same device tensors,
-    4,101 rays (a ragged last packet), a fifth of them dead, one packet
-    wholly dead: identical (t, prim), identical counters, overflow flag 0."""
+    on the shapes of ``_card_case``: identical (t, prim), identical counters,
+    overflow flag 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda", 0)
-    n = 4096 + 5
-    rng = np.random.RandomState(43)
-    bvh = to_device(world["packed"], dev)
-    o, d = th.ray_arrays(n, seed=44)
-    tmax = np.where(rng.rand(n) < 0.2, -1.0, np.inf).astype(np.float32)
-    tmax[1024:1152] = -1.0
+    packed, o, d, tmax = _card_case(world, shape)
+    bvh = to_device(packed, dev)
     rays = to_device(_port_rays(o, d, tmax), dev)
     args = (bvh, rays.o, rays.d, rays.tmin, rays.tmax)
     _, fn, plain, lib, _ = KERNELS[which]
@@ -335,6 +414,7 @@ def test_attic_kernel_matches_plain_version_on_the_card(world, which,
     torch.cuda.synchronize()
     assert tc.LAUNCHES[key] == before + 1
     assert int(tc.overflow_flag(dev).item()) == 0
+    assert bool((want[1] >= 0).any())
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
