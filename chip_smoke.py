@@ -63,13 +63,15 @@ JSON line; any failure raises and the script exits non-zero:
   whitted_path a few waves of the Whitted integrator, depth 5
 
 Then one line {"kernels": [...]} (per kernel and mode: launches counted on
-its path, error against the plain version, times, and the least time the
-card could take), the nvidia-smi line again, and as the last line
+its path, error against the plain version, times, the least time the card
+could take, and the registers and spill bytes ptxas gave its kernel
+function), the nvidia-smi line again, and as the last line
 {"ok": true, "device": {...}}.
 """
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -164,6 +166,33 @@ def nvidia_smi_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_resources(kern):
+    """Registers and spill bytes (stores) of the kernel function behind
+    `kern`, from the assembler's report of its library's build (nvcc runs
+    with -Xptxas -v). traverse6.cu holds two: the motion instantiation is
+    the one with ``ILb1E`` in its name."""
+    lib = "traverse6" if kern.startswith("traverse6") else kern
+    found = {}
+    fn = None
+    for line in tc.BUILD_LOG.get(lib, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            found[fn] = {"regs": None, "spill_bytes": 0}
+        elif fn is not None:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                found[fn]["regs"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                found[fn]["spill_bytes"] = int(m.group(1))
+    if lib == "traverse6":
+        found = {f: v for f, v in found.items()
+                 if ("ILb1E" in f) == (kern == "traverse6_motion")}
+    require(len(found) == 1, f"{kern}: the build log names {sorted(found)}")
+    return next(iter(found.values()))
 
 
 def time_ms(fn, repeats=5, warmup=1):
@@ -929,7 +958,8 @@ def main():
             continue        # a second ray set of a mode already listed
         require(counted[r["counter"]] > 0,
                 f"{r['name']} was never launched on its path")
-        line.append({**r, "launches": counted[r["counter"]]})
+        line.append({**r, "launches": counted[r["counter"]],
+                     **ptxas_resources(r["counter"].split(":")[0])})
     require(len(line) == 18, f"kernels line lists {len(line)} kernels")
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

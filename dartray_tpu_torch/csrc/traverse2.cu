@@ -10,10 +10,12 @@
 // stack and its own buffer of 8 hit leaf clusters that is flushed when it is
 // full or the stack is empty; the full `meta` (N, 4) node table and the strict
 // sequential fold.
-// The walk, the two folds and what of the reference has no counterpart on this
-// card are described in binary_walk.cuh.
-// What bounds it: the chain of dependent table fetches; a warp visits the
-// union of 32 rays' walks, and its barriers are warp-wide.
+// The walk, the two folds, what of the reference has no counterpart on this
+// card, what bounds it here and what the design does about it (the buffered
+// clusters staged in shared memory by `cp.async` as they are buffered, the
+// next triangle row and the next node's rows fetched early, a flush cluster
+// that at most 8 live lanes test served one ray at a time by the warp, the
+// stack and the buffer in registers) are described in binary_walk.cuh.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
@@ -21,5 +23,7 @@
 
 #include "binary_walk.cuh"
 
-// (leaf-buffer entries, meta2, packed fold)
-BINARY_WALK_ENTRY(traverse2, 8, false, false)
+// 8 leaf-buffer entries, the meta (N, 4) table (not meta2), the strict fold
+// (not the packed one), a flush cluster that at most 8 live lanes test
+// served one ray at a time by the warp
+BINARY_WALK_ENTRY(traverse2, 8, false, false, 8)

@@ -8,9 +8,8 @@
 //
 // What this one is: v2's packet (32 rays, one stack a warp, a leaf buffer of
 // 8) over the compact `meta2` (N, 2) node table, with the index-packed fold.
-// The walk, the two folds and what of the reference has no counterpart on this
-// card are described in binary_walk.cuh.
-// What bounds it: as traverse2.cu.
+// The walk, the two folds, what bounds it on this card and what the design
+// does about it are described in binary_walk.cuh; the design is v2's.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
@@ -18,5 +17,7 @@
 
 #include "binary_walk.cuh"
 
-// (leaf-buffer entries, meta2, packed fold)
-BINARY_WALK_ENTRY(traverse4, 8, true, true)
+// 8 leaf-buffer entries, the compact meta2 (N, 2) table, the packed fold, a
+// flush cluster that at most 8 live lanes test served one ray at a time by
+// the warp
+BINARY_WALK_ENTRY(traverse4, 8, true, true, 8)

@@ -30,9 +30,11 @@ from its source under ``csrc/`` and loaded with ``ctypes``. Over the WIDE
 Over the BINARY cluster tree (``bounds`` / ``meta`` / ``meta2``), the
 reference's four older kernels, one stack a packet; they differ in what
 differs as a function (``ATTIC`` holds the table). The block packets v1 and v3
-share ``csrc/block_walk.cuh`` (a leaf that few lanes of a warp test is served
-one ray at a time by the warp; v3 stages its buffered clusters in shared
-memory), the warp packets v2 and v4 ``csrc/binary_walk.cuh``:
+share ``csrc/block_walk.cuh``, the warp packets v2 and v4
+``csrc/binary_walk.cuh``, and all four the leaf pieces of
+``csrc/leaf_fold.cuh``: a leaf that few lanes of a warp test is served one
+ray at a time by the warp, and v2, v3 and v4 stage their buffered clusters in
+shared memory as they buffer them:
 
 * ``traverse`` (v1, ``csrc/traverse1.cu``) replaces ``_kernel``: ONE stack for
   a packet of 128 rays (a thread block), the popped node is slab-tested at
@@ -299,7 +301,7 @@ KERNEL_SOURCES = {name: os.path.join(CSRC_DIR, name + ".cu")
 # assembler reports each kernel's registers and spills into BUILD_LOG
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
-BUILD_LOG = {}            # name -> nvcc's output of the build this process made
+BUILD_LOG = {}            # name -> nvcc's output of the library's build
 BUILD_SECONDS = {}        # name -> seconds that build took
 _libs = {}
 _lib_lock = threading.Lock()
@@ -380,10 +382,15 @@ def load_kernels(names=tuple(KERNEL_SOURCES)):
             if proc.returncode != 0:
                 failed.append(f"nvcc failed building {name}.cu:\n{out}")
             else:
+                with open(path[name] + ".log", "w") as f:
+                    f.write(BUILD_LOG[name])
                 os.replace(tmp, path[name])
         if failed:
             raise RuntimeError("\n".join(failed))
         for name in names:
+            if name not in BUILD_LOG and os.path.exists(path[name] + ".log"):
+                with open(path[name] + ".log") as f:    # an earlier build's
+                    BUILD_LOG[name] = f.read()
             if name not in _libs:
                 lib = ctypes.CDLL(path[name])
                 _bind(name, lib)

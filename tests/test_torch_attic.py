@@ -322,11 +322,12 @@ def _packed_with_k(world, k):
 
 @pytest.mark.parametrize("any_hit", [False, True])
 @pytest.mark.parametrize("k", [8, 40])
-@pytest.mark.parametrize("which", ["v1", "v3"])
+@pytest.mark.parametrize("which", ["v1", "v3", "v2", "v4"])
 def test_block_walks_at_other_cluster_sizes_match_bruteforce(world, which, k,
                                                              any_hit):
-    """The plain versions of the block-packet walks (v1, v3), which the card
-    holds their kernels to, at clusters narrower and wider than a warp: after
+    """The plain versions of the packet walks, block (v1, v3) and warp (v2,
+    v4), which the card holds their kernels to, at clusters narrower and
+    wider than a warp: after
     the finish step closest lanes equal brute force (prim equal, t to rtol
     1e-5: both evaluate the same triangle), any-hit lanes have its mask, dead
     lanes miss."""
@@ -352,19 +353,20 @@ def test_block_walks_at_other_cluster_sizes_match_bruteforce(world, which, k,
                                rtol=1e-5)
 
 
-# wave shapes a block-level (128-lane) packet can get wrong, beside the
-# ragged wave every kernel is held on
-BLOCK_SHAPES = ["short", "one_live", "copies", "k8", "k40", "k128", "early"]
+# wave shapes a packet (128 lanes or a warp) can get wrong, beside the
+# ragged wave
+SHAPES = ["short", "one_live", "copies", "k8", "k40", "k128", "early"]
 
 
 def _card_case(world, shape):
     """(host packed BVH, o, d, tmax) of one card-only case. `ragged`: 4,101
     rays (a ragged last packet), a fifth of them dead, the packet of lanes
     1024-1151 wholly dead; `short` 19 rays (one partial packet); `one_live`
-    one packet of 128 with a single live lane; `copies` 128 copies of one ray
-    that hits; `k8` / `k40` / `k128` the ragged wave over clusters of 8 /
-    40 / 128 triangles (v3 stages 16 buffered clusters in shared memory: at
-    k = 128 that is past the default 48 KB); `early` origins inside the
+    128 rays with a single live lane; `copies` 128 copies of one ray that
+    hits; `k8` / `k40` / `k128` the ragged wave over clusters of 8 / 40 /
+    128 triangles (v3 stages 16 buffered clusters a block in shared memory,
+    v2 / v4 8 a warp: at k = 128 either is past the default 48 KB a block);
+    `early` origins inside the
     soup, so that an any-hit wave's lanes all find blockers within a few
     leaves."""
     k = {"k8": 8, "k40": 40, "k128": 128}.get(shape, 32)
@@ -388,8 +390,7 @@ def _card_case(world, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("any_hit", [False, True])
 @pytest.mark.parametrize("which,shape", [
-    *((which, "ragged") for which in KERNELS),
-    *((which, shape) for which in ("v1", "v3") for shape in BLOCK_SHAPES)])
+    (which, shape) for which in KERNELS for shape in ["ragged", *SHAPES]])
 def test_attic_kernel_matches_plain_version_on_the_card(world, which, shape,
                                                         any_hit):
     """The CUDA kernel against its plain version on the same device tensors,

@@ -2,7 +2,8 @@
 process.
 
     python tools/compare_traverse6.py [--kernel traverse6|traverse1|traverse2|
-                                               traverse3|traverse4 ...]
+                                               traverse3|traverse4|traverse5|
+                                               traverse7 ...]
                                       --other parent=DIR [--other NAME=DIR,-DX=1 ...]
                                       [--real] [--out FILE]
 
@@ -40,16 +41,25 @@ p99, median) and leaf rounds, and the packet walk's `node_pops` /
 `tri_tests` beside the per-ray walk's (``traverse6_plain``) on the same rays:
 what the union walk adds to the work, against what a step costs.
 
+The packet walks over the wide tree (traverse5, traverse7; rows 3 and 4):
+the camera wave, closest (row "a"), and the sorted incoherent rays, any-hit
+(row "b"), v7 over the Woop table. Their plain version agrees with them only
+after the finish step, so each build's raw (t, prim) is held against the
+packaged build's.
+
 For each row every build must be `equal` (and leave the overflow flag at 0);
 the builds are timed in turns, forward then backward (A B C, C B A), by CUDA
 events: median of 7 launches after 2 warm-ups in each turn (`ms_forward`,
 `ms_backward`); then 20 launches queued back to back (`ms_queued`, device ms
 a launch) beside the host's time to enqueue one (`host_ms`). Prints one JSON
-line per row and build, and ptxas' registers, shared memory and spills per
-build. Needs one CUDA device and `nvcc`.
+line per row and build, ptxas' registers, shared memory and spills per
+build, and at the end one `summary` line per kernel and build (queued ms of
+each row, their sum over the real wave's launches, all rows equal or not).
+A build whose launch the card refuses is reported and dropped. Needs one CUDA device and `nvcc`.
 """
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -76,6 +86,9 @@ ATTIC_ROWS = {"traverse1": ("5", tc.traverse, tc.traverse_plain),
               "traverse4": ("6", tc.traverse4, tc.traverse4_plain),
               "traverse3": ("7", tc.traverse3, tc.traverse3_plain),
               "traverse2": ("8", tc.traverse2, tc.traverse2_plain)}
+
+# the packet walks over the wide tree: PERF.md's row
+PACKET_ROWS = {"traverse5": "3", "traverse7": "4"}
 
 
 def build_others(specs, kernels):
@@ -237,7 +250,7 @@ def chain(plain, per_ray, args, kw):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", action="append",
-                    choices=["traverse6", *ATTIC_ROWS],
+                    choices=["traverse6", *ATTIC_ROWS, *PACKET_ROWS],
                     help="the kernel to compare (default traverse6; may be "
                     "repeated)")
     ap.add_argument("--other", action="append", default=[],
@@ -253,11 +266,16 @@ def main():
         print("needs one CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    lines = []
+    if a.out:       # written as the run goes: a run cut short keeps its rows
+        os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
+        open(a.out, "w").close()
 
     def say(**kw):
-        lines.append(json.dumps(kw))
-        print(lines[-1], flush=True)
+        line = json.dumps(kw)
+        print(line, flush=True)
+        if a.out:
+            with open(a.out, "a") as f:
+                f.write(line + "\n")
 
     say(card=cs.nvidia_smi_line(), torch=torch.__version__)
     kernels = a.kernel or ["traverse6"]
@@ -272,7 +290,8 @@ def main():
         **{k: resources(v[1]) for k, v in others[kern].items()}}
         for kern in kernels})
 
-    scene = st.to_device(sb.bench_scene().build(), dev)
+    host = sb.bench_scene().build()
+    scene = st.to_device(host, dev)
     _, _, _, _, cam_rays = cs.camera_wave(dev)
     rows = []    # (kernel, row, geometry, rays, keywords)
     if "traverse6" in kernels:
@@ -302,7 +321,17 @@ def main():
                 rows += [(kern, f"{tag}w{j}", geom, rays, kw)
                          for j, (rays, kw) in enumerate(
                              direct_wave_launches(scene, dev, kern))]
+    packet = [kern for kern in kernels if kern in PACKET_ROWS]
+    if packet:
+        geom = dataclasses.replace(scene.geometry, packed=tc.with_woop(
+            host.geometry.packed).to(dev))
+        cam, inc, _, _ = cs.wave_shapes(geom, dev, cam_rays)
+        for kern in packet:
+            tag = PACKET_ROWS[kern]
+            rows += [(kern, tag + "a", geom, cam, dict(any_hit=False)),
+                     (kern, tag + "b", geom, inc, dict(any_hit=True))]
     bad = []
+    summary = {}    # (kernel, build) -> {row: queued ms}
     for kern, row, geom, rays, kw in rows:
         args = (geom.packed, rays.o, rays.d, rays.tmin, rays.tmax)
         extra = {}
@@ -311,6 +340,11 @@ def main():
                 kw["time"] = rays.time
             want = tc.traverse6_plain(*args, **kw)
             run = lambda: tc.traverse6(*args, **kw)
+        elif kern in PACKET_ROWS:
+            fn = getattr(tc, kern)
+            run = lambda: fn(*args, **kw)
+            tc._libs[kern] = builds[kern]["packaged"]
+            want = run()
         else:
             _, fn, plain = ATTIC_ROWS[kern]
             want, extra = chain(plain, tc.traverse6_plain, args, kw)
@@ -320,16 +354,23 @@ def main():
                 want = want[:2]
             run = lambda: fn(*args, **kw)
         lib_of = builds[kern]
-        equal, ms, queued = {}, {name: [] for name in lib_of}, {}
-        for name, lib in lib_of.items():
+        equal = {}
+        for name, lib in list(lib_of.items()):
             tc._libs[kern] = lib
             tc.reset_overflow(dev)
-            got = run()
+            try:
+                got = run()
+            except RuntimeError as e:   # a launch the card refused
+                print(f"{name} {kern} {row}: {e}", file=sys.stderr)
+                bad.append((row, name))
+                del builds[kern][name]
+                continue
             torch.cuda.synchronize()
             equal[name] = (all(torch.equal(g, w) for g, w in zip(got, want))
                            and int(tc.overflow_flag(dev).item()) == 0)
             if not equal[name]:
                 bad.append((row, name))
+        ms, queued = {name: [] for name in lib_of}, {}
         for order in (list(lib_of), list(lib_of)[::-1]):
             for name in order:
                 tc._libs[kern] = lib_of[name]
@@ -348,12 +389,18 @@ def main():
                     ms[first])),
                 queued_vs_first_other=(None if first is None else
                                        queued[name][0] / queued[first][0]))
+            summary.setdefault((kern, name), {})[row] = queued[name][0]
         if extra:
             say(kernel=kern, row=row, chain=extra)
-    if a.out:
-        os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
-        with open(a.out, "w") as f:
-            f.write("\n".join(lines) + "\n")
+    # one line per kernel and build: queued ms of each row, the sum over a
+    # real wave's launches, and whether every row was equal
+    for (kern, name), got in summary.items():
+        wave = [v for r, v in got.items() if "w" in r]
+        mine = {row for k, row, *_ in rows if k == kern}
+        say(summary=kern, build=name,
+            equal=not any(b == name and r in mine for r, b in bad),
+            queued_ms={r: v for r, v in got.items() if "w" not in r},
+            real_launches=len(wave), real_queued_ms_sum=sum(wave))
     if bad:
         print(f"differs from the plain version: {bad}", file=sys.stderr)
     if failed:
