@@ -23,10 +23,11 @@ JSON line; any failure raises and the script exits non-zero:
                mode closest / any / mixed on the moving scene (raw (t, prim)
                EQUAL to the plain version's on every lane), the v5 and v7
                packet walks on the camera wave (closest) and on sorted
-               incoherent rays (any), and the four walks over the binary
-               tree (v1-v4) on the same two ray sets: raw (t, prim) and v3's
-               counters EQUAL to the plain version's, hit masks equal to
-               v6's on the same rays
+               incoherent rays (any): raw (t, prim) and their counters
+               EQUAL to the plain version's, and the four walks over the
+               binary tree (v1-v4) on the same two ray sets: raw (t, prim)
+               and v3's counters EQUAL to the plain version's, hit masks
+               equal to v6's on the same rays
   small_scene  Cornell box 32x32: the whole render on the card against the
                same render on the CPU (plain traversal), pixel by pixel
   motion_small the same with one sphere translating: card against CPU, and
@@ -261,11 +262,14 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
     packet reaches), so the packet kernels' bound takes the per-ray walk's
     counts on the same rays, and their own are printed beside it.
 
-    A binary-tree kernel (``ATTIC``) must give its plain version's raw
-    (t, prim) on EVERY lane, and v3 its counters: same tables, same packet,
-    same order of pops, same fold. So must the per-ray walk (v6, static and
-    motion), any-hit lanes included: every ray pops its own stack in the
-    plain version's order, whichever lanes of its warp do the arithmetic."""
+    Every kernel must give its plain version's raw (t, prim) on EVERY lane:
+    the packet walks (v5, v7 and the binary-tree kernels of ``ATTIC``) and
+    their counters (v5, v7 in a call of their own, which is not timed; v3
+    in every call), since kernel and plain version share the tables, the
+    packet, the order of pops and the fold; and the per-ray walk (v6,
+    static and motion), any-hit lanes included, since every ray pops its
+    own stack in the plain version's order, whichever lanes of its warp do
+    the arithmetic."""
     bvh = geom.packed
     n = rays.n
     any_hit = mode == "any"
@@ -300,15 +304,17 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
             f"{name}: the wrapper counted {launched}")
     t_p, p_p, *cnt_p = run_p(stats)
     extra = {}
-    if kern in ATTIC or kern in ("traverse6", "traverse6_motion"):
-        require(torch.equal(t_k, t_p) and torch.equal(p_k, p_p),
-                f"{name}: raw (t, prim) differs from the plain version's")
-        if cnt_k:
-            require(torch.equal(cnt_k[0], cnt_p[0]),
-                    f"{name}: counters differ from the plain version's")
-            extra = {"packets": cnt_k[0].shape[0],
-                     "node_steps": int(cnt_k[0][:, 0].sum()),
-                     "leaf_rounds": int(cnt_k[0][:, 1].sum())}
+    require(torch.equal(t_k, t_p) and torch.equal(p_k, p_p),
+            f"{name}: raw (t, prim) differs from the plain version's")
+    if kern in ("traverse5", "traverse7"):
+        cnt_k = [fn(*args, **kw, counters=True)[2]]
+        cnt_p = [plain(*args, **kw, counters=True)[2]]
+    if cnt_k:
+        require(torch.equal(cnt_k[0], cnt_p[0]),
+                f"{name}: counters differ from the plain version's")
+        extra = {"packets": cnt_k[0].shape[0],
+                 "node_steps": int(cnt_k[0][:, 0].sum()),
+                 "leaf_rounds": int(cnt_k[0][:, 1].sum())}
     # compare after the finish step: exact t, original prim ids
     fin = lambda t, p: tc.finish_hits(bvh, geom.perm, rays.o, rays.d,
                                       rays.tmin, t, p, time=time)

@@ -19,13 +19,16 @@
 // some sliver triangles, as the reference's does), and the finish step
 // recomputes exact values for the winners from the soup.
 //
-// Pad and degenerate triangles have all-zero rows (d'_z = 0: never hit), so
-// the leaf loop runs over all K slots. Tie rule as traverse5.cu: nearest t,
-// equal t keeps the first triangle in cluster order; an any-hit lane takes
-// the first accepted triangle and stops.
+// Pad and degenerate triangles have all-zero rows (d'_z = 0: never hit).
+// The kernel has no pad flag; its fold skips a row whose W_z is zero, the
+// same for every lane of the warp, so the 30 % of the bench scene's slots
+// that are pads cost a load and a compare each (and the function is the
+// same: such a row never hits). Tie rule as traverse5.cu: nearest t, equal t
+// keeps the first triangle in cluster order; an any-hit lane takes the
+// first accepted triangle and stops.
 //
-// What bounds it: the walk's dependent fetches (packet_walk.cuh); the leaf
-// test is 20 multiplies, 18 adds and one divide per pair, about the cost of
+// What bounds it: the walk's chains (packet_walk.cuh); the leaf test is 20
+// multiplies, 18 adds and one divide per pair, about the cost of
 // Moeller-Trumbore, so on this card the transform buys nothing by itself.
 //
 // Build (plain C interface, loaded with ctypes):
@@ -37,30 +40,43 @@
 namespace dr {
 
 struct WoopLeaf {
-  const float4* woop;  // (C K, 3) float4
+  static constexpr int STRIDE = 3;  // float4 a woop row
+  const float4* table;              // (C K, 3) float4
 
-  __device__ __forceinline__ void test(int cluster, int k, const Ray& r,
-                                       bool any_hit, float* t_best,
-                                       int* prim) const {
-    const int base = cluster * k;
-    const float4* row = woop + (size_t)base * 3;
-    for (int j = 0; j < k; ++j, row += 3) {
-      const float4 wx = __ldg(row), wy = __ldg(row + 1), wz = __ldg(row + 2);
-      const float opx = ((wx.x * r.ox + wx.y * r.oy) + wx.z * r.oz) + wx.w;
-      const float opy = ((wy.x * r.ox + wy.y * r.oy) + wy.z * r.oz) + wy.w;
-      const float opz = ((wz.x * r.ox + wz.y * r.oy) + wz.z * r.oz) + wz.w;
-      const float dpx = (wx.x * r.dx + wx.y * r.dy) + wx.z * r.dz;
-      const float dpy = (wy.x * r.dx + wy.y * r.dy) + wy.z * r.dz;
-      const float dpz = (wz.x * r.dx + wz.y * r.dy) + wz.z * r.dz;
-      const bool flat = fabsf(dpz) < 1e-30f;
-      const float t = -opz / (flat ? 1e-30f : dpz);
-      const float u = opx + t * dpx;
-      const float v = opy + t * dpy;
-      const bool ok = u >= -kBaryEps && v >= -kBaryEps &&
-                      (u + v) <= 1.0f + kBaryEps && t > r.tmin && !flat;
-      if (ok && nearer(t, *t_best, *prim)) {
-        *t_best = t;
-        *prim = base + j;
+  // the rows [W_c0 W_c1 W_c2 w_c], c = x, y, z, as w.a, w.c, w.g
+  __device__ static __forceinline__ bool hit(const Ray& r, const TriRow& w,
+                                             float* t_out) {
+    const float4 wx = w.a, wy = w.c, wz = w.g;
+    const float opx = ((wx.x * r.ox + wx.y * r.oy) + wx.z * r.oz) + wx.w;
+    const float opy = ((wy.x * r.ox + wy.y * r.oy) + wy.z * r.oz) + wy.w;
+    const float opz = ((wz.x * r.ox + wz.y * r.oy) + wz.z * r.oz) + wz.w;
+    const float dpx = (wx.x * r.dx + wx.y * r.dy) + wx.z * r.dz;
+    const float dpy = (wy.x * r.dx + wy.y * r.dy) + wy.z * r.dz;
+    const float dpz = (wz.x * r.dx + wz.y * r.dy) + wz.z * r.dz;
+    const bool flat = fabsf(dpz) < 1e-30f;
+    const float t = -opz / (flat ? 1e-30f : dpz);
+    const float u = opx + t * dpx;
+    const float v = opy + t * dpy;
+    *t_out = t;
+    return u >= -kBaryEps && v >= -kBaryEps && (u + v) <= 1.0f + kBaryEps &&
+           t > r.tmin && !flat;
+  }
+
+  // The lane's sequential fold; the row of slot j + 1 is on its way while
+  // slot j is tested.
+  __device__ static __forceinline__ void fold(const float4* rows, int base,
+                                              int k, const Ray& r,
+                                              bool any_hit, float& t_best,
+                                              int& prim) {
+    TriRow next = load_tri<true>(rows);
+    for (int j = 0; j < k; ++j) {
+      const TriRow w = next;
+      if (j + 1 < k) next = load_tri<true>(rows + STAGED_ROW * (j + 1));
+      if (w.g.x == 0.0f && w.g.y == 0.0f && w.g.z == 0.0f) continue;
+      float t;
+      if (hit(r, w, &t) && nearer(t, t_best, prim)) {
+        t_best = t;
+        prim = base + j;
         if (any_hit) break;  // first blocker is enough
       }
     }

@@ -699,6 +699,16 @@ def _mt(oc, dc, tmin, v0, e1, e2):
     return ok, t
 
 
+def _first_least(acc, t, dim):
+    """Index along `dim` of the first ACCEPTED slot of the least accepted t,
+    the slot the kernels' sequential `nearer` fold keeps; +inf counts (a
+    lane without a winner accepts t == tmax == +inf), so an argmin over t
+    with +inf for the rejected slots would not do."""
+    tm = torch.where(acc, t, float("inf"))
+    least = tm.amin(dim, keepdim=True)
+    return torch.argmax((acc & (tm == least)).to(torch.uint8), dim)
+
+
 @torch.no_grad()
 def traverse6_plain(bvh: PackedBVH, o, d, tmin, tmax, *,
                     any_hit: bool = False, anyf=None, time=None, stats=None):
@@ -789,8 +799,7 @@ def traverse6_plain(bvh: PackedBVH, o, d, tmin, tmax, *,
             acc = ok & valid & ((t < tb) | ((prim[li] < 0)[:, None]
                                             & (t == tb)))
             got = acc.any(1)
-            tm = torch.where(acc, t, inf)
-            j_min = torch.argmin(tm, 1)
+            j_min = _first_least(acc, t, 1)
             j_first = torch.argmax(acc.to(torch.uint8), 1)
             is_any = any_lane[li]
             j = torch.where(is_any, j_first, j_min)
@@ -941,8 +950,7 @@ def _packet_plain(bvh, o, d, tmin, tmax, any_hit, leaf_test, counters,
                 (t < tb) | ((prim[li] < 0)[:, :, None] & (t == tb)))
             got = acc.any(2)
             j_first = torch.argmax(acc.to(torch.uint8), 2)
-            j = j_first if any_hit else torch.argmin(
-                torch.where(acc, t, inf), 2)
+            j = j_first if any_hit else _first_least(acc, t, 2)
             if stats is not None:
                 tested = valid & live[:, :, None]
                 if any_hit:

@@ -474,8 +474,111 @@ def test_other_cluster_sizes_match_bruteforce(world, k, mode):
     np.testing.assert_allclose(ft[sel].numpy(), bf.t[sel].numpy(), rtol=1e-5)
 
 
+HUGE = 3e19
+
+
+def _packed_huge(world):
+    """The test soup scaled by HUGE (cached): half of its determinants lie
+    past 2^126, where nvcc's fast reciprocal does not apply and v5's fold
+    divides exactly."""
+    if "huge" not in _other_k:
+        tri = [world[c] * np.float32(HUGE) for c in ("v0", "e1", "e2")]
+        cb = cluster.build(*tri, k=32)
+        _other_k["huge"] = tc.pack(cb.node_lo, cb.node_hi, cb.node_child,
+                                   cb.node_axis, cb.tri_v0, cb.tri_e1,
+                                   cb.tri_e2, cb.tri_id)
+    return _other_k["huge"]
+
+
+PACKET_PLAIN = {"v5": tc.traverse5_plain, "v7": tc.traverse7_plain}
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("k", [8, 40])
+@pytest.mark.parametrize("which", ["v5", "v7"])
+def test_packet_walks_at_other_cluster_sizes_match_bruteforce(world, which, k,
+                                                              any_hit):
+    """The plain versions of the packet walks over the wide tree, which the
+    card holds v5 / v7 to, at clusters narrower and wider than a warp: after
+    the finish step closest lanes equal brute force (prim equal, t to rtol
+    1e-5: both evaluate the same triangle), any-hit lanes have its mask,
+    dead lanes miss."""
+    packed, perm = _packed_with_k(world, k)
+    bvh = to_device(tc.with_woop(packed), "cpu")
+    o, d, tmax, _ = _wave(N_RAYS, seed=82)
+    rays = _port_rays(o, d, tmax)
+    t, prim = PACKET_PLAIN[which](bvh, rays.o, rays.d, rays.tmin, rays.tmax,
+                                  any_hit=any_hit)
+    bf = tv.brute_force_intersect(th.t3(world["v0"]), th.t3(world["e1"]),
+                                  th.t3(world["e2"]), rays)
+    assert torch.equal(prim >= 0, bf.hit) and bf.hit.any()
+    assert not (prim >= 0)[torch.from_numpy(tmax) < 0].any()
+    if any_hit:
+        return
+    ft, fprim, _, _ = tc.finish_hits(bvh, torch.from_numpy(perm), rays.o,
+                                     rays.d, rays.tmin, t, prim)
+    assert torch.equal(fprim[bf.hit], bf.prim[bf.hit])
+    np.testing.assert_allclose(ft[bf.hit].numpy(), bf.t[bf.hit].numpy(),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["v5", "v7"])
+def test_packet_walks_take_a_hit_at_exactly_tmax(world, which):
+    """The wide walks' tie rule ``nearer`` (``csrc/ray_tests.cuh``): a lane
+    without a winner accepts t == t_best, so a triangle whose raw t equals
+    the lane's tmax is taken, and one whose t lies one ulp past tmax is not.
+    The card holds v5 / v7 raw-equal to these plain walks."""
+    plain = PACKET_PLAIN[which]
+    o, d = th.ray_arrays(N_RAYS, seed=83)
+    rays = _port_rays(o, d)
+    args = (world["bvh_woop"], rays.o, rays.d, rays.tmin)
+    t, prim = plain(*args, rays.tmax)
+    hit = prim >= 0
+    assert hit.sum() > 50
+    # the nearest raw t itself as tmax: the same triangle, the same t
+    at = torch.where(hit, t, rays.tmax)
+    t_at, prim_at = plain(*args, at)
+    assert torch.equal(prim_at, prim) and torch.equal(t_at, t)
+    _, occ = plain(*args, at, any_hit=True)
+    assert torch.equal(occ >= 0, hit)
+    # one ulp short of it: nothing is left to hit
+    short = torch.where(hit, torch.nextafter(t, torch.zeros_like(t)),
+                        rays.tmax)
+    _, prim_short = plain(*args, short)
+    assert not (prim_short >= 0)[hit].any()
+    assert torch.equal(prim_short[~hit], prim[~hit])
+
+
+@pytest.mark.parametrize("which", ["v5", "v6"])
+def test_plain_walks_take_an_accepted_slot_at_infinite_t(world, which):
+    """Over the soup scaled by ``HUGE`` Moeller-Trumbore's t overflows to
+    +inf inside the barycentric bounds, and with tmax = +inf ``nearer``
+    accepts it (t == t_best, no winner yet). The plain walks then keep the
+    first accepted slot of the least t, as the kernels' sequential folds
+    do: the lane's (t, prim) is a hit of that ray. They used to take the
+    argmin over t with +inf for the rejected slots, slot 0 of the cluster,
+    accepted or not."""
+    packed, _ = _packed_huge(world)
+    bvh = to_device(packed, "cpu")
+    o, d = th.ray_arrays(4096, seed=44)
+    rays = _port_rays(o * np.float32(HUGE), d)
+    plain = {"v5": tc.traverse5_plain, "v6": tc.traverse6_plain}[which]
+    t, prim = plain(bvh, rays.o, rays.d, rays.tmin, rays.tmax)
+    hit = prim >= 0
+    assert torch.isinf(t[hit]).sum() > 10
+    row = bvh.soup16[prim[hit].long()]
+    oc, dc = tc._components(rays.o, rays.d)
+    ok, t_row = tc._mt([c[hit] for c in oc], [c[hit] for c in dc],
+                       rays.tmin[hit], [row[:, c] for c in range(3)],
+                       [row[:, 3 + c] for c in range(3)],
+                       [row[:, 6 + c] for c in range(3)])
+    assert bool(ok.all()) and torch.equal(t_row, t[hit])
+
+
 # wave shapes the v6 kernel's warp-level steps can get wrong
 CARD_SHAPES = ["ragged", "dead_batch", "short", "copies", "k8", "k40"]
+# ... and the packet walks': clusters of 128 stage in rounds of 32 slots
+PACKET_SHAPES = [*CARD_SHAPES, "k128"]
 
 
 def _card_case(world, shape, seed):
@@ -484,12 +587,18 @@ def _card_case(world, shape, seed):
     5), a fifth dead; `dead_batch` the same with one warp of 32 wholly dead
     lanes in the middle; `short` 19 rays (less than a warp); `copies` 32
     copies of one ray that hits (every lane holds the same leaves); `k8` /
-    `k40` the soup packed in clusters narrower / wider than a warp."""
-    k = {"k8": 8, "k40": 40}.get(shape, 32)
+    `k40` / `k128` the soup packed in clusters narrower / wider than a
+    warp; `huge` the ragged wave over the soup and origins scaled by
+    ``HUGE``."""
+    k = {"k8": 8, "k40": 40, "k128": 128}.get(shape, 32)
     packed, perm = ((world["packed"], world["perm"]) if k == 32
                     else _packed_with_k(world, k))
+    if shape == "huge":
+        packed, perm = _packed_huge(world)
     n = {"short": 19, "copies": 32}.get(shape, 4096 + 5)
     o, d, tmax, anyf = _wave(n, seed)
+    if shape == "huge":
+        o = o * np.float32(HUGE)
     if shape == "dead_batch":
         tmax[64 * 32:65 * 32] = -1.0
     if shape == "copies":
@@ -500,7 +609,7 @@ def _card_case(world, shape, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", CARD_SHAPES)
+@pytest.mark.parametrize("shape", [*CARD_SHAPES, "huge"])
 @pytest.mark.parametrize("mode", MODES)
 def test_kernel_matches_plain_version_on_the_card(world, mode, shape):
     """The CUDA kernel against its plain version on the same device tensors.
@@ -531,13 +640,16 @@ def test_kernel_matches_plain_version_on_the_card(world, mode, shape):
 @pytest.mark.parametrize("kern,mode,shape", [
     *(("traverse6_motion", mode, shape) for mode in MODES
       for shape in CARD_SHAPES),
-    ("traverse5", "closest", "ragged"), ("traverse5", "any", "ragged"),
-    ("traverse7", "closest", "ragged"), ("traverse7", "any", "ragged")])
+    *((kern, mode, shape) for kern in ("traverse5", "traverse7")
+      for mode in ("closest", "any") for shape in PACKET_SHAPES),
+    ("traverse5", "closest", "huge"), ("traverse5", "any", "huge")])
 def test_new_kernels_match_plain_version_on_the_card(world, kern, mode,
                                                      shape):
     """The motion mode of v6 (on every shape of ``CARD_SHAPES``) and the two
-    packet kernels against their plain versions on the same device tensors:
-    identical (t, prim), identical counters."""
+    packet kernels (on every shape of ``PACKET_SHAPES``; v5 also on `huge`,
+    where its fold's exact divide runs) against their plain versions on the
+    same device tensors: identical (t, prim), identical counters, overflow
+    flag 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     dev = torch.device("cuda", 0)
@@ -566,7 +678,9 @@ def test_new_kernels_match_plain_version_on_the_card(world, kern, mode,
     before = tc.LAUNCHES[f"{kern}:{mode}"]
     tc.reset_overflow(dev)
     got, want = fn(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
     assert tc.LAUNCHES[f"{kern}:{mode}"] == before + 1
     assert int(tc.overflow_flag(dev).item()) == 0
+    assert bool((want[1] >= 0).any())
     for g, w in zip(got, want):
         assert torch.equal(g, w)

@@ -43,9 +43,11 @@ what the union walk adds to the work, against what a step costs.
 
 The packet walks over the wide tree (traverse5, traverse7; rows 3 and 4):
 the camera wave, closest (row "a"), and the sorted incoherent rays, any-hit
-(row "b"), v7 over the Woop table. Their plain version agrees with them only
-after the finish step, so each build's raw (t, prim) is held against the
-packaged build's.
+(row "b"), v7 over the Woop table. Raw (t, prim) and the counters (node
+steps and leaf clusters per packet) are held against the plain version
+(``traverse5_plain`` / ``traverse7_plain``), and each row prints its chain
+as the binary-tree rows do; the builds are timed without counters, as the
+main path launches them.
 
 For each row every build must be `equal` (and leave the overflow flag at 0);
 the builds are timed in turns, forward then backward (A B C, C B A), by CUDA
@@ -335,6 +337,7 @@ def main():
     for kern, row, geom, rays, kw in rows:
         args = (geom.packed, rays.o, rays.d, rays.tmin, rays.tmax)
         extra = {}
+        check = None    # the call held against `want`, where not `run`
         if kern == "traverse6":
             if geom.has_motion:
                 kw["time"] = rays.time
@@ -342,9 +345,10 @@ def main():
             run = lambda: tc.traverse6(*args, **kw)
         elif kern in PACKET_ROWS:
             fn = getattr(tc, kern)
+            want, extra = chain(getattr(tc, kern + "_plain"),
+                                tc.traverse6_plain, args, kw)
             run = lambda: fn(*args, **kw)
-            tc._libs[kern] = builds[kern]["packaged"]
-            want = run()
+            check = lambda: fn(*args, **kw, counters=True)
         else:
             _, fn, plain = ATTIC_ROWS[kern]
             want, extra = chain(plain, tc.traverse6_plain, args, kw)
@@ -359,7 +363,7 @@ def main():
             tc._libs[kern] = lib
             tc.reset_overflow(dev)
             try:
-                got = run()
+                got = (check or run)()
             except RuntimeError as e:   # a launch the card refused
                 print(f"{name} {kern} {row}: {e}", file=sys.stderr)
                 bad.append((row, name))
