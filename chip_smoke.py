@@ -7,8 +7,9 @@ Run from the repository root with no arguments:
 
 It needs one CUDA device, `nvcc` (the seven traversal kernel libraries are
 built from `dartray_tpu_torch/csrc/*.cu` at first use, all `nvcc` runs started
-together) and no network. It imports only the port. Phases, each printing one
-JSON line; any failure raises and the script exits non-zero:
+together) and no network. It imports only the port and its bench
+(`bench_torch.py`). Phases, each printing one JSON line; any failure raises
+and the script exits non-zero:
 
   env          device name; name and power limit as nvidia-smi reports them
   build        builds and loads every kernel library; seconds and the
@@ -62,11 +63,25 @@ JSON line; any failure raises and the script exits non-zero:
                (n_samples + 1 launches a wave; the default of 2,048 probes is
                2,049 launches a wave and belongs to no smoke run)
   whitted_path a few waves of the Whitted integrator, depth 5
+  grad_small   the gradient of the Cornell render's mean w.r.t. materials.kd
+               and lights.intensity (32x32, 4 spp, depth 3): card against
+               CPU (plain traversal) within 2e-3 of the largest element,
+               autodiff against central differences for one light channel
+               within 2 % on the card, remat on and off equal to rtol 1e-4
+  grad_path    the gradient at full width (bench scene, depth 5, per-bounce
+               remat on): bench.py's probe (96x96, 8 spp, (img ** 2).mean()
+               w.r.t. materials.kd) with its norm within 2 % of the JAX
+               reference's, then the same loss at 512x512 with 2 and 8 spp:
+               finite, 20 v6 launches a gradient wave (2 closest, 15 mixed,
+               3 any: forward, the wave's recompute, the bounces' recomputes;
+               measured on an H100) and no other, the 8-spp peak memory
+               above the start at most 1.25 times the 2-spp one
 
 Then one line {"kernels": [...]} (per kernel and mode: launches counted on
-its path, error against the plain version, times, the least time the card
-could take, and the registers and spill bytes ptxas gave its kernel
-function), the nvidia-smi line again, and as the last line
+its path (the gradient's launches are on grad_path's line), error against
+the plain version, times, the least time the card could take, and the
+registers and spill bytes ptxas gave its kernel function), the nvidia-smi
+line again, and as the last line
 {"ok": true, "device": {...}}.
 """
 import dataclasses
@@ -81,7 +96,8 @@ import time
 import numpy as np
 import torch
 
-from dartray_tpu_torch import cameras, samplers
+import bench_torch
+from dartray_tpu_torch import cameras, grad, samplers
 from dartray_tpu_torch import film as film_mod
 from dartray_tpu_torch.accel import native
 from dartray_tpu_torch.core import math as vm
@@ -96,8 +112,9 @@ from dartray_tpu_torch.scene import build as sb
 from dartray_tpu_torch.scene import types as st
 
 # the JAX reference's image mean for the bench scene at 512x512, depth 5,
-# 64 spp: a correctness value (what the image must look like), not a speed
-REFERENCE_IMG_MEAN = 0.1352919
+# 64 spp, and its gradient probe's norm: correctness values, not speeds
+REFERENCE_IMG_MEAN = bench_torch.REFERENCE_IMG_MEAN
+REFERENCE_GRAD_NORM = bench_torch.REFERENCE_GRAD_NORM
 WIDTH = HEIGHT = 512
 SPP = 64
 MAX_DEPTH = 5
@@ -891,6 +908,133 @@ def ao_whitted_phase(scene, dev):
     say("whitted_path", **info)
 
 
+SMALL_GRAD_PATHS = ["materials.kd", "lights.intensity"]
+GRAD_CPU_REL = 2e-3        # card vs CPU gradient: share of the largest |g|
+GRAD_SPPS = (2, 8)         # the full-width gradient's two sample counts
+# v6 launches of one gradient wave at depth 5 with per-bounce remat: the
+# forward pass (1 closest, 5 mixed, 1 any), the wave's recompute in the
+# backward pass (the same 7) and each bounce's recompute inside it (5 mixed,
+# 1 any); 20 in all, measured on the card
+GRAD_WAVE_LAUNCHES = {"traverse6:closest": 2, "traverse6:mixed": 3 * MAX_DEPTH,
+                      "traverse6:any": 3}
+
+
+def small_jacobian(host, where, remat=None):
+    """d mean(img) / d SMALL_GRAD_PATHS of the Cornell render of
+    ``render_small`` on `where`, as numpy."""
+    cam = cameras.perspective(tr.look_at([0, 1, -3.2], [0, 1, 0], [0, 1, 0]),
+                              40.0, SMALL, SMALL, device=where)
+    smp = samplers.make_sampler("lowdiscrepancy", spp=SMALL_SPP)
+    ig = pi.PathIntegrator(max_depth=3, remat=remat)
+    theta, inject = grad.select(host, SMALL_GRAD_PATHS)
+    _, g = grad.render_pixel_jacobian_sum(
+        host, cam, smp, lambda s, r, d, c: pi.li(ig, s, r, d, c), SMALL,
+        SMALL, theta, inject, device=where)
+    return {k: v.cpu().numpy() for k, v in g.items()}, cam, smp, ig
+
+
+def grad_small_phase(dev):
+    """The gradient on the Cornell box (32x32, SMALL_SPP spp, depth 3):
+    card (kernel) against CPU (plain traversal), max |g_card - g_cpu| <=
+    GRAD_CPU_REL x max |g_cpu| for each parameter (an elementwise limit
+    would judge the ties at shared edges that ``compare_images`` allows);
+    autodiff against central differences for lights.intensity[0, 1] on the
+    card, within 2 % of |fd|; remat on and off equal to rtol 1e-4."""
+    host = cornell()
+    tc.reset_launches()
+    g_card, cam, smp, ig = small_jacobian(host, dev)
+    launches = {k: v for k, v in tc.LAUNCHES.items() if v}
+    g_cpu, _, _, _ = small_jacobian(host, "cpu")
+    out = {"launches": launches}
+    for p in SMALL_GRAD_PATHS:
+        a, b = g_card[p], g_cpu[p]
+        require(np.isfinite(a).all(), f"grad small: {p} not finite")
+        err = np.abs(a - b)
+        worst = np.unravel_index(int(err.argmax()), err.shape)
+        rel = float(err.max() / np.abs(b).max())
+        out[p] = {"rel_to_max": rel, "worst_index": list(map(int, worst)),
+                  "card": float(a[worst]), "cpu": float(b[worst]),
+                  "max_abs_cpu": float(np.abs(b).max())}
+        require(rel <= GRAD_CPU_REL, f"grad small: {p} card vs CPU {rel} of "
+                "the largest element")
+    inten = host.lights.intensity
+
+    def inject_l(scene, t):
+        table = torch.as_tensor(inten).clone()
+        table[0, 1] = t["L"]
+        return dataclasses.replace(scene, lights=dataclasses.replace(
+            scene.lights, intensity=table))
+
+    fd = grad.finite_difference(
+        host, cam, smp, lambda s, r, d, c: pi.li(ig, s, r, d, c), SMALL,
+        SMALL, {"L": inten[0, 1]}, inject_l, lambda img: img.mean(),
+        eps=5e-2, device=dev)["L"]
+    ad = float(g_card["lights.intensity"][0, 1])
+    out["ad_vs_fd"] = {"ad": ad, "fd": float(fd),
+                       "rel": abs(ad - fd) / max(abs(fd), 1e-4)}
+    require(abs(ad - fd) < 0.02 * max(abs(fd), 1e-4),
+            f"grad small: autodiff {ad} against finite differences {fd}")
+    g_on, _, _, _ = small_jacobian(host, dev, remat=True)
+    g_off, _, _, _ = small_jacobian(host, dev, remat=False)
+    for p in SMALL_GRAD_PATHS:
+        require(np.allclose(g_on[p], g_off[p], rtol=1e-4, atol=1e-7),
+                f"grad small: remat changes the gradient of {p}")
+    out["remat_max_abs_diff"] = max(float(np.abs(g_on[p] - g_off[p]).max())
+                                    for p in SMALL_GRAD_PATHS)
+    say("grad_small", **out)
+
+
+def grad_run(scene, dev, res, spp):
+    """One ``bench_torch.grad_probe`` with the counts and the peak memory
+    counted from 0 just before it; requires finite gradients with a nonzero
+    norm, GRAD_WAVE_LAUNCHES a wave and no other launch, and no stack
+    overflow."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    tc.reset_overflow(dev)
+    tc.reset_launches()
+    val, g, secs, norm = bench_torch.grad_probe(scene, dev, res=res, spp=spp)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v for k, v in tc.LAUNCHES.items() if v}
+    overflow = int(tc.overflow_flag(dev).item())
+    what = f"grad path {res}x{res} spp {spp}"
+    require(all(bool(torch.isfinite(x).all()) for x in g.values())
+            and norm > 0, f"{what}: gradient not finite or zero")
+    require(launches == {k: v * spp for k, v in GRAD_WAVE_LAUNCHES.items()},
+            f"{what}: kernel launches {launches}")
+    require(overflow == 0, f"{what}: stack overflow in the kernel")
+    return {"res": res, "spp": spp, "grad_s": secs, "grad_norm": norm,
+            "loss": float(val), "launches": launches,
+            "peak_mem_bytes": peak, "mem_at_start_bytes": start,
+            "overflow": overflow}
+
+
+def grad_path_phase(scene, dev):
+    """The gradient at full width through the v6 kernel, per-bounce remat on
+    (depth 5): (a) bench.py's probe (96x96, 8 spp, (img ** 2).mean() w.r.t.
+    materials.kd), its norm within 2 % of the reference's; (b) the same
+    loss at 512x512 (262,144 lanes a wave, as main_path) with GRAD_SPPS
+    samples: the peak memory above the start at 8 spp at most 1.25 times
+    that at 2 spp (each wave is checkpointed, so memory is O(1) in spp)."""
+    probe = grad_run(scene, dev, bench_torch.GRAD_RES, bench_torch.GRAD_SPP)
+    probe["reference_grad_norm"] = REFERENCE_GRAD_NORM
+    probe["rel_to_reference"] = (abs(probe["grad_norm"] - REFERENCE_GRAD_NORM)
+                                 / REFERENCE_GRAD_NORM)
+    require(probe["rel_to_reference"] <= 0.02,
+            f"grad path: probe norm {probe['grad_norm']} is not within 2 % "
+            f"of {REFERENCE_GRAD_NORM}")
+    full = {spp: grad_run(scene, dev, WIDTH, spp) for spp in GRAD_SPPS}
+    lo, hi = (full[s]["peak_mem_bytes"] - full[s]["mem_at_start_bytes"]
+              for s in GRAD_SPPS)
+    require(hi <= 1.25 * lo, f"grad path: peak memory {hi} B at spp "
+            f"{GRAD_SPPS[1]} against {lo} B at spp {GRAD_SPPS[0]}")
+    say("grad_path", probe=probe,
+        **{f"spp{s}": r for s, r in full.items()},
+        peak_mem_ratio=hi / lo, launches_per_wave=GRAD_WAVE_LAUNCHES,
+        tris=scene.geometry.n_prims)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -951,6 +1095,10 @@ def main():
     direct_first = direct_path_phase(scene, dev, static_img)
     launches_attic = attic_path_phase(scene, dev, direct_first)
     ao_whitted_phase(scene, dev)
+    # the differentiable render: its launches are printed on grad_path's
+    # line, not counted into the kernels line (main_path's are)
+    grad_small_phase(dev)
+    grad_path_phase(scene, dev)
     counted = {**{k: v for k, v in launches.items()
                   if k.startswith("traverse6:")},
                **{k: v for k, v in launches_m.items()

@@ -5,7 +5,11 @@ The film is a device (H, W, 4) accumulator [X, Y, Z, weightSum]; a whole
 wavefront of samples is deposited with one scatter-add (``index_put_`` with
 accumulate). ``add_samples`` updates ``film.pixels`` IN PLACE and returns the
 same film: the wave loop threads one buffer through all waves instead of
-allocating a new image per wave.
+allocating a new image per wave. ``add_samples_functional`` does the same
+arithmetic out of place and returns a new film, as the reference's
+``add_samples`` does: autograd needs it, since a tensor it saved for the
+backward pass must not change, and a checkpointed wave re-runs its deposit
+on the film it was given.
 
 Ported: the box filter at its default width (the footprint is exactly the
 owning pixel). Triangle, gaussian, mitchell and sinc filters, wider boxes,
@@ -71,13 +75,11 @@ def make_film(width, height, filter_name="box", filter_params=None,
                 height=height, xwidth=xw, ywidth=yw, x0=x0, y0=y0)
 
 
-def add_samples(film: Film, image_xy, L_rgb, mask=None) -> Film:
-    """Deposit a wavefront of radiance samples (in place).
-
-    image_xy: V2 (or (R, 2)) continuous raster coords; L: V3 (or (R, 3))
-    RGB. NaN / negative / infinite samples are zeroed and carry no weight.
-    With the box filter of half-width <= 0.5 the footprint is exactly the
-    owning pixel: one scatter-add."""
+def _deposit(film: Film, image_xy, L_rgb, mask):
+    """The scatter of one wavefront: (pixel index tuple, (R, 4) rows
+    [X, Y, Z, weight]). NaN / negative / infinite samples are zeroed and
+    carry no weight; with the box filter of half-width <= 0.5 the footprint
+    is exactly the owning pixel."""
     xy = vm.from_arr2(image_xy)
     L = vm.from_arr(L_rgb)
     finite = spec.all_finite(L)
@@ -93,10 +95,26 @@ def add_samples(film: Film, image_xy, L_rgb, mask=None) -> Film:
     in_img = ((ix >= 0) & (ix < film.width) & (iy >= 0) & (iy < film.height))
     w = torch.where(in_img, 1.0, 0.0) * w_ok
     contrib = torch.stack([xyz.x * w, xyz.y * w, xyz.z * w, w], dim=-1)
-    film.pixels.index_put_((iy.clamp(0, film.height - 1),
-                            ix.clamp(0, film.width - 1)), contrib,
-                           accumulate=True)
+    return ((iy.clamp(0, film.height - 1), ix.clamp(0, film.width - 1)),
+            contrib)
+
+
+def add_samples(film: Film, image_xy, L_rgb, mask=None) -> Film:
+    """Deposit a wavefront of radiance samples (in place).
+
+    image_xy: V2 (or (R, 2)) continuous raster coords; L: V3 (or (R, 3))
+    RGB. One scatter-add into ``film.pixels``; the same film is returned."""
+    idx, contrib = _deposit(film, image_xy, L_rgb, mask)
+    film.pixels.index_put_(idx, contrib, accumulate=True)
     return film
+
+
+def add_samples_functional(film: Film, image_xy, L_rgb, mask=None) -> Film:
+    """``add_samples`` out of place: a new film whose pixels are the old
+    ones plus this wavefront's scatter; `film` is left as it was."""
+    idx, contrib = _deposit(film, image_xy, L_rgb, mask)
+    return dataclasses.replace(
+        film, pixels=film.pixels.index_put(idx, contrib, accumulate=True))
 
 
 def to_rgb(film: Film):

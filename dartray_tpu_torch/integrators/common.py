@@ -126,7 +126,11 @@ def nee_prepare(scene, it, frame, params, wo, u_select, u_light, uc_light,
     bsdf_pdf = bx.pdf(params, frame, wo, ls.wi, flags)
     w_l = torch.where(ls.is_delta, 1.0,
                       smp.power_heuristic(1.0, pdf_nee, 1.0, bsdf_pdf))
-    contrib = f_l * ls.li * (cos_l * w_l / pdf_nee.clamp_min(1e-20))
+    # a lane that is not usable may hold inf or NaN here (a miss of a
+    # moving scene puts p at o + 1e30 d): zero it BEFORE it scales the
+    # radiance, or the backward pass multiplies the caller's masked 0 by it
+    scale = torch.where(usable, cos_l * w_l / pdf_nee.clamp_min(1e-20), 0.0)
+    contrib = f_l * ls.li * scale
     return sray, usable, contrib
 
 

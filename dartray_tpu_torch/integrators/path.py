@@ -14,12 +14,22 @@ with the shadow ray of bounce b in one mixed launch
 launches: the camera wave (closest hit, unsorted: it is already
 Morton-coherent), D mixed launches, and the last bounce's shadow wave (any
 hit). Dead lanes carry tmax < tmin and leave the kernel at once.
+
+A bounce is a function of the carry ``(L, throughput, active,
+specular_bounce, prev_pdf, cur, hits)``, as in the reference. With
+``remat`` on and autograd recording, each bounce runs under
+``torch.utils.checkpoint``: the backward pass recomputes its activations
+(and launches its traversal again) instead of keeping them, so gradient
+memory is O(1) in path depth. Under ``torch.no_grad()`` the loop is the
+plain one whatever ``remat`` says.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+from torch.utils import _pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from .. import bsdf as bx
 from .. import materials as mat_mod
@@ -34,8 +44,9 @@ from . import common
 class PathIntegrator:
     max_depth: int = 5
     rr_depth: int = 3
-    # accepted for signature parity and ignored: rematerialisation only
-    # shapes the reverse-mode tape, and this slice has no gradient
+    # per-bounce rematerialisation under autograd; None = on for
+    # max_depth > 3 (the reference's rule). It changes no value, only what
+    # the backward pass keeps and what it recomputes
     remat: bool = None
 
 
@@ -63,9 +74,8 @@ def li(ig: PathIntegrator, scene: st.CompiledScene, rays, diffs, sctx,
     # nothing reads the uv footprint unless the scene has textures
     diffs0 = diffs if scene.textures is not None else None
 
-    cur = rays
-    hits = st.intersect(geom, rays, sort=False)
-    for bounce in range(ig.max_depth + 1):
+    def body(carry, bounce):
+        L, throughput, active, specular_bounce, prev_pdf, cur, hits = carry
         dim = 5 + bounce * 10
         hit = hits.hit & active
         it = st.interaction(geom, cur, hits,
@@ -118,9 +128,32 @@ def li(ig: PathIntegrator, scene: st.CompiledScene, rays, diffs, sctx,
             # the NEE contribution uses the PRE-update throughput
             L = L + vm.where3(usable & ~occluded, throughput * contrib, 0.0)
         if last:
-            break
+            return (L, throughput, active, specular_bounce, prev_pdf, cur,
+                    hits)
         throughput = vm.where3(cont, new_tp, throughput)
         specular_bounce = (bs.flags & bx.SPECULAR) != 0
-        prev_pdf = bs.pdf
-        active, cur, hits = cont, next_ray, hits_next
-    return L
+        return (L, throughput, cont, specular_bounce, bs.pdf, next_ray,
+                hits_next)
+
+    def flat_body(bounce, tree, *leaves):
+        carry = body(pytree.tree_unflatten(list(leaves), tree), bounce)
+        return tuple(pytree.tree_leaves(carry))
+
+    carry = (L, throughput, active, specular_bounce, prev_pdf, rays,
+             st.intersect(geom, rays, sort=False))
+    remat = ig.remat if ig.remat is not None else ig.max_depth > 3
+    remat = remat and torch.is_grad_enabled()
+    for bounce in range(ig.max_depth + 1):
+        if remat:
+            # the carry goes in as separate tensors: checkpoint keeps a
+            # tensor argument through the enclosing saved-tensor hooks, so
+            # inside grad.render_image's wave checkpoint no bounce's carry
+            # outlives the forward pass (one tuple argument would be held
+            # as it is, every wave's six carries until the backward pass)
+            leaves, tree = pytree.tree_flatten(carry)
+            carry = pytree.tree_unflatten(list(checkpoint(
+                flat_body, bounce, tree, *leaves, use_reentrant=False)),
+                tree)
+        else:
+            carry = body(carry, bounce)
+    return carry[0]

@@ -51,9 +51,15 @@ def render_wave(scene, camera: cam_mod.Camera, sampler: smp_mod.Sampler,
                 film: film_mod.Film, px, py, s_idx, *,
                 li_fn: Callable, width: int, height: int, spp: int,
                 device=device_mod.DEFAULT):
-    """One wave: (pixels x one sample index) deposited into `film` (in
-    place; the film is returned). The scene, camera, film and pixel tensors
-    must already live on `device` (see ``render`` for the set-up)."""
+    """One wave: (pixels x one sample index) deposited into `film`, and the
+    film returned. The scene, camera, film and pixel tensors must already
+    live on `device` (see ``render`` for the set-up).
+
+    The deposit is in place (``film.add_samples``) unless autograd records
+    it, that is unless the wave's radiance or the film's pixels require
+    grad: then it is out of place (``film.add_samples_functional``), `film`
+    is left as it was and a new film is returned. Under ``torch.no_grad()``
+    nothing requires grad, so ``render`` always takes the in-place form."""
     dev = device_mod.resolve(device)
     for name, where in (("camera", camera.device), ("film",
                         film.pixels.device), ("px", px.device)):
@@ -67,7 +73,10 @@ def render_wave(scene, camera: cam_mod.Camera, sampler: smp_mod.Sampler,
     sctx = {"sampler": sampler, "px": px, "py": py, "s_idx": s_idx}
     L = li_fn(scene, rays, diffs, sctx)
     L = L * weight
-    return film_mod.add_samples(film, cs.image_xy, L)
+    add = (film_mod.add_samples_functional
+           if any(c.requires_grad for c in L) or film.pixels.requires_grad
+           else film_mod.add_samples)
+    return add(film, cs.image_xy, L)
 
 
 def render(scene, camera, sampler, li_fn, width, height,

@@ -30,7 +30,8 @@ from dartray_tpu.scene import build as ref_sb
 from dartray_tpu.scene import mesh as ref_mesh
 from dartray_tpu.scene import types as ref_st
 
-from dartray_tpu_torch import cameras, samplers
+import bench_torch
+from dartray_tpu_torch import cameras, grad, samplers
 from dartray_tpu_torch import film as film_mod
 from dartray_tpu_torch import materials as mat_mod
 from dartray_tpu_torch.core import transform as tr
@@ -291,6 +292,7 @@ for d, subdirs, files in os.walk(root):
             names.append(rel[:-3].replace(os.sep, ".").removesuffix(".__init__"))
 for n in names:
     importlib.import_module(n)
+import bench_torch  # the port's bench: runs only under its __main__ guard
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "dartray_tpu" or m.startswith("dartray_tpu."))
@@ -302,8 +304,8 @@ print("imported", len(names))
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """Every module of the port, imported in a fresh interpreter, leaves
-    neither jax nor the JAX package in sys.modules."""
+    """Every module of the port and the port's bench, imported in a fresh
+    interpreter, leave neither jax nor the JAX package in sys.modules."""
     import os
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=root,
@@ -313,7 +315,9 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 
 @pytest.mark.parametrize("entry", ["render", "render_wave", "make_film",
-                                   "perspective", "pixel_grid", "to_device"])
+                                   "perspective", "pixel_grid", "to_device",
+                                   "render_image", "render_loss_grad",
+                                   "finite_difference", "bench_torch"])
 def test_entry_points_default_to_the_card_and_raise_without_one(entry):
     """No CUDA device here: every entry point's default device must raise,
     not fall back to the CPU."""
@@ -333,6 +337,13 @@ def test_entry_points_default_to_the_card_and_raise_without_one(entry):
         "perspective": lambda: cameras.perspective(c2w, FOV, 4, 4),
         "pixel_grid": lambda: rend.pixel_grid(4, 4),
         "to_device": lambda: st.to_device({"a": np.zeros(3, np.float32)}),
+        "render_image": lambda: grad.render_image(None, cam, smp, None, 4, 4),
+        "render_loss_grad": lambda: grad.render_loss_grad(
+            None, cam, smp, None, 4, 4, {}, None, None),
+        "finite_difference": lambda: grad.finite_difference(
+            None, cam, smp, None, 4, 4, {"a": np.ones(1, np.float32)},
+            lambda s, t: s, lambda img: img.mean()),
+        "bench_torch": bench_torch.main,
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

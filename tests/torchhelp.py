@@ -103,6 +103,34 @@ def n3(v):
     return np.stack([np.asarray(v.x), np.asarray(v.y), np.asarray(v.z)], -1)
 
 
+def ref_box_scene():
+    """The small box of the reference's gradient tests
+    (``tests/test_grad.py:18-40``: matte floor, back and red side wall, a
+    glass sphere, an area light), built by the reference."""
+    from dartray_tpu import materials as mat_mod
+    from dartray_tpu.core import transform as tr
+    from dartray_tpu.scene import build as sb, mesh
+    b = sb.SceneBuilder()
+    white = b.add_material(mat_mod.matte(kd=(0.6, 0.6, 0.6)))
+    red = b.add_material(mat_mod.matte(kd=(0.7, 0.1, 0.1)))
+    glass = b.add_material(mat_mod.glass())
+    dark = b.add_material(mat_mod.matte(kd=(0.0, 0.0, 0.0)))
+    b.add_mesh(mesh.make_mesh([[-1, 0, -1], [1, 0, -1], [1, 0, 1],
+                               [-1, 0, 1]], [[0, 1, 2], [0, 2, 3]]), white)
+    b.add_mesh(mesh.make_mesh([[-1, 0, 1], [1, 0, 1], [1, 2, 1],
+                               [-1, 2, 1]], [[0, 1, 2], [0, 2, 3]]), white)
+    b.add_mesh(mesh.make_mesh([[-1, 0, -1], [-1, 0, 1], [-1, 2, 1],
+                               [-1, 2, -1]], [[0, 1, 2], [0, 2, 3]]), red)
+    s = mesh.sphere(radius=0.3, nu=12, nv=6).transformed(
+        np.asarray(tr.translate([0.3, 0.35, 0.2]).m))
+    b.add_mesh(s, glass)
+    b.add_mesh(mesh.make_mesh([[-0.4, 1.95, -0.4], [0.4, 1.95, -0.4],
+                               [0.4, 1.95, 0.4], [-0.4, 1.95, 0.4]],
+                              [[0, 1, 2], [0, 2, 3]]), dark,
+               area_light_L=(6.0, 6.0, 6.0))
+    return b.build()
+
+
 def eager_reference(mp):
     """Put the reference into the mode the whole-wave tests compare against,
     through the MonkeyPatch `mp`: its Pallas traversal kernels in interpret

@@ -2,7 +2,7 @@
 
     python tools/profile_torch_wave.py [--waves 4] [--res 512] [--depth 5]
                                        [--integrator path|direct|whitted|ao]
-                                       [--moving]
+                                       [--moving] [--grad]
 
 Builds the bench scene (with `--moving` its big sphere translates by
 (0.6, 0, 0) over the shutter, so every launch is the motion kernel's), warms
@@ -11,7 +11,11 @@ renderers.sampler.render_wave of the chosen integrator (default: the path
 integrator; ``ao`` takes ``--ao-samples`` probes, default 64) under
 torch.profiler with the port's stages
 wrapped in named ranges (wrapped from here, the package carries no
-instrumentation). Prints one JSON object: wave time on the host clock, the
+instrumentation). With ``--grad`` (path integrator, depth 5) each run is
+instead one gradient render of ``--waves`` waves, ``bench.py``'s probe loss
+through ``bench_torch.grad_probe``: a wave is then its forward pass, its
+recompute and its backward pass (stage ``grad``, the recomputes inside
+it). Prints one JSON object: wave time on the host clock, the
 device's busy share, kernel launches per wave, time by stage, the top
 device kernels, and `traversal_launches`: mode, lanes and the kernel's own
 time from the trace for each traversal launch of a wave in order (for a path
@@ -31,6 +35,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
+import bench_torch  # noqa: E402
+
 from dartray_tpu_torch import bsdf, cameras, film as film_mod  # noqa: E402
 from dartray_tpu_torch import materials, samplers  # noqa: E402
 from dartray_tpu_torch.core import transform as tr  # noqa: E402
@@ -49,6 +55,7 @@ STAGES = [
     (common, "estimate_direct"), (lights, "sample_li"), (bsdf, "f"),
     (tc, "sort_key_i32"), (tc, "_sorted_launch"), (tc, "traverse6"),
     (tc, "finish_hits_rows"), (film_mod, "add_samples"),
+    (film_mod, "add_samples_functional"), (torch.autograd, "grad"),
 ]
 
 
@@ -95,7 +102,11 @@ def main():
                     choices=("path", "direct", "whitted", "ao"))
     ap.add_argument("--ao-samples", type=int, default=64)
     ap.add_argument("--moving", action="store_true")
+    ap.add_argument("--grad", action="store_true")
     a = ap.parse_args()
+    if a.grad and (a.integrator != "path" or a.depth != bench_torch.MAX_DEPTH):
+        ap.error("--grad profiles bench_torch.grad_probe: the path "
+                 f"integrator at depth {bench_torch.MAX_DEPTH}")
     if not torch.cuda.is_available():
         print("needs one CUDA device", file=sys.stderr)
         return 2
@@ -123,14 +134,20 @@ def main():
             torch.full(px.shape, s, dtype=torch.int32, device=dev),
             li_fn=li, width=a.res, height=a.res, spp=smp.spp, device=dev)
 
-    with torch.no_grad():
-        for s in range(2):
-            wave(s)
+    def run(first):
+        """`a.waves` waves from sample index `first` (--grad: one gradient
+        render of `a.waves` waves)."""
+        if a.grad:
+            bench_torch.grad_probe(scene, dev, a.res, a.waves)
+        else:
+            for s in range(first, first + a.waves):
+                wave(s)
         torch.cuda.synchronize()
+
+    with torch.enable_grad() if a.grad else torch.no_grad():
+        run(0)                      # warm-up
         t0 = time.time()
-        for s in range(2, 2 + a.waves):
-            wave(s)
-        torch.cuda.synchronize()
+        run(a.waves)
         plain_wave_ms = (time.time() - t0) / a.waves * 1e3
 
         launched = []
@@ -139,9 +156,7 @@ def main():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
-            for s in range(2 + a.waves, 2 + 2 * a.waves):
-                wave(s)
-            torch.cuda.synchronize()
+            run(2 * a.waves)
             traced_wave_ms = (time.time() - t0) / a.waves * 1e3
 
     ka = prof.key_averages()
@@ -181,10 +196,10 @@ def main():
     top = sorted(kernels, key=lambda e: -self_dev(e))[:12]
     print(json.dumps({
         "card": smi, "integrator": a.integrator, "moving": a.moving,
-        "res": a.res,
+        "grad": a.grad, "res": a.res,
         "depth": a.depth, "waves": a.waves,
         "traversal_launches_per_wave": {
-            k: v / (2 + 2 * a.waves) for k, v in tc.LAUNCHES.items() if v},
+            k: v / (3 * a.waves) for k, v in tc.LAUNCHES.items() if v},
         "traversal_launches": launches_of_a_wave,
         "wave_ms": plain_wave_ms, "wave_ms_traced": traced_wave_ms,
         "device_busy_ms_per_wave": busy_us / a.waves / 1e3,
