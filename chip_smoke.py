@@ -63,6 +63,21 @@ and the script exits non-zero:
                (n_samples + 1 launches a wave; the default of 2,048 probes is
                2,049 launches a wave and belongs to no smoke run)
   whitted_path a few waves of the Whitted integrator, depth 5
+  pbrt_path    the scene front door on the card: (a) `python -m
+               dartray_tpu_torch scenes/cornell.pbrt` (``__main__.main``): 7
+               v6 launches a wave and no other kernel, a PNG that decodes to
+               the tonemap of the same command's .pfm image, which matches
+               render_pbrt on the CPU; (b) the bench scene written as a
+               .pbrt file (world-space triangle meshes, every float as its
+               repr) and read back by scene.parser at full width: the
+               SceneBuilder's packed BVH and triangle soup bit for bit, 64
+               waves of 7 v6 launches through manager.run, the traversal
+               queries it counts equal to the launches times their lanes,
+               main_path's image, the mean within 1 % of the reference's;
+               parse, build
+               and render seconds and rays/s; (c) the aggregatetest renderer
+               on the Cornell text: 0 mismatches against the exhaustive
+               intersector (rays with inconsistent bounds counted apart)
   grad_small   the gradient of the Cornell render's mean w.r.t. materials.kd
                and lights.intensity (32x32, 4 spp, depth 3): card against
                CPU (plain traversal) within 2e-3 of the largest element,
@@ -78,7 +93,8 @@ and the script exits non-zero:
                above the start at most 1.25 times the 2-spp one
 
 Then one line {"kernels": [...]} (per kernel and mode: launches counted on
-its path (the gradient's launches are on grad_path's line), error against
+its path (the front door's and the gradient's launches are on pbrt_path's
+and grad_path's lines), error against
 the plain version, times, the least time the card could take, and the
 registers and spill bytes ptxas gave its kernel function), the nvidia-smi
 line again, and as the last line
@@ -97,8 +113,10 @@ import numpy as np
 import torch
 
 import bench_torch
+from dartray_tpu_torch import __main__ as cli
 from dartray_tpu_torch import cameras, grad, samplers
 from dartray_tpu_torch import film as film_mod
+from dartray_tpu_torch import stats as stats_mod
 from dartray_tpu_torch.accel import native
 from dartray_tpu_torch.core import math as vm
 from dartray_tpu_torch.core import transform as tr
@@ -106,9 +124,12 @@ from dartray_tpu_torch.integrators import ao as ao_mod
 from dartray_tpu_torch.integrators import direct as di
 from dartray_tpu_torch.integrators import path as pi
 from dartray_tpu_torch.integrators import whitted as wh
+from dartray_tpu_torch.io import image as io_img
 from dartray_tpu_torch.ops import traverse_cuda as tc
+from dartray_tpu_torch.renderers import manager
 from dartray_tpu_torch.renderers import sampler as rend
 from dartray_tpu_torch.scene import build as sb
+from dartray_tpu_torch.scene import parser
 from dartray_tpu_torch.scene import types as st
 
 # the JAX reference's image mean for the bench scene at 512x512, depth 5,
@@ -908,6 +929,206 @@ def ao_whitted_phase(scene, dev):
     say("whitted_path", **info)
 
 
+# the scene front door: where its files go (git-ignored), the Cornell file
+PBRT_DIR = os.path.join(tc.BUILD_DIR, "pbrt")
+CORNELL_PBRT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "scenes", "cornell.pbrt")
+QUIET = lambda *a, **k: None   # noqa: E731
+
+
+def pbrt_numbers(a):
+    """Every float32 of `a` as Python's repr: it parses back exactly."""
+    return " ".join(repr(float(x)) for x in np.asarray(a).reshape(-1))
+
+
+def pbrt_material(row):
+    """The Material statement of a matte, mirror or glass row."""
+    if any(row["kt"]):
+        return (f'Material "glass" "rgb Kr" [{pbrt_numbers(row["kr"])}] '
+                f'"rgb Kt" [{pbrt_numbers(row["kt"])}] '
+                f'"float index" [{float(row["eta"])!r}]')
+    if any(row["kr"]):
+        return f'Material "mirror" "rgb Kr" [{pbrt_numbers(row["kr"])}]'
+    return f'Material "matte" "rgb Kd" [{pbrt_numbers(row["kd"])}]'
+
+
+def bench_scene_pbrt(path):
+    """Write ``sb.bench_scene()`` as a .pbrt file: the camera of
+    ``camera_wave``, 512x512, lowdiscrepancy 64 spp, path depth 5, and every
+    mesh, in the SceneBuilder's order, as a world-space trianglemesh with its
+    material (and area light) in an attribute block."""
+    b = sb.bench_scene()
+    out = [f'Film "image" "integer xresolution" [{WIDTH}] '
+           f'"integer yresolution" [{HEIGHT}]',
+           f'Sampler "lowdiscrepancy" "integer pixelsamples" [{SPP}]',
+           f'SurfaceIntegrator "path" "integer maxdepth" [{MAX_DEPTH}]',
+           "LookAt 0 2.2 -5  0 0.9 0  0 1 0",
+           'Camera "perspective" "float fov" [42]', "WorldBegin"]
+    for m, mat, light in zip(b.meshes, b.mesh_mat, b.mesh_area_light):
+        out += ["AttributeBegin", pbrt_material(b.mat_rows[mat])]
+        if light is not None:
+            out.append(f'AreaLightSource "diffuse" "rgb L" '
+                       f'[{pbrt_numbers(light[0])}]')
+        shape = (f'Shape "trianglemesh" "integer indices" '
+                 f'[{" ".join(map(str, m.faces.reshape(-1)))}] '
+                 f'"point P" [{pbrt_numbers(m.verts)}]')
+        if m.normals is not None:
+            shape += f' "normal N" [{pbrt_numbers(m.normals)}]'
+        if m.uvs is not None:
+            shape += f' "float uv" [{pbrt_numbers(m.uvs)}]'
+        out += [shape, "AttributeEnd"]
+    out.append("WorldEnd")
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
+    return b
+
+
+def same_leaves(a, b, path=""):
+    """Paths of the leaves where two host trees (dataclasses, tuples,
+    numpy arrays, scalars) differ; arrays by their bytes."""
+    if dataclasses.is_dataclass(a):
+        return [p for f in dataclasses.fields(a) for p in same_leaves(
+            getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")]
+    if isinstance(a, (tuple, list)):
+        return [p for i, (x, y) in enumerate(zip(a, b))
+                for p in same_leaves(x, y, f"{path}[{i}]")]
+    if isinstance(a, np.ndarray):
+        return [] if (a.dtype == b.dtype and a.shape == b.shape
+                      and a.tobytes() == b.tobytes()) else [path]
+    return [] if a == b else [path]
+
+
+def path_launches(waves):
+    """The v6 launches of `waves` path waves at depth MAX_DEPTH."""
+    return {"traverse6:closest": waves, "traverse6:mixed": MAX_DEPTH * waves,
+            "traverse6:any": waves}
+
+
+def counted_launches():
+    return {k: v for k, v in tc.LAUNCHES.items() if v}
+
+
+def pbrt_path_phase(dev, static_img):
+    """The scene front door on the card, through the v6 kernel.
+    (a) ``python -m dartray_tpu_torch scenes/cornell.pbrt`` (``__main__.main``)
+    on the card: 7 v6 launches a wave and no other kernel, a PNG that
+    decodes to the image of the same command's .pfm output, which matches
+    ``render_pbrt`` on the CPU (``compare_images``). (b) The bench scene
+    written as a .pbrt file and read back at full width: ``scene.parser``
+    gives the SceneBuilder's packed BVH and triangle soup bit for bit, and
+    ``manager.run`` renders it in 64 waves of 7 v6 launches, with the
+    traversal queries it counts equal to the launches times their lanes, to
+    ``main_path``'s image (``compare_images``) and within 1 % of the
+    reference's mean. (c) The ``aggregatetest`` renderer on the Cornell
+    text: random rays through the BVH on the card against the exhaustive
+    intersector, 0 mismatches."""
+    os.makedirs(PBRT_DIR, exist_ok=True)
+    out = {}
+    # (a) the command line on the Cornell file
+    png, pfm = (os.path.join(PBRT_DIR, "cornell" + e) for e in (".png",
+                                                              ".pfm"))
+    tc.reset_overflow(dev)
+    tc.reset_launches()
+    t0 = time.time()
+    require(cli.main([CORNELL_PBRT, "-q", "-o", png]) == 0, "cli: exit code")
+    cli_s = time.time() - t0
+    launches = counted_launches()
+    waves = 8                      # the file's pixelsamples
+    require(launches == path_launches(waves),
+            f"pbrt cli: kernel launches {launches}")
+    with open(png, "rb") as f:
+        png_img = io_img.load(f.read(), png)
+    require(png_img.shape == (48, 48, 3) and np.isfinite(png_img).all(),
+            "pbrt cli: the PNG does not decode to a 48x48 image")
+    require(cli.main([CORNELL_PBRT, "-q", "-o", pfm]) == 0, "cli: exit code")
+    with open(pfm, "rb") as f:
+        card = io_img.load(f.read(), pfm)
+    again = os.path.join(PBRT_DIR, "cornell_again.png")
+    io_img.save(again, card)
+    with open(png, "rb") as f, open(again, "rb") as g:
+        require(f.read() == g.read(), "pbrt cli: the PNG is not the tonemap "
+                "of the same command's .pfm image")
+    t0 = time.time()
+    cpu = manager.render_pbrt(CORNELL_PBRT, log=QUIET, device="cpu")
+    cpu_s = time.time() - t0
+    close, rel_mean = compare_images("pbrt cli, card vs CPU",
+                                     np.clip(cpu, 0.0, 1.0), card)
+    out["cli"] = {"launches": launches, "seconds": cli_s,
+                  "cpu_render_pbrt_seconds": cpu_s, "pixels_close": close,
+                  "rel_mean": rel_mean, "img_mean": float(card.mean())}
+    # (b) the bench scene through the front door at full width
+    path = os.path.join(PBRT_DIR, "bench.pbrt")
+    t0 = time.time()
+    b = bench_scene_pbrt(path)
+    write_s = time.time() - t0
+    t0 = time.time()
+    direct = b.build()
+    build_s = time.time() - t0
+    t0 = time.time()
+    with open(path) as f:
+        job = parser.parse(f.read(), log=QUIET, device=dev)
+    parse_s = time.time() - t0
+    g, want = job.scene.geometry, direct.geometry
+    differ = same_leaves((g.packed, g.v0, g.e1, g.e2),
+                         (want.packed, want.v0, want.e1, want.e2))
+    require(not differ, f"pbrt bench: the parsed scene's BVH or soup "
+            f"differs from the SceneBuilder's at {differ[:5]}")
+    stats = stats_mod.RenderStats()
+    tc.reset_overflow(dev)
+    tc.reset_launches()
+    t0 = time.time()
+    img = manager.run(job, log=QUIET, stats=stats, device=dev)
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    launches = counted_launches()
+    require(launches == path_launches(SPP),
+            f"pbrt bench: kernel launches {launches}")
+    require(int(tc.overflow_flag(dev).item()) == 0,
+            "pbrt bench: stack overflow in the kernel")
+    lanes = WIDTH * HEIGHT
+    queries = stats.counters["rays/traversal_queries"]
+    launched = lanes * (launches["traverse6:closest"]
+                        + 2 * launches["traverse6:mixed"]
+                        + launches["traverse6:any"])
+    require(queries == launched, f"pbrt bench: {queries} traversal queries "
+            f"counted, {launched} lanes launched")
+    close, rel_mean = compare_images("pbrt bench vs main path", static_img,
+                                     img)
+    img_mean = float(img.mean())
+    require(abs(img_mean - REFERENCE_IMG_MEAN) <= 0.01 * REFERENCE_IMG_MEAN,
+            f"pbrt bench: image mean {img_mean} is not within 1 % of "
+            f"{REFERENCE_IMG_MEAN}")
+    rays = lanes * 2 * (MAX_DEPTH + 1) * SPP
+    out["bench"] = {
+        "file_bytes": os.path.getsize(path), "write_s": write_s,
+        "parse_s": parse_s, "build_s": build_s, "render_s": render_s,
+        "stats_timings": stats.timings, "rays_per_s": rays / render_s,
+        "rays/traversal_queries": queries, "launches": launches,
+        "img_mean": img_mean, "pixels_close_to_main_path": close,
+        "rel_mean_to_main_path": rel_mean,
+        "bit_identical_to_main_path": bool(np.array_equal(img, static_img)),
+        "tris": g.n_prims}
+    # (c) the aggregatetest renderer on the Cornell text
+    with open(CORNELL_PBRT) as f:
+        text = 'Renderer "aggregatetest"\n' + f.read()
+    lines = []
+    tc.reset_launches()
+    t0 = time.time()
+    manager.render_pbrt(text, log=lines.append, device=dev)
+    agg_s = time.time() - t0
+    m = re.search(r"(\d+) rays, (\d+) hit mismatches, max\|dt\|=(\S+), "
+                  r"(\d+) with inconsistent bounds", " ".join(lines))
+    require(m is not None and int(m.group(2)) == 0,
+            f"pbrt aggregatetest: {lines}")
+    out["aggregatetest"] = {"rays": int(m.group(1)),
+                            "mismatches": int(m.group(2)),
+                            "max_dt": float(m.group(3)),
+                            "inconsistent_bounds": int(m.group(4)),
+                            "launches": counted_launches(),
+                            "seconds": agg_s}
+    say("pbrt_path", **out)
+
+
 SMALL_GRAD_PATHS = ["materials.kd", "lights.intensity"]
 GRAD_CPU_REL = 2e-3        # card vs CPU gradient: share of the largest |g|
 GRAD_SPPS = (2, 8)         # the full-width gradient's two sample counts
@@ -1095,6 +1316,8 @@ def main():
     direct_first = direct_path_phase(scene, dev, static_img)
     launches_attic = attic_path_phase(scene, dev, direct_first)
     ao_whitted_phase(scene, dev)
+    # the scene front door (its launches are printed on pbrt_path's line)
+    pbrt_path_phase(dev, static_img)
     # the differentiable render: its launches are printed on grad_path's
     # line, not counted into the kernels line (main_path's are)
     grad_small_phase(dev)

@@ -7,7 +7,7 @@ in one shot, including depth-of-field lens sampling and ray differentials
 (the +1 pixel x/y rays, pre-scaled by 1/sqrt(spp)).
 
 Ported: the perspective camera. Orthographic and environment cameras and
-animated camera transforms raise ``NotImplementedError`` (ROADMAP Queue 1).
+animated camera transforms raise ``NotImplementedError`` (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -68,7 +68,7 @@ def perspective(cam2world: tr.Transform, fov_deg: float, width: int,
     shutter [0,1])."""
     if animated is not None:
         raise NotImplementedError(
-            "animated camera transforms are not ported (ROADMAP Queue 1)")
+            "animated camera transforms are not ported (ROADMAP Queue 1 item 7)")
     dev = device_mod.resolve(device)
     if screen_window is None:
         screen_window = default_screen_window(width, height)
@@ -104,7 +104,7 @@ def generate_rays(cam: Camera, samples: CameraSamples, width: int,
     """CameraSamples -> (Rays, RayDiffs, weight), component-SoA end to end."""
     if cam.kind != PERSPECTIVE:
         raise NotImplementedError(
-            "only the perspective camera is ported (ROADMAP Queue 1)")
+            "only the perspective camera is ported (ROADMAP Queue 1 item 7)")
     img = vm.from_arr2(samples.image_xy)
     r = img.x.shape[0]
     dev = img.x.device

@@ -2,9 +2,10 @@
 JAX reference's ``core/spectrum.py``).
 
 All radiometric quantities are RGB, stored component-SoA over the wavefront
-(``V3``) and converted to XYZ only at film accumulation. The reference's
-``sampled`` spectrum mode and its SPD tables are not ported (``set_mode``
-raises for it).
+(``V3``) and converted to XYZ only at film accumulation. Sampled SPD data
+(``spectrum`` and ``blackbody`` scene parameters) converts to RGB at scene
+compile time (``spd_to_rgb``, numpy). The reference's ``sampled`` spectrum
+mode is not ported (``set_mode`` raises for it).
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ RGB_TO_XYZ = np.array([
 def set_mode(mode: str):
     if mode != "rgb":
         raise NotImplementedError(
-            f"spectrum mode {mode!r}: only 'rgb' is ported (ROADMAP Queue 1)")
+            f"spectrum mode {mode!r}: only 'rgb' is ported (ROADMAP Queue 1 "
+            "item 7)")
 
 
 def _mat3(m, c):
@@ -66,3 +68,51 @@ def any_nonzero(c):
 
 def all_finite(c):
     return torch.isfinite(c.x) & torch.isfinite(c.y) & torch.isfinite(c.z)
+
+
+def blackbody(wavelengths_nm, temperature):
+    """Planck's law emission at the given wavelengths (host, numpy)."""
+    w = np.asarray(wavelengths_nm, np.float64) * 1e-9
+    h = 6.62606957e-34
+    c = 299792458.0
+    kb = 1.3806488e-23
+    return (2.0 * h * c * c) / (w ** 5 * (np.expm1(h * c / (w * kb * temperature))))
+
+
+# SPDs are resampled every 5 nm over 380-780 nm and integrated against an
+# analytic multi-lobe gaussian fit of the CIE 1931 observer (Wyman et al.
+# 2013)
+_CIE_LAMBDA = np.arange(380.0, 781.0, 5.0)
+
+
+def _g(x, mu, s1, s2):
+    t = (x - mu) * np.where(x < mu, 1.0 / s1, 1.0 / s2)
+    return np.exp(-0.5 * t * t)
+
+
+def cie_xyz_fit(lam):
+    lam = np.asarray(lam, np.float64)
+    x = (1.056 * _g(lam, 599.8, 37.9, 31.0)
+         + 0.362 * _g(lam, 442.0, 16.0, 26.7)
+         - 0.065 * _g(lam, 501.1, 20.4, 26.2))
+    y = (0.821 * _g(lam, 568.8, 46.9, 40.5)
+         + 0.286 * _g(lam, 530.9, 16.3, 31.1))
+    z = (1.217 * _g(lam, 437.0, 11.8, 36.0)
+         + 0.681 * _g(lam, 459.0, 26.0, 13.8))
+    return np.stack([x, y, z], axis=-1)
+
+
+def spd_to_rgb(lambdas, values):
+    """Piecewise-linear SPD -> (3,) float32 RGB: resampled on the 5 nm grid,
+    integrated against the observer and normalised by its Y integral (the
+    same normalisation for reflectances and illuminants)."""
+    lambdas = np.asarray(lambdas, np.float64)
+    values = np.asarray(values, np.float64)
+    order = np.argsort(lambdas)
+    lambdas, values = lambdas[order], values[order]
+    v = np.interp(_CIE_LAMBDA, lambdas, values)
+    cmf = cie_xyz_fit(_CIE_LAMBDA)
+    xyz = (v[:, None] * cmf).sum(axis=0) * 5.0
+    xyz /= (cmf[:, 1].sum() * 5.0)
+    rgb = XYZ_TO_RGB.astype(np.float64) @ xyz
+    return rgb.astype(np.float32)

@@ -4,7 +4,8 @@
 A Transform is a pair of (4, 4) float32 numpy arrays (m, m_inv). Scene
 compilation composes them on the host; wavefront code receives the final
 matrices and applies them component-wise (``core.math.xform_point3``).
-Rotations, quaternions and animated transforms are not ported yet.
+Quaternions and animated transforms are not ported yet (an animated camera
+raises, ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -24,6 +25,18 @@ class Transform(NamedTuple):
     def __mul__(self, other: "Transform"):
         """Composition t1 * t2 applies t2 first."""
         return Transform(self.m @ other.m, other.m_inv @ self.m_inv)
+
+    def xform_point(self, p):
+        """(..., 3) float32 points, homogeneous divide included."""
+        r = p @ self.m[:3, :3].T + self.m[:3, 3]
+        w = p @ self.m[3, :3] + self.m[3, 3]
+        w = np.where(np.abs(w) < 1e-30, np.float32(1.0), w)
+        return r / np.asarray(w, r.dtype)[..., None]
+
+
+def identity() -> Transform:
+    return Transform(np.eye(4, dtype=np.float32),
+                     np.eye(4, dtype=np.float32))
 
 
 def from_matrix(m) -> Transform:
@@ -45,6 +58,28 @@ def scale(x, y, z) -> Transform:
     m = np.diag(np.concatenate([s, np.ones(1, np.float32)]))
     mi = np.diag(np.concatenate([1.0 / s, np.ones(1, np.float32)]))
     return Transform(m, mi)
+
+
+def rotate(deg, axis) -> Transform:
+    """Rotation by `deg` degrees about an arbitrary axis: built in float64,
+    then rounded to float32 (the inverse is the transpose)."""
+    a = np.asarray(axis, np.float64)
+    a = a / np.linalg.norm(a)
+    s = _pymath.sin(_pymath.radians(float(deg)))
+    c = _pymath.cos(_pymath.radians(float(deg)))
+    x, y, z = a
+    m = np.eye(4)
+    m[0, 0] = x * x + (1 - x * x) * c
+    m[0, 1] = x * y * (1 - c) - z * s
+    m[0, 2] = x * z * (1 - c) + y * s
+    m[1, 0] = x * y * (1 - c) + z * s
+    m[1, 1] = y * y + (1 - y * y) * c
+    m[1, 2] = y * z * (1 - c) - x * s
+    m[2, 0] = x * z * (1 - c) - y * s
+    m[2, 1] = y * z * (1 - c) + x * s
+    m[2, 2] = z * z + (1 - z * z) * c
+    mj = np.asarray(m, np.float32)
+    return Transform(mj, mj.T.copy())
 
 
 def look_at(eye, look, up) -> Transform:

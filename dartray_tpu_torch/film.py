@@ -39,7 +39,7 @@ def filter_table(name: str, params=None):
     """Precompute the 16x16 filter table: (table numpy f32, xwidth, ywidth)."""
     if name not in FILTER_DEFAULTS:
         raise NotImplementedError(
-            f"filter {name!r}: only 'box' is ported (ROADMAP Queue 1)")
+            f"filter {name!r}: only 'box' is ported (ROADMAP Queue 1 item 7)")
     p = dict(FILTER_DEFAULTS[name])
     if params:
         p.update(params)
@@ -68,7 +68,7 @@ def make_film(width, height, filter_name="box", filter_params=None,
     if xw > 0.5 or yw > 0.5:
         raise NotImplementedError(
             "filter footprints wider than one pixel are not ported "
-            "(ROADMAP Queue 1)")
+            "(ROADMAP Queue 1 item 7)")
     return Film(pixels=torch.zeros((height, width, 4), dtype=torch.float32,
                                    device=dev),
                 ftable=torch.from_numpy(table).to(dev), width=width,

@@ -36,8 +36,8 @@ def shadow_ray(p, ng, n_side, wi, dist, eps, time=None):
 def require_no_env_light(lt):
     if lt.env_light_index >= 0:
         raise NotImplementedError(
-            "infinite (environment) lights are not ported (ROADMAP Queue 1, "
-            "remaining lights)")
+            "infinite (environment) lights are not ported (ROADMAP Queue 1 "
+            "item 5, remaining lights)")
 
 
 def estimate_direct(scene, it, frame, params, wo, light_idx,

@@ -56,7 +56,7 @@ def li(ig: PathIntegrator, scene: st.CompiledScene, rays, diffs, sctx,
     the V3 radiance of every camera ray."""
     if skip_direct:
         raise NotImplementedError(
-            "skip_direct serves the Metropolis renderer (ROADMAP Queue 1)")
+            "skip_direct serves the Metropolis renderer (ROADMAP Queue 1 item 8)")
     geom = scene.geometry
     lt = scene.lights
     r = rays.n

@@ -13,7 +13,7 @@ distant (``area_light``, ``point_light``, ``spot_light``, ``distant_light``,
 their branches of ``sample_li``, ``pdf_li_area``, ``le_emitted``,
 ``sample_light_index``). Projection, goniometric and infinite (environment)
 lights need image maps and raise ``NotImplementedError`` in ``build_table``
-(ROADMAP Queue 1, remaining lights); ``env_light_index`` stays -1.
+(ROADMAP Queue 1 item 5, remaining lights); ``env_light_index`` stays -1.
 """
 from __future__ import annotations
 
@@ -107,7 +107,7 @@ def build_table(specs, scene_radius=10.0, attr=None) -> LightTable:
         if s.kind not in _PORTED:
             raise NotImplementedError(
                 f"light kind {s.kind}: infinite, projection and goniometric "
-                "lights are not ported (ROADMAP Queue 1, remaining lights)")
+                "lights are not ported (ROADMAP Queue 1 item 5, remaining lights)")
     l = max(len(specs), 1)
     kind = np.zeros(l, np.int32)
     p = np.zeros((l, 3), np.float32)

@@ -5,7 +5,7 @@ Each material is one row of the lobe-slot layout of ``bsdf.py`` and a
 wavefront's parameters are one row gather. Ported: ``matte``, ``mirror`` and
 ``glass`` (the diffuse and the two specular slots). A row that needs any
 other lobe (plastic, metal, shinymetal, substrate, translucent, uber, mix,
-measured) raises ``NotImplementedError`` in ``build_table`` (ROADMAP Queue 1,
+measured) raises ``NotImplementedError`` in ``build_table`` (ROADMAP Queue 1 item 4,
 remaining BSDF lobes). Bump maps need image/procedural textures and wait for
 them.
 """
@@ -93,7 +93,7 @@ def _not_ported(name):
     def builder(*a, **k):
         raise NotImplementedError(
             f"material {name!r} needs BSDF lobes that are not ported yet "
-            "(ROADMAP Queue 1, remaining BSDF lobes)")
+            "(ROADMAP Queue 1 item 4, remaining BSDF lobes)")
     builder.__name__ = name
     return builder
 
@@ -117,20 +117,20 @@ def check_supported(table: MaterialTable):
     if bad:
         raise NotImplementedError(
             f"material columns {bad} need the glossy / diffuse-transmission "
-            "lobes (ROADMAP Queue 1, remaining BSDF lobes)")
+            "lobes (ROADMAP Queue 1 item 4, remaining BSDF lobes)")
     if np.any(np.asarray(table.spec_fresnel) >= FR_CONDUCTOR):
         raise NotImplementedError(
             "conductor Fresnel on the specular slot is not ported "
-            "(ROADMAP Queue 1, remaining BSDF lobes)")
+            "(ROADMAP Queue 1 item 4, remaining BSDF lobes)")
     if table.has_measured:
         raise NotImplementedError(
-            "measured BRDFs are not ported (ROADMAP Queue 1, remaining "
-            "BSDF lobes)")
+            "measured BRDFs are not ported (ROADMAP Queue 1 item 4, "
+            "remaining BSDF lobes)")
     extra = set(table.used_tex_slots) - set(_PORTED_TEX_SLOTS)
     if extra:
         raise NotImplementedError(
             f"texture slots {sorted(extra)} (ks / roughness / opacity / "
-            "bump) are not ported (ROADMAP Queue 1, textures)")
+            "bump) are not ported (ROADMAP Queue 1 item 6, textures)")
 
 
 def build_table(rows: List[dict]) -> MaterialTable:
@@ -196,5 +196,5 @@ def bump_shading_normal(table: MaterialTable, mat_id, textures, it):
     as it is."""
     if TEX_BUMP in table.used_tex_slots:
         raise NotImplementedError(
-            "bump maps are not ported (ROADMAP Queue 1, textures)")
+            "bump maps are not ported (ROADMAP Queue 1 item 6, textures)")
     return it["ns"]

@@ -1,0 +1,327 @@
+"""RenderManager: RenderJob -> image, the user-facing render orchestration
+(counterpart of the JAX reference's ``renderers/manager.py``).
+
+``render_pbrt`` parses a scene file or text, applies the render overrides and
+runs the job on `device` (default the card; asking for a card that is not
+there raises). ``run`` dispatches on the job's renderer: ``sampler`` (the
+wavefront render of ``renderers/sampler.py``) or ``aggregatetest`` (random
+rays through the BVH against the exhaustive intersector). The surface
+integrators are ``path``, ``directlighting``, ``whitted`` and
+``ambientocclusion``; an unknown name warns and renders with ``path``, as in
+the reference. The volume integrator is read but never runs: a volume
+raises at parse time (ROADMAP Queue 1 item 8), so a job's radiance is its
+surface integrator's. The other renderers and integrators the reference
+has raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .. import cameras as cam_mod
+from .. import device as device_mod
+from .. import log as log_mod
+from .. import samplers as smp_mod
+from .. import stats as stats_mod
+from ..accel import traverse as tv
+from ..core import math as vm
+from ..core import spectrum as spec_mod
+from ..integrators import ao as ao_mod
+from ..integrators import direct as di_mod
+from ..integrators import path as pi_mod
+from ..integrators import whitted as wh_mod
+from ..scene import paramset as ps_mod
+from ..scene import parser as parser_mod
+from ..scene import resources
+from ..scene import types as st
+from ..scene.api import RenderJob, not_ported
+from . import sampler as rend
+
+# what the reference runs and the port does not yet (ROADMAP Queue 1 item 8)
+_NOT_PORTED_INTEGRATORS = ("igi", "photonmap", "exphotonmap",
+                           "irradiancecache", "dipolesubsurface",
+                           "diffuseprt", "glossyprt", "useprobes")
+_NOT_PORTED_RENDERERS = ("metropolis", "createprobes", "surfacepoints")
+
+
+def build_surface_li(job: RenderJob, log=print) -> Callable:
+    """The surface integrator of `job` as ``li(scene, rays, diffs, sctx)``;
+    unknown names warn and fall back to path."""
+    name = job.surf_integrator
+    p = job.surf_params
+    if name == "ambientocclusion":
+        ig = ao_mod.AOIntegrator(
+            n_samples=p.find_one_int("nsamples", 2048),
+            min_dist=p.find_one_float("mindist", 1e-4),
+            max_dist=p.find_one_float("maxdist", float("inf")))
+        return lambda s, r, d, c: ao_mod.li(ig, s, r, d, c)
+    if name == "directlighting":
+        strat = p.find_one_string("strategy", "all")
+        ig = di_mod.DirectLightingIntegrator(
+            strategy=di_mod.STRATEGY_ONE if strat == "one"
+            else di_mod.STRATEGY_ALL,
+            max_depth=p.find_one_int("maxdepth", 5))
+        return lambda s, r, d, c: di_mod.li(ig, s, r, d, c)
+    if name == "whitted":
+        ig = wh_mod.WhittedIntegrator(max_depth=p.find_one_int("maxdepth", 5))
+        return lambda s, r, d, c: wh_mod.li(ig, s, r, d, c)
+    if name in _NOT_PORTED_INTEGRATORS:
+        raise not_ported(f"surface integrator {name!r}",
+                          "item 8, the other integrators")
+    if name != "path":
+        log(f"warning: unknown surface integrator {name!r}; using path")
+    ig = pi_mod.PathIntegrator(max_depth=p.find_one_int("maxdepth", 5))
+    return lambda s, r, d, c: pi_mod.li(ig, s, r, d, c)
+
+
+def run(job: RenderJob, progress: Optional[Callable] = None, log=print,
+        stats: Optional[stats_mod.RenderStats] = None,
+        device=device_mod.DEFAULT) -> np.ndarray:
+    """Render `job` on `device`; returns (H, W, 3) linear RGB as numpy.
+
+    The ``sampler`` renderer fills `stats` (a fresh one when None) with its
+    waves, camera rays, seconds, the traversal queries it issued (counted
+    where they are issued, ``scene.types.QUERIES``: exact with no trace) and
+    the scene's size, and logs the summary. A wave that fails after the
+    first returns the film of the waves before it."""
+    dev = device_mod.resolve(device)
+    rp = job.renderer_params
+    rname = job.renderer
+    if rname in _NOT_PORTED_RENDERERS:
+        raise not_ported(f"renderer {rname!r}", "item 8")
+    scene = st.to_device(job.scene, dev)
+    if rname == "aggregatetest":
+        _aggregate_test(scene, n_iters=rp.find_one_int("niters", 100_000),
+                        log=log)
+        return np.zeros((job.height, job.width, 3), np.float32)
+    if rname != "sampler":
+        log(f"warning: unknown renderer {rname!r}; using sampler")
+    st_ = stats if stats is not None else stats_mod.RenderStats()
+    li = build_surface_li(job, log=log)
+    queries = st.QUERIES["rays"]
+    img = rend.render(scene, job.camera, job.sampler, li, job.width,
+                      job.height, progress=progress,
+                      filter_name=job.filter_name,
+                      filter_params=job.filter_params, stats=st_,
+                      on_error="partial", log=log,
+                      sampling_mode=job.sampling_mode, device=dev)
+    st_.add("rays/traversal_queries", st.QUERIES["rays"] - queries)
+    st_.add("scene/triangles", scene.geometry.n_prims)
+    st_.add("scene/bvh_nodes", scene.geometry.n_nodes)
+    log(st_.summary())
+    return img
+
+
+def _aggregate_test(scene, n_iters=100_000, log=print):
+    """Random rays through the scene's BVH against the exhaustive
+    intersector: the hit masks must be equal. Returns (rays, mismatches,
+    rays with inconsistent bounds, max |dt| where both hit); raises
+    AssertionError on a mismatch."""
+    geom = scene.geometry
+    dev = geom.v0.x.device
+    wb = geom.world_bound.cpu().numpy()
+    rng = np.random.default_rng(0)
+    n = min(n_iters, 65536)
+    o = rng.uniform(wb[0] - 0.5, wb[1] + 0.5, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-12)
+    rays = vm.make_rays(torch.from_numpy(o).to(dev),
+                        torch.from_numpy(d).to(dev))
+    mism, inconsistent, max_dt = aggregate_compare(geom, rays)
+    log(f"aggregatetest: {n} rays, {mism} hit mismatches, "
+        f"max|dt|={max_dt:.2e}, {inconsistent} with inconsistent bounds")
+    if mism > 0:
+        raise AssertionError(f"aggregatetest failed: {mism} mismatches")
+    return n, mism, inconsistent, max_dt
+
+
+def aggregate_compare(geom, rays):
+    """(hit mismatches, rays with inconsistent bounds, max |dt| where both
+    hit) of ``scene.types.intersect`` against the exhaustive intersector.
+
+    As pbrt's aggregate test does, a ray whose exhaustive hit lies on a
+    triangle whose own bounding box the ray misses has inconsistent bounds
+    and is not held against the BVH: the intersector's inclusive
+    barycentric tolerance (1e-6) accepts points just past a triangle's
+    edge, outside every box the walk tests. The reference's row-packet walk
+    finds such a hit only when another lane of its row opens the box; a
+    ray alone, its walk misses it as the port's does."""
+    h_acc = st.intersect(geom, rays)
+    # chunks of triangles small enough that a (rays x chunk) step stays
+    # near 2^24 lanes
+    h_ref = tv.brute_force_intersect(geom.v0, geom.e1, geom.e2, rays,
+                                     chunk=max(1, (1 << 24) // rays.n))
+    j = h_ref.prim.clamp_min(0).long()
+    v0, e1, e2 = (vm.to_arr(a)[j] for a in (geom.v0, geom.e1, geom.e2))
+    corners = torch.stack([v0, v0 + e1, v0 + e2])
+    o, d = vm.to_arr(rays.o), vm.to_arr(rays.d)
+    inv = 1.0 / torch.where(d.abs() < 1e-30, torch.where(
+        d < 0, -1e-30, 1e-30), d)
+    t0 = (corners.amin(0) - o) * inv
+    t1 = (corners.amax(0) - o) * inv
+    tn = torch.maximum(torch.minimum(t0, t1).amax(1), rays.tmin)
+    tf = torch.minimum(torch.maximum(t0, t1).amin(1), rays.tmax)
+    inconsistent = h_ref.hit & ~(tn <= tf)
+    mism = int(((h_acc.hit != h_ref.hit) & ~inconsistent).sum())
+    both = h_acc.hit & h_ref.hit
+    terr = (h_acc.t - h_ref.t).abs()[both]
+    return (mism, int(inconsistent.sum()),
+            float(terr.max()) if terr.numel() else 0.0)
+
+
+def render_pbrt(text_or_path: str, search_paths=None,
+                progress: Optional[Callable] = None,
+                overrides: Optional[dict] = None,
+                log: Optional[Callable] = None,
+                stats: Optional[stats_mod.RenderStats] = None,
+                device=device_mod.DEFAULT) -> np.ndarray:
+    """Parse and render a PBRT scene (a file, or the scene's text) on
+    `device`; returns (H, W, 3) linear RGB as numpy.
+
+    overrides: keys of ``apply_overrides``, and "spectrum" (only "rgb" is
+    ported), applied before parsing. log: message callback; defaults to
+    the leveled logger (``log.default``: "warning:" lines at WARNING, SEVERE
+    raises)."""
+    dev = device_mod.resolve(device)
+    if log is None:
+        log = log_mod.default.as_callback()
+    if overrides and "spectrum" in overrides:
+        spec_mod.set_mode(overrides["spectrum"])
+    if os.path.exists(text_or_path):
+        resolver = resources.Resolver(
+            [os.path.dirname(os.path.abspath(text_or_path))]
+            + list(search_paths or []))
+        text = resolver(os.path.basename(text_or_path))
+    else:
+        resolver = resources.Resolver(list(search_paths or ["."]))
+        text = text_or_path
+    job = parser_mod.parse(text, resolver=resolver, log=log, device=dev)
+    if overrides:
+        job = apply_overrides(job, overrides, log=log)
+    return run(job, progress=progress, log=log, stats=stats, device=dev)
+
+
+_SAMPLING_MODES = {0: "full", 1: "twopass", 2: "iterative",
+                   "full": "full", "twopass": "twopass",
+                   "iterative": "iterative"}
+
+
+def apply_overrides(job: RenderJob, ov: dict, log=print) -> RenderJob:
+    """The render overrides: quick_render, resolution_scale / resolution,
+    samplingMode, and name + params overrides of the sampler, filter,
+    renderer, surfaceIntegrator, volumeIntegrator, accelerator and camera.
+    Film and pixelSampler overrides are accepted and logged as no-ops. The
+    camera keeps the width and height it was parsed with: a resolution
+    override renders the top-left part of the parsed view, as in the
+    reference."""
+    if ov.get("quick_render") or ov.get("quickRender"):
+        ov = {"resolution_scale": 0.25, "spp": 1, **ov}
+    if "resolution_scale" in ov or "resolutionScale" in ov:
+        s = float(ov.get("resolution_scale", ov.get("resolutionScale")))
+        job = dataclasses.replace(job, width=max(int(job.width * s), 1),
+                                  height=max(int(job.height * s), 1))
+    if "resolution" in ov:
+        w, h = ov["resolution"]
+        job = dataclasses.replace(job, width=int(w), height=int(h))
+    if "samplingMode" in ov:
+        job = dataclasses.replace(
+            job, sampling_mode=_SAMPLING_MODES.get(ov["samplingMode"],
+                                                   "iterative"))
+
+    def name_params(key):
+        v = ov.get(key)
+        if v is None:
+            return None, None
+        if isinstance(v, str):
+            return v, ps_mod.ParamSet()
+        return v.get("name"), ps_mod.ParamSet.from_json(v.get("params"))
+
+    name, params = name_params("sampler")
+    if name or "spp" in ov:
+        spp = int(ov.get("spp",
+                         params.find_one_int("pixelsamples", 4)
+                         if params else 4))
+        job = dataclasses.replace(
+            job, sampler=smp_mod.make_sampler(name or "lowdiscrepancy",
+                                              spp=spp))
+    name, params = name_params("filter")
+    if name:
+        fp = {k: v[1][0] for k, v in params.items.items()} if params else {}
+        job = dataclasses.replace(job, filter_name=name,
+                                  filter_params=fp or None)
+    name, params = name_params("surfaceIntegrator")
+    if name:
+        job = dataclasses.replace(job, surf_integrator=name,
+                                  surf_params=params)
+    name, params = name_params("volumeIntegrator")
+    if name:
+        job = dataclasses.replace(job, vol_integrator=name,
+                                  vol_params=params)
+    name, params = name_params("renderer")
+    if name:
+        job = dataclasses.replace(job, renderer=name, renderer_params=params)
+    name, params = name_params("accelerator")
+    if name:
+        job = _override_accelerator(job, name, log)
+    name, params = name_params("camera")
+    if name:
+        job = _override_camera(job, name, params, log)
+    for key in ("film", "pixelSampler"):
+        if key in ov:
+            log(f"note: {key} override accepted but is a no-op by design "
+                f"(the film is the fixed XYZW accumulator; pixel samplers "
+                f"have no place in a wavefront render)")
+    return job
+
+
+def _override_camera(job: RenderJob, name: str, params, log=print) \
+        -> RenderJob:
+    """Rebuild the camera without re-parsing: the requested type over the
+    parsed camera's camera-to-world transform and shutter (params: fov /
+    lensradius / focaldistance)."""
+    old = job.camera
+    pf = (lambda k, d: params.find_one_float(k, d)) if params \
+        else (lambda k, d: d)
+    if name in ("orthographic", "environment"):
+        raise not_ported(f"the {name} camera", "item 7")
+    if name != "perspective":
+        log(f"warning: unknown camera override {name!r} ignored")
+        return job
+    cam = cam_mod.perspective(
+        old.cam2world, pf("fov", 60.0), job.width, job.height,
+        lens_radius=pf("lensradius", float(old.lens_radius)),
+        focal_distance=pf("focaldistance", float(old.focal_distance)),
+        shutter_open=float(old.shutter_open),
+        shutter_close=float(old.shutter_close), device=old.device)
+    return dataclasses.replace(job, camera=cam)
+
+
+def _override_accelerator(job: RenderJob, name: str, log=print) -> RenderJob:
+    """Accelerator override: "grid" and "kdtree" are not ported; any other
+    name is the cluster BVH, which every port scene already has. Moving
+    geometry ignores the override, as in the reference."""
+    if job.scene.geometry.has_motion:
+        log(f"note: accelerator override {name!r} ignored for moving "
+            f"geometry (grid/kdtree do not lerp vertices by ray time)")
+        return job
+    if name in ("grid", "kdtree"):
+        raise not_ported(f"accelerator {name!r}",
+                          "item 10, alternate accelerators")
+    log(f"accelerator override {name!r}: already active")
+    return job
+
+
+def overrides_to_json(ov: dict) -> str:
+    """Serialize an overrides dict (the render overrides' JSON form)."""
+    return json.dumps(ov, sort_keys=True)
+
+
+def overrides_from_json(text: str) -> dict:
+    """Parse the render overrides' JSON form: this module's dict form and
+    the {name, params} nesting."""
+    return json.loads(text)

@@ -3,12 +3,16 @@ reference's ``renderers/sampler.py``).
 
 One *wave* = every film pixel x one sample index, fully vectorized: generate
 camera samples and rays, evaluate the surface integrator's Li over the wave,
-scatter-add into the film. ``render`` iterates waves over the sample indices.
-Checkpoints, preview callbacks and adaptive sampling are not ported yet.
+scatter-add into the film. ``render`` iterates waves over the sample indices,
+with the reference's preview callback (``progress``, its cadence set by
+``sampling_mode``), statistics and partial result on a failed wave.
+Checkpoints and adaptive sampling are not ported yet (ROADMAP Queue 1
+item 7).
 """
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -80,20 +84,73 @@ def render_wave(scene, camera: cam_mod.Camera, sampler: smp_mod.Sampler,
 
 
 def render(scene, camera, sampler, li_fn, width, height,
-           filter_name="box", filter_params=None,
-           device=device_mod.DEFAULT):
+           progress: Optional[Callable] = None, filter_name="box",
+           filter_params=None, stats=None, checkpoint_path=None,
+           on_error: str = "raise", log=None,
+           sampling_mode: str = "iterative", device=device_mod.DEFAULT):
     """Full render: returns (H, W, 3) linear RGB as a numpy array. The scene
-    is moved to `device` once; every wave runs there."""
+    is moved to `device` once; every wave runs there.
+
+    stats: a ``stats.RenderStats`` to fill with the waves, camera rays and
+    the seconds of the first wave and of the rest.
+    progress(done, spp, film): the preview callback. sampling_mode sets its
+    cadence, as in the reference: "iterative" after every wave, "twopass"
+    after the first wave (when `stats` is given) and at the end, "full" at
+    the end only; pixel values do not depend on it.
+    on_error="partial": an exception in a wave after the first returns the
+    film of the waves before it (logged through `log`) instead of raising."""
+    if checkpoint_path is not None:
+        raise NotImplementedError(
+            "render checkpoints are not ported (ROADMAP Queue 1 item 7)")
     dev = device_mod.resolve(device)
     scene = st.to_device(scene, dev)
     film = film_mod.make_film(width, height, filter_name=filter_name,
                               filter_params=filter_params, device=dev)
     px, py = pixel_grid(width, height, device=dev)
     spp = sampler.spp
+
+    def wave(film, s):
+        s_idx = torch.full(px.shape, s, dtype=torch.int32, device=dev)
+        return render_wave(scene, camera, sampler, film, px, py, s_idx,
+                           li_fn=li_fn, width=width, height=height, spp=spp,
+                           device=dev)
+
+    def counted():
+        if stats is not None:
+            stats.add("waves", 1)
+            stats.add("rays/camera", px.shape[0])
+
+    start = 0
     with torch.no_grad():
-        for s in range(spp):
-            s_idx = torch.full(px.shape, s, dtype=torch.int32, device=dev)
-            film = render_wave(scene, camera, sampler, film, px, py, s_idx,
-                               li_fn=li_fn, width=width, height=height,
-                               spp=spp, device=dev)
-    return film_mod.to_rgb(film).cpu().numpy()
+        if stats is not None:
+            with stats.time("time/compile+first_wave"):
+                film = wave(film, 0)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            counted()
+            start = 1
+            if progress is not None and sampling_mode in ("iterative",
+                                                          "twopass"):
+                progress(1, spp, film)
+        timer = (stats.time("time/render") if stats is not None
+                 else contextlib.nullcontext())
+        with timer:
+            for s in range(start, spp):
+                try:
+                    film = wave(film, s)
+                    if progress is not None and (
+                            sampling_mode == "iterative"
+                            or (sampling_mode in ("twopass", "full")
+                                and s + 1 == spp)):
+                        progress(s + 1, spp, film)
+                except Exception as e:  # noqa: BLE001
+                    if on_error != "partial":
+                        raise
+                    (log or print)(
+                        f"error: render failed at wave {s + 1}/{spp} "
+                        f"({type(e).__name__}: {e}); returning the partial "
+                        f"image accumulated so far")
+                    break
+                counted()
+            out = film_mod.to_rgb(film).cpu().numpy()
+    return out

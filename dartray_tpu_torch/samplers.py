@@ -8,7 +8,7 @@ draws the same numbers. Dimension convention: dims 0,1 = image offset;
 
 Ported: the ``lowdiscrepancy`` ((0,2)-sequence) sampler. ``stratified``,
 ``random``, ``halton``, ``bestcandidate`` and the primary-sample-space vector
-sampler raise ``NotImplementedError`` (ROADMAP Queue 1, samplers).
+sampler raise ``NotImplementedError`` (ROADMAP Queue 1 item 7, samplers).
 """
 from __future__ import annotations
 
@@ -49,7 +49,7 @@ def make_sampler(kind: str, spp: int = 4, seed: int = 0) -> Sampler:
         return Sampler(LOWDISCREPANCY, _round_pow2(spp), int(seed) & smp.M32)
     raise NotImplementedError(
         f"sampler {kind!r}: only 'lowdiscrepancy' is ported "
-        "(ROADMAP Queue 1, samplers)")
+        "(ROADMAP Queue 1 item 7, samplers)")
 
 
 def _pixel_key(sampler: Sampler, px, py, dim: int):

@@ -47,7 +47,7 @@ class SceneBuilder:
         ``scene.types.to_device`` (``render`` does)."""
         if self.volume is not None:
             raise NotImplementedError(
-                "participating media are not ported (ROADMAP Queue 1)")
+                "participating media are not ported (ROADMAP Queue 1 item 8)")
         tex_mod.check_supported(self.textures)
         if not self.mat_rows:
             self.mat_rows.append(mat_mod.matte())

@@ -93,10 +93,10 @@ def compile_geometry(meshes, mat_ids=None, light_ids=None,
     if accelerator != "bvh":
         raise NotImplementedError(
             f"accelerator {accelerator!r}: only the cluster BVH is ported "
-            "(ROADMAP Queue 1, alternate accelerators)")
+            "(ROADMAP Queue 1 item 10, alternate accelerators)")
     if any(getattr(m, "alpha_tid", -1) >= 0 for m in meshes):
         raise NotImplementedError(
-            "alpha cut-outs are not ported (ROADMAP Queue 1, textures)")
+            "alpha cut-outs are not ported (ROADMAP Queue 1 item 6, textures)")
     n_meshes = len(meshes)
     mat_ids = mat_ids if mat_ids is not None else [0] * n_meshes
     light_ids = light_ids if light_ids is not None else [-1] * n_meshes
@@ -275,10 +275,18 @@ def _bits_i32(col):
     return col.contiguous().view(torch.int32)
 
 
-def _check_opaque(geom):
+# traversal queries issued on either device: the rays handed to intersect,
+# intersect_p and intersect_pair (both halves). The render manager reads how
+# far it moves over a render; on the card it equals the traversal launches
+# times their lanes, since a launch takes its whole wave
+QUERIES = {"rays": 0}
+
+
+def _query(geom, *rays):
     if geom.has_alpha:
         raise NotImplementedError(
-            "alpha cut-outs are not ported (ROADMAP Queue 1, textures)")
+            "alpha cut-outs are not ported (ROADMAP Queue 1 item 6, textures)")
+    QUERIES["rays"] += sum(r.n for r in rays)
 
 
 def _shutter_time01(geom: Geometry, rays):
@@ -295,7 +303,7 @@ def intersect(geom: Geometry, rays, sort: bool = True) -> Hits:
     """Closest hit over the scene BVH. No gradient passes the traversal:
     visibility decisions carry no derivative, shading is evaluated at the
     returned hit points."""
-    _check_opaque(geom)
+    _query(geom, rays)
     t, prim, b1, b2, rows = tc.intersect_rays(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
         rays.o, rays.d, rays.tmin, rays.tmax, any_hit=False, sort=sort,
@@ -310,7 +318,7 @@ def intersect_pair(geom: Geometry, ext_rays, shadow_rays):
     bounce hit points, so they share the coherence sort and the launch.
 
     Returns (Hits for ext_rays, occluded bool for shadow_rays)."""
-    _check_opaque(geom)
+    _query(geom, ext_rays, shadow_rays)
     t, prim, b1, b2, occ, rows = tc.intersect_rays_pair(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
         ext_rays.o, ext_rays.d, ext_rays.tmin, ext_rays.tmax,
@@ -323,7 +331,7 @@ def intersect_pair(geom: Geometry, ext_rays, shadow_rays):
 @torch.no_grad()
 def intersect_p(geom: Geometry, rays, sort: bool = True):
     """Any-hit occlusion: (R,) bool."""
-    _check_opaque(geom)
+    _query(geom, rays)
     _, prim, _, _ = tc.intersect_rays(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
         rays.o, rays.d, rays.tmin, rays.tmax, any_hit=True, sort=sort,

@@ -1,15 +1,16 @@
 """Texture table (counterpart of the JAX reference's ``textures.py``).
 
 Only the constant-value path of ``evaluate`` is ported: a table of constant
-colors, addressed by texture id. Image maps, procedural textures, texture
-graphs and 2D/3D mappings raise ``NotImplementedError`` at build time
-(ROADMAP Queue 1, textures).
+colors, addressed by texture id, assembled by ``TextureBuilder``. Image
+maps, procedural textures, texture graphs and 2D/3D mappings raise
+``NotImplementedError`` at build time (ROADMAP Queue 1 item 6, textures).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from .core import math as vm
@@ -25,11 +26,30 @@ class TextureData:
     kinds_present: tuple = (CONST,)
 
 
+class TextureBuilder:
+    """The texture table, one row per ``add`` (the scene API adds one per
+    ``Texture`` statement); rows are constant colors."""
+
+    def __init__(self):
+        self.values = []
+
+    def add(self, value) -> int:
+        self.values.append(np.asarray(value, np.float32))
+        return len(self.values) - 1
+
+    def build(self) -> TextureData:
+        if not self.values:
+            self.add((1.0, 1.0, 1.0))
+        return TextureData(kind=np.zeros(len(self.values), np.int32),
+                           value=np.stack(self.values).astype(np.float32),
+                           n=len(self.values), kinds_present=(CONST,))
+
+
 def check_supported(tex: Optional[TextureData]):
     if tex is not None and set(tex.kinds_present) - {CONST}:
         raise NotImplementedError(
             "only constant textures are ported; image and procedural "
-            "textures are queued (ROADMAP Queue 1, textures)")
+            "textures are queued (ROADMAP Queue 1 item 6, textures)")
 
 
 def evaluate(tex: TextureData, tid, it):
