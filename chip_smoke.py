@@ -78,6 +78,20 @@ and the script exits non-zero:
                and render seconds and rays/s; (c) the aggregatetest renderer
                on the Cornell text: 0 mismatches against the exhaustive
                intersector (rays with inconsistent bounds counted apart)
+  materials_path  the material system on the card: (a) render_pbrt of
+               scenes/materials.pbrt (every ported material kind, image map,
+               procedural, combinator, planar and spherical mappings, bump
+               map, measured BRDF) against tools/materials_golden.npz, the
+               JAX reference's render of it, by compare_images; 5 v6
+               launches a wave (depth 3) and no other kernel; (b) the bench
+               scene at full width with its displaced sphere split into 8
+               material bands and a checkerboard floor under a planar
+               mapping, written as .pbrt and run through manager.run: 64
+               waves of exactly 7 v6 launches and no other kernel, a finite
+               image, render seconds and rays/s beside main_path's; (c) a
+               32x32 window of (b) about the sphere's pole, where every band
+               is hit, its first 2 waves on the card against the CPU by
+               compare_images
   grad_small   the gradient of the Cornell render's mean w.r.t. materials.kd
                and lights.intensity (32x32, 4 spp, depth 3): card against
                CPU (plain traversal) within 2e-3 of the largest element,
@@ -92,7 +106,8 @@ and the script exits non-zero:
                measured on an H100) and no other, the 8-spp peak memory
                above the start at most 1.25 times the 2-spp one
 
-Then one line {"kernels": [...]} (per kernel and mode: launches counted on
+Then the script's wall time so far ({"phase": "wall", ...}), one line
+{"kernels": [...]} (per kernel and mode: launches counted on
 its path (the front door's and the gradient's launches are on pbrt_path's
 and grad_path's lines), error against
 the plain version, times, the least time the card could take, and the
@@ -130,7 +145,10 @@ from dartray_tpu_torch.renderers import manager
 from dartray_tpu_torch.renderers import sampler as rend
 from dartray_tpu_torch.scene import build as sb
 from dartray_tpu_torch.scene import parser
+from dartray_tpu_torch.scene import resources
 from dartray_tpu_torch.scene import types as st
+
+T_START = time.time()      # the script's wall time counts from here
 
 # the JAX reference's image mean for the bench scene at 512x512, depth 5,
 # 64 spp, and its gradient probe's norm: correctness values, not speeds
@@ -710,7 +728,7 @@ def main_path_phase(scene, dev):
             <= 0.01 * REFERENCE_IMG_MEAN,
             f"main path: image mean {info['img_mean']} is not within 1 % of "
             f"{REFERENCE_IMG_MEAN}")
-    return launches, img
+    return launches, img, info["rays_per_s"]
 
 
 def motion_path_phase(moving, dev, static_img):
@@ -952,6 +970,21 @@ def pbrt_material(row):
     return f'Material "matte" "rgb Kd" [{pbrt_numbers(row["kd"])}]'
 
 
+def trianglemesh(m, faces):
+    """A Shape statement of the triangles `faces` of mesh `m` with the
+    vertices they use (their normals and uvs too), renumbered in order,
+    every float as its repr."""
+    used, inv = np.unique(faces.reshape(-1), return_inverse=True)
+    shape = (f'Shape "trianglemesh" "integer indices" '
+             f'[{" ".join(map(str, inv))}] '
+             f'"point P" [{pbrt_numbers(m.verts[used])}]')
+    if m.normals is not None:
+        shape += f' "normal N" [{pbrt_numbers(m.normals[used])}]'
+    if m.uvs is not None:
+        shape += f' "float uv" [{pbrt_numbers(m.uvs[used])}]'
+    return shape
+
+
 def bench_scene_pbrt(path):
     """Write ``sb.bench_scene()`` as a .pbrt file: the camera of
     ``camera_wave``, 512x512, lowdiscrepancy 64 spp, path depth 5, and every
@@ -969,14 +1002,7 @@ def bench_scene_pbrt(path):
         if light is not None:
             out.append(f'AreaLightSource "diffuse" "rgb L" '
                        f'[{pbrt_numbers(light[0])}]')
-        shape = (f'Shape "trianglemesh" "integer indices" '
-                 f'[{" ".join(map(str, m.faces.reshape(-1)))}] '
-                 f'"point P" [{pbrt_numbers(m.verts)}]')
-        if m.normals is not None:
-            shape += f' "normal N" [{pbrt_numbers(m.normals)}]'
-        if m.uvs is not None:
-            shape += f' "float uv" [{pbrt_numbers(m.uvs)}]'
-        out += [shape, "AttributeEnd"]
+        out += [trianglemesh(m, m.faces), "AttributeEnd"]
     out.append("WorldEnd")
     with open(path, "w") as f:
         f.write("\n".join(out) + "\n")
@@ -1127,6 +1153,233 @@ def pbrt_path_phase(dev, static_img):
                             "launches": counted_launches(),
                             "seconds": agg_s}
     say("pbrt_path", **out)
+
+
+# the material system: its fixture scene and the reference's render of it
+SCENES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "scenes")
+MATERIALS_PBRT = os.path.join(SCENES_DIR, "materials.pbrt")
+MATERIALS_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tools", "materials_golden.npz")
+MATERIALS_WAVES = 4        # materials.pbrt: 4 spp, path depth 3
+MATERIALS_DEPTH = 3
+WINDOW = 32                # (c): a WINDOW x WINDOW window, WINDOW_WAVES waves
+WINDOW_WAVES = 2
+# the displaced sphere's 8 bands (longitude wedges meeting at its poles)
+BANDS = [
+    ['Material "plastic" "texture Kd" "picture" "rgb Ks" [0.3 0.3 0.3] '
+     '"float roughness" [0.05] "texture bumpmap" "bumps"'],
+    ['Material "metal" "float roughness" [0.03]'],
+    ['Material "shinymetal" "rgb Ks" [0.4 0.35 0.3] "rgb Kr" [0.5 0.5 0.5] '
+     '"float roughness" [0.08]'],
+    ['Material "substrate" "rgb Kd" [0.14 0.45 0.09] "rgb Ks" [0.2 0.2 0.2] '
+     '"float uroughness" [0.05] "float vroughness" [0.3]'],
+    ['Material "translucent" "rgb Kd" [0.5 0.4 0.3] "rgb Ks" [0.2 0.2 0.2] '
+     '"float roughness" [0.1]'],
+    ['Material "uber" "rgb Kd" [0.3 0.2 0.5] "rgb Ks" [0.3 0.3 0.3] '
+     '"float roughness" [0.15] "rgb opacity" [0.6 0.6 0.6]'],
+    ['MakeNamedMaterial "red_plastic" "string type" "plastic" '
+     '"rgb Kd" [0.6 0.1 0.1] "rgb Ks" [0.4 0.4 0.4] "float roughness" [0.1]',
+     'MakeNamedMaterial "gold" "string type" "metal" "float roughness" '
+     '[0.02]',
+     'Material "mix" "string namedmaterial1" "red_plastic" '
+     '"string namedmaterial2" "gold" "rgb amount" [0.3 0.3 0.3]'],
+    ['Material "measured" "string filename" "materials.merl"'],
+]
+BAND_TEXTURES = [
+    'Texture "picture" "color" "imagemap" "string filename" '
+    '"materials.pfm" "float uscale" [8] "float vscale" [4]',
+    'Texture "noise" "float" "fbm" "integer octaves" [8]',
+    'Texture "depth" "float" "constant" "float value" [0.02]',
+    'Texture "bumps" "float" "scale" "texture tex1" "noise" '
+    '"texture tex2" "depth"',
+]
+FLOOR_MATERIAL = [
+    'Texture "tiles" "color" "checkerboard" "string mapping" "planar" '
+    '"vector v1" [1 0 0] "vector v2" [0 0 1] "rgb tex1" [0.4 0.4 0.45] '
+    '"rgb tex2" [0.15 0.15 0.2]',
+    'Material "matte" "texture Kd" "tiles"']
+
+
+
+
+def materials_bench_pbrt(path):
+    """The bench scene with the material system on it, as a .pbrt file:
+    ``bench_scene_pbrt``'s camera, film, sampler and integrator; the
+    displaced sphere's triangles, unchanged, split into 8 trianglemesh bands
+    (its longitude wedges) with the BANDS materials; the floor matte with a
+    checkerboard Kd under a planar mapping; the glass sphere and the light
+    as before. Returns the number of triangles in each band."""
+    b = sb.bench_scene()
+    out = [f'Film "image" "integer xresolution" [{WIDTH}] '
+           f'"integer yresolution" [{HEIGHT}]',
+           f'Sampler "lowdiscrepancy" "integer pixelsamples" [{SPP}]',
+           f'SurfaceIntegrator "path" "integer maxdepth" [{MAX_DEPTH}]',
+           "LookAt 0 2.2 -5  0 0.9 0  0 1 0",
+           'Camera "perspective" "float fov" [42]', "WorldBegin",
+           *BAND_TEXTURES]
+    sphere = b.meshes[0]
+    bands = np.array_split(sphere.faces, len(BANDS))
+    for band, mat in zip(bands, BANDS):
+        out += ["AttributeBegin", *mat, trianglemesh(sphere, band),
+                "AttributeEnd"]
+    for m, mat, light in list(zip(b.meshes, b.mesh_mat,
+                                  b.mesh_area_light))[1:]:
+        floor = m.n_faces == 2 and light is None
+        out += ["AttributeBegin", *(FLOOR_MATERIAL if floor else
+                                    [pbrt_material(b.mat_rows[mat])])]
+        if light is not None:
+            out.append(f'AreaLightSource "diffuse" "rgb L" '
+                       f'[{pbrt_numbers(light[0])}]')
+        out += [trianglemesh(m, m.faces), "AttributeEnd"]
+    out.append("WorldEnd")
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
+    return [len(band) for band in bands]
+
+
+def window_render(job, where, x0, y0):
+    """The first WINDOW_WAVES waves of `job` over the WINDOW x WINDOW pixels
+    at (x0, y0) on `where`, into a full-size film (the same samples as the
+    whole render's first waves); returns the window's pixels."""
+    scene = st.to_device(job.scene, where)
+    li = manager.build_surface_li(job, log=QUIET)
+    px, py = rend.pixel_grid(WINDOW, WINDOW, x0=x0, y0=y0, device=where)
+    film = film_mod.make_film(job.width, job.height, device=where)
+    with torch.no_grad():
+        for s in range(WINDOW_WAVES):
+            film = rend.render_wave(
+                scene, job.camera, job.sampler, film, px, py,
+                torch.full(px.shape, s, dtype=torch.int32, device=where),
+                li_fn=li, width=job.width, height=job.height,
+                spp=job.sampler.spp, device=where)
+    img = film_mod.to_rgb(film).cpu().numpy()
+    return img[y0:y0 + WINDOW, x0:x0 + WINDOW]
+
+
+def window_materials(job, x0, y0):
+    """The material ids the window's first camera rays hit (CPU)."""
+    px, py = rend.pixel_grid(WINDOW, WINDOW, x0=x0, y0=y0, device="cpu")
+    cs = samplers.camera_samples(job.sampler, px, py, torch.zeros_like(px))
+    rays, _, _ = cameras.generate_rays(job.camera, cs, job.width, job.height)
+    geom = st.to_device(job.scene.geometry, "cpu")
+    hits = st.intersect(geom, rays)
+    it = st.interaction(geom, rays, hits)
+    return set(it["mat_id"][hits.prim >= 0].tolist())
+
+
+def materials_path_phase(dev, main_rays_per_s):
+    """The material system on the card, through the v6 kernel. (a)
+    ``render_pbrt`` of scenes/materials.pbrt against the JAX reference's
+    render of it (tools/materials_golden.npz) by ``compare_images``: 5 v6
+    launches a wave (depth 3) and no other kernel. (b) The bench scene at
+    full width (103,956 triangles, 512x512, 64 spp, depth 5) with its
+    displaced sphere split into 8 material bands, a checkerboard floor under
+    a planar mapping, through ``manager.run``: 7 v6 launches a wave, 448 in
+    all, and no other kernel, a finite image; render seconds and rays/s
+    beside main_path's. (c) A WINDOW x WINDOW window of (b) about the
+    sphere's pole, where all 8 bands meet (every band's material is hit),
+    the first WINDOW_WAVES waves on the card against the same waves on the
+    CPU by ``compare_images``."""
+    os.makedirs(PBRT_DIR, exist_ok=True)
+    out = {}
+    # (a) the small scene against the reference
+    golden = np.load(MATERIALS_GOLDEN)["image"]
+    tc.reset_overflow(dev)
+    tc.reset_launches()
+    t0 = time.time()
+    img = manager.render_pbrt(MATERIALS_PBRT, log=QUIET, device=dev)
+    torch.cuda.synchronize()
+    small_s = time.time() - t0
+    launches = counted_launches()
+    want = {"traverse6:closest": MATERIALS_WAVES,
+            "traverse6:mixed": MATERIALS_DEPTH * MATERIALS_WAVES,
+            "traverse6:any": MATERIALS_WAVES}
+    require(launches == want, f"materials small: kernel launches {launches}")
+    close, rel_mean = compare_images("materials scene vs the reference",
+                                     golden, img)
+    out["small"] = {"seconds": small_s, "launches": launches,
+                    "pixels_close": close, "rel_mean": rel_mean,
+                    "img_mean": float(img.mean()),
+                    "golden_mean": float(golden.mean())}
+    # (b) the bench scene with 8 material bands at full width
+    path = os.path.join(PBRT_DIR, "materials_bench.pbrt")
+    t0 = time.time()
+    band_tris = materials_bench_pbrt(path)
+    write_s = time.time() - t0
+    with open(path) as f:
+        text = f.read()
+    resolver = resources.Resolver([PBRT_DIR, SCENES_DIR])
+    t0 = time.time()
+    job = parser.parse(text, resolver=resolver, log=QUIET, device=dev)
+    parse_s = time.time() - t0
+    mats = job.scene.materials
+    require(job.scene.geometry.n_prims == 103956 and mats.has_measured
+            and job.scene.textures is not None,
+            "materials bench: the scene did not compile as written")
+    stats = stats_mod.RenderStats()
+    tc.reset_overflow(dev)
+    tc.reset_launches()
+    t0 = time.time()
+    img = manager.run(job, log=QUIET, stats=stats, device=dev)
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    launches = counted_launches()
+    require(launches == path_launches(SPP),
+            f"materials bench: kernel launches {launches}")
+    require(int(tc.overflow_flag(dev).item()) == 0,
+            "materials bench: stack overflow in the kernel")
+    require(img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(img).all()
+            and img.mean() > 0, "materials bench: image not finite")
+    rays = WIDTH * HEIGHT * 2 * (MAX_DEPTH + 1) * SPP
+    out["bench"] = {
+        "file_bytes": os.path.getsize(path), "write_s": write_s,
+        "parse_s": parse_s, "render_s": render_s,
+        "stats_timings": stats.timings, "rays_per_s": rays / render_s,
+        "main_path_rays_per_s": main_rays_per_s,
+        "launches": launches, "launches_per_wave": {
+            k: v / SPP for k, v in launches.items()},
+        "img_mean": float(img.mean()), "band_tris": band_tris,
+        "tris": job.scene.geometry.n_prims, "materials": mats.n,
+        "textures": job.scene.textures.n,
+        "texture_kinds": list(job.scene.textures.kinds_present),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    # (c) a window across every band: card against CPU
+    cpu_job = parser.parse(text, resolver=resolver, log=QUIET, device="cpu")
+    sphere = sb.bench_scene().meshes[0]
+    pole = sphere.verts[sphere.uvs[:, 1] == 0.0][0]   # v = 0 faces the camera
+    x0, y0 = window_origin(cpu_job.camera, pole)
+    hit = window_materials(cpu_job, x0, y0)
+    bands = set(range(len(BANDS)))
+    require(bands <= hit, f"materials window at {(x0, y0)} hits materials "
+            f"{sorted(hit)}, not every band {sorted(bands)}")
+    t0 = time.time()
+    card = window_render(job, dev, x0, y0)
+    card_s = time.time() - t0
+    t0 = time.time()
+    cpu = window_render(cpu_job, "cpu", x0, y0)
+    cpu_s = time.time() - t0
+    close, rel_mean = compare_images("materials window, card vs CPU", cpu,
+                                     card)
+    out["window"] = {"x0": x0, "y0": y0, "waves": WINDOW_WAVES,
+                     "materials_hit": sorted(hit), "card_s": card_s,
+                     "cpu_s": cpu_s, "pixels_close": close,
+                     "rel_mean": rel_mean, "img_mean": float(card.mean())}
+    say("materials_path", **out)
+
+
+def window_origin(camera, p):
+    """The top-left pixel of the WINDOW x WINDOW window centred on the
+    image of world point `p`."""
+    c2w = np.asarray(camera.cam2world.m, np.float64)
+    pc = np.linalg.inv(c2w) @ np.append(np.asarray(p, np.float64), 1.0)
+    r2c = np.asarray(camera.raster2camera, np.float64)
+    # the raster point whose camera-space direction is pc's
+    c2r = np.linalg.inv(r2c)
+    q = c2r @ np.append(pc[:3] / pc[2], 1.0)
+    x, y = q[0] / q[3], q[1] / q[3]
+    return (int(np.clip(round(x) - WINDOW // 2, 0, WIDTH - WINDOW)),
+            int(np.clip(round(y) - WINDOW // 2, 0, HEIGHT - WINDOW)))
 
 
 SMALL_GRAD_PATHS = ["materials.kd", "lights.intensity"]
@@ -1298,7 +1551,7 @@ def main():
                             dev)
     small_img = small_scene_phase(dev)
     motion_small_phase(dev, small_img)
-    launches, static_img = main_path_phase(scene, dev)
+    launches, static_img, main_rays_per_s = main_path_phase(scene, dev)
     launches_m = motion_path_phase(moving, dev, static_img)
     alt_kernels_phase(dev, small_img)
 
@@ -1318,6 +1571,9 @@ def main():
     ao_whitted_phase(scene, dev)
     # the scene front door (its launches are printed on pbrt_path's line)
     pbrt_path_phase(dev, static_img)
+    # the material system (its launches are printed on materials_path's
+    # line)
+    materials_path_phase(dev, main_rays_per_s)
     # the differentiable render: its launches are printed on grad_path's
     # line, not counted into the kernels line (main_path's are)
     grad_small_phase(dev)
@@ -1338,6 +1594,7 @@ def main():
         line.append({**r, "launches": counted[r["counter"]],
                      **ptxas_resources(r["counter"].split(":")[0])})
     require(len(line) == 18, f"kernels line lists {len(line)} kernels")
+    say("wall", seconds=time.time() - T_START, limit_seconds=1200)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -115,15 +115,19 @@ def nee_prepare(scene, it, frame, params, wo, u_select, u_light, uc_light,
     eps = st.ray_epsilon(it["t"])
     ns = frame.n
     ls = lt_mod.sample_li(lt, geom, light_idx, p, u_light, uc_light)
-    f_l = bx.f(params, frame, wo, ls.wi, flags)
+    # the BSDF sees the shading normal in place of the light direction on
+    # lanes that can never be usable: a miss of a moving scene holds NaN
+    # there, which the masked zero gradient of a lobe term would multiply
+    live = mask & (ls.pdf > 0.0) & spec.any_nonzero(ls.li)
+    wi = vm.where3(live, ls.wi, ns)
+    f_l = bx.f(params, frame, wo, wi, flags)
     cos_l = vm.absdot(ls.wi, ns)
-    usable = (mask & (ls.pdf > 0.0) & spec.any_nonzero(ls.li)
-              & spec.any_nonzero(f_l))
+    usable = live & spec.any_nonzero(f_l)
     sray = shadow_ray(p, it["ng"], ns, ls.wi, ls.dist, eps,
                       time=it.get("time"))
     sray = sray._replace(tmax=torch.where(usable, sray.tmax, -1.0))
     pdf_nee = ls.pdf / float(n_lights)
-    bsdf_pdf = bx.pdf(params, frame, wo, ls.wi, flags)
+    bsdf_pdf = bx.pdf(params, frame, wo, wi, flags)
     w_l = torch.where(ls.is_delta, 1.0,
                       smp.power_heuristic(1.0, pdf_nee, 1.0, bsdf_pdf))
     # a lane that is not usable may hold inf or NaN here (a miss of a

@@ -15,6 +15,7 @@ import numpy as np
 
 from .. import lights as lt_mod
 from .. import materials as mat_mod
+from .. import textures as tex_mod
 from ..accel import cluster as cluster_mod
 from ..core import math as vm
 from ..ops import traverse_cuda as tc
@@ -106,10 +107,24 @@ def _materials(d) -> mat_mod.MaterialTable:
         **{k: _f32(d[k]) for k in f3},
         gloss_fresnel=_i32(d["gloss_fresnel"]),
         spec_fresnel=_i32(d["spec_fresnel"]), tex_ids=_i32(d["tex_ids"]),
+        meas_meta=_i32(d["meas_meta"]), meas_pool=_f32(d["meas_pool"]),
         n=int(d["n"]), used_tex_slots=tuple(d["used_tex_slots"]),
         has_measured=bool(d["has_measured"]))
     mat_mod.check_supported(table)
     return table
+
+
+def _textures(d) -> tex_mod.TextureData:
+    return tex_mod.TextureData(
+        kind=_i32(d["kind"]), value=_f32(d["value"]),
+        params=_f32(d["params"]), sub=_i32(d["sub"]),
+        img_meta=_i32(d["img_meta"]), mip_off=_i32(d["mip_off"]),
+        # a resampled image level is float64 in the reference's host table;
+        # its device copy, which the port's table stands for, is float32
+        texels=_f32(np.asarray(d["texels"], np.float32)),
+        world2tex=_f32(d["world2tex"]),
+        n=int(d["n"]), kinds_present=tuple(d["kinds_present"]),
+        has_mapping=bool(d["has_mapping"]))
 
 
 def _lights(d) -> lt_mod.LightTable:
@@ -136,16 +151,16 @@ def _lights(d) -> lt_mod.LightTable:
 
 def from_reference(tree) -> st.CompiledScene:
     """tree: {"geometry": {...}, "materials": {...} | None, "lights": {...}
-    | None, "volume": None, "textures": None}, each inner dict keyed by the
-    reference dataclass's field names, with numpy leaves."""
-    if tree.get("volume") is not None or tree.get("textures") is not None:
+    | None, "volume": None, "textures": {...} | None}, each inner dict keyed
+    by the reference dataclass's field names, with numpy leaves."""
+    if tree.get("volume") is not None:
         raise NotImplementedError(
-            "participating media and texture tables are not carried over "
-            "yet (ROADMAP Queue 1)")
+            "participating media are not carried over yet (ROADMAP Queue 1)")
     mats = tree.get("materials")
     lts = tree.get("lights")
+    texs = tree.get("textures")
     return st.CompiledScene(
         geometry=_geometry(tree["geometry"]),
         materials=None if mats is None else _materials(mats),
         lights=None if lts is None else _lights(lts),
-        volume=None, textures=None)
+        volume=None, textures=None if texs is None else _textures(texs))

@@ -11,9 +11,9 @@ integrator configuration.
 Unknown names warn and fall back exactly as in the reference (matte, the
 perspective camera, the lowdiscrepancy sampler). A kind the reference knows
 and the port does not yet have raises ``NotImplementedError`` naming its
-ROADMAP item: here (volumes, lights and materials that need unported lobes
-or image maps, non-constant textures, cameras, the adaptive sampler) or in
-the module that would build it (``samplers``, ``film``, ``materials``,
+ROADMAP item: here (volumes, subsurface materials, the infinite,
+projection and goniometric lights, cameras, the adaptive sampler) or in the
+module that would build it (``samplers``, ``film``, ``materials``,
 ``scene/types``).
 """
 from __future__ import annotations
@@ -30,6 +30,8 @@ from .. import materials as mat_mod
 from .. import samplers as smp_mod
 from .. import textures as tex_mod
 from ..core import transform as tr
+from ..io import image as io_img
+from ..io import merl
 from . import build as build_mod
 from . import mesh as mesh_mod
 from . import paramset as ps
@@ -40,15 +42,9 @@ ALL_TRANSFORMS_BITS = 3
 
 # kinds the reference builds and the port does not yet, by ROADMAP Queue 1
 # item
-_LOBES = "item 4, remaining BSDF lobes"
-_NOT_PORTED_MATERIALS = {
-    **dict.fromkeys(("plastic", "metal", "shinymetal", "substrate",
-                     "translucent", "uber", "mix", "measured"), _LOBES),
-    **dict.fromkeys(("subsurface", "kdsubsurface"),
-                    "item 8, subsurface scattering")}
+_NOT_PORTED_MATERIALS = dict.fromkeys(("subsurface", "kdsubsurface"),
+                                      "item 8, subsurface scattering")
 _NOT_PORTED_LIGHTS = ("infinite", "projection", "goniometric")
-_TEXTURE_TYPES = ("scale", "mix", "checkerboard", "dots", "uv", "fbm",
-                  "wrinkled", "marble", "windy", "bilerp", "imagemap")
 _SAMPLERS = ("lowdiscrepancy", "02sequence", "stratified", "random",
              "halton", "bestcandidate")
 
@@ -261,22 +257,121 @@ class PbrtAPI:
     # --- textures / materials --------------------------------------------
     def texture(self, name, tex_class, tex_type, params):
         """Texture "name" "float|color|spectrum" "type": compiled at once
-        into the texture table. Constant textures only."""
-        if tex_type in _TEXTURE_TYPES:
-            raise not_ported(f"texture type {tex_type!r}", "item 6, textures")
+        into the texture table."""
         spec_ = {"type": tex_type, "params": params, "class": tex_class}
         if tex_class == "float":
             self.gs.float_textures[name] = spec_
         else:
             self.gs.spectrum_textures[name] = spec_
+        self.tex_ids[name] = self._compile_texture(tex_type, params,
+                                                   tex_class)
+
+    def _child_tex(self, params, pname, default):
+        """A tex1/tex2-style child: a named texture's id, or a new constant
+        row."""
+        t = params.find_texture(pname)
+        if t is not None and t in self.tex_ids:
+            return self.tex_ids[t]
+        v = params.find_one_spectrum(pname, default)
+        return self.tex_builder.add(tex_mod.CONST, tuple(v))
+
+    def _mapping2d(self, p, w2t):
+        """The 2D mapping: (mode, world2tex); planar packs v1 / v2 into the
+        matrix rows."""
+        name = p.find_one_string("mapping", "uv")
+        mode = {"uv": tex_mod.MAP_UV, "spherical": tex_mod.MAP_SPHERICAL,
+                "cylindrical": tex_mod.MAP_CYLINDRICAL,
+                "planar": tex_mod.MAP_PLANAR}.get(name)
+        if mode is None:
+            self.log(f"warning: unknown texture mapping {name!r}; uv")
+            mode = tex_mod.MAP_UV
+        if mode == tex_mod.MAP_PLANAR:
+            w2t = np.eye(4, dtype=np.float32)
+            w2t[0, :3] = p.find_one_point("v1", (1, 0, 0))
+            w2t[1, :3] = p.find_one_point("v2", (0, 1, 0))
+        return mode, w2t
+
+    def _compile_texture(self, tex_type, p, tex_class) -> int:
+        tb = self.tex_builder
+        su = p.find_one_float("uscale", 1.0)
+        sv = p.find_one_float("vscale", 1.0)
+        du = p.find_one_float("udelta", 0.0)
+        dv = p.find_one_float("vdelta", 0.0)
+        w2t = np.asarray(self.ctm[0].m_inv, np.float32)
+        map2d, map_w2t = self._mapping2d(p, w2t)
         if tex_type == "constant":
-            v = (params.find_one_spectrum("value", (1, 1, 1))
+            v = (p.find_one_spectrum("value", (1, 1, 1))
                  if tex_class != "float"
-                 else np.full(3, params.find_one_float("value", 1.0)))
-        else:
-            self.log(f"warning: unknown texture type {tex_type!r}")
-            v = (1.0, 1.0, 1.0)
-        self.tex_ids[name] = self.tex_builder.add(tuple(v))
+                 else np.full(3, p.find_one_float("value", 1.0)))
+            return tb.add(tex_mod.CONST, tuple(v))
+        if tex_type == "scale":
+            return tb.add(tex_mod.SCALE,
+                          sub=(self._child_tex(p, "tex1", (1, 1, 1)),
+                               self._child_tex(p, "tex2", (1, 1, 1))))
+        if tex_type == "mix":
+            amt = p.find_one_float("amount", 0.5)
+            return tb.add(tex_mod.MIX, params=(su, sv, du, dv, amt),
+                          sub=(self._child_tex(p, "tex1", (0, 0, 0)),
+                               self._child_tex(p, "tex2", (1, 1, 1))))
+        if tex_type == "checkerboard":
+            dim = p.find_one_int("dimension", 2)
+            kind = tex_mod.CHECKER2D if dim == 2 else tex_mod.CHECKER3D
+            return tb.add(kind, params=(su, sv, du, dv),
+                          sub=(self._child_tex(p, "tex1", (1, 1, 1)),
+                               self._child_tex(p, "tex2", (0, 0, 0))),
+                          world2tex=map_w2t if dim == 2 else w2t,
+                          mapping=map2d if dim == 2 else 0)
+        if tex_type == "dots":
+            return tb.add(tex_mod.DOTS, params=(su, sv, du, dv),
+                          sub=(self._child_tex(p, "inside", (1, 1, 1)),
+                               self._child_tex(p, "outside", (0, 0, 0))),
+                          world2tex=map_w2t, mapping=map2d)
+        if tex_type == "uv":
+            return tb.add(tex_mod.UV, params=(su, sv, du, dv),
+                          world2tex=map_w2t, mapping=map2d)
+        if tex_type in ("fbm", "wrinkled"):
+            oct_ = p.find_one_int("octaves", 8)
+            rough = p.find_one_float("roughness", 0.5)
+            kind = tex_mod.FBM if tex_type == "fbm" else tex_mod.WRINKLED
+            return tb.add(kind, (1, 1, 1),
+                          params=(su, sv, du, dv, oct_, rough),
+                          world2tex=w2t)
+        if tex_type == "marble":
+            sc = p.find_one_float("scale", 1.0)
+            var = p.find_one_float("variation", 0.2)
+            return tb.add(tex_mod.MARBLE, (1, 1, 1),
+                          params=(su, sv, du, dv, 8, 0.5, sc, var),
+                          world2tex=w2t)
+        if tex_type == "windy":
+            return tb.add(tex_mod.WINDY, (1, 1, 1),
+                          params=(su, sv, du, dv), world2tex=w2t)
+        if tex_type == "bilerp":
+            v00 = p.find_one_spectrum("v00", (0, 0, 0))
+            v01 = p.find_one_spectrum("v01", (1, 1, 1))
+            v10 = p.find_one_spectrum("v10", (0, 0, 0))
+            v11 = p.find_one_spectrum("v11", (1, 1, 1))
+            c11 = tb.add(tex_mod.CONST, tuple(v11))
+            return tb.add(tex_mod.BILERP, tuple(v00),
+                          params=(su, sv, du, dv, v01[0], v01[1], v01[2],
+                                  float(np.mean(v10))),
+                          sub=(c11, -1))
+        if tex_type == "imagemap":
+            fname = p.find_one_string("filename", "")
+            sc = p.find_one_float("scale", 1.0)
+            img = None
+            if fname and self.resolver is not None:
+                try:
+                    img = io_img.load(self.resolver(fname, binary=True),
+                                      fname)
+                except Exception as e:  # noqa: BLE001
+                    self.log(f"warning: imagemap {fname!r} failed: {e}")
+            if img is None:
+                img = np.ones((2, 2, 3), np.float32) * 0.5
+            return tb.add(tex_mod.IMAGEMAP, (sc, sc, sc),
+                          params=(su, sv, du, dv), image=img,
+                          world2tex=map_w2t, mapping=map2d)
+        self.log(f"warning: unknown texture type {tex_type!r}")
+        return tb.add(tex_mod.CONST, (1.0, 1.0, 1.0))
 
     def material(self, name, params):
         self.gs.material = self._make_material(name, params)
@@ -293,8 +388,10 @@ class PbrtAPI:
 
     def _resolve_tex(self, tp: ps.TextureParams, name, default,
                      is_float=False):
-        """A parameter as a constant, and the name of the texture it came
-        from (None for a plain value)."""
+        """A parameter as a constant (constant and scale graphs folded, the
+        others their stand-in), and the name of the texture it came from
+        (None for a plain value). The texture itself overrides the constant
+        through the material's texture slot."""
         kind, v = (tp.get_float(name, default) if is_float
                    else tp.get_spectrum(name, default))
         if kind == "const":
@@ -304,12 +401,25 @@ class PbrtAPI:
         if spec_ is None:
             self.log(f"warning: unknown texture {v!r}")
             return default, None
-        if spec_["type"] != "constant":
-            return default, v
+        return self._fold_texture(spec_, default), v
+
+    @staticmethod
+    def _fold_texture(spec_, default):
+        t = spec_["type"]
         p = spec_["params"]
-        return (p.find_one_spectrum("value", (1, 1, 1))
-                if spec_["class"] != "float"
-                else p.find_one_float("value", 1.0)), v
+        if t == "constant":
+            return (p.find_one_spectrum("value", (1, 1, 1))
+                    if spec_["class"] != "float"
+                    else p.find_one_float("value", 1.0))
+        if t == "scale":
+            t1 = p.find_one_spectrum("tex1", (1, 1, 1))
+            t2 = p.find_one_spectrum("tex2", (1, 1, 1))
+            return np.asarray(t1) * np.asarray(t2)
+        if t in ("checkerboard", "dots"):
+            t1 = p.find_one_spectrum("tex1", (1, 1, 1))
+            t2 = p.find_one_spectrum("tex2", (0, 0, 0))
+            return 0.5 * (np.asarray(t1) + np.asarray(t2))
+        return default
 
     def _make_material(self, name, geom_params, mat_params=None) -> dict:
         """Material factory -> a ``materials`` row."""
@@ -334,13 +444,19 @@ class PbrtAPI:
             return float(np.mean(v))
 
         T = mat_mod
-        # every material honors "texture bumpmap" (the texture slot raises
-        # at build: bump maps are not ported)
+        # displacement -> shading-normal perturbation: every material honors
+        # "texture bumpmap"
         f1("bumpmap", 0.0, T.TEX_BUMP)
         if name == "matte":
             return mat_mod.matte(kd=spec3("Kd", (0.5,) * 3, T.TEX_KD),
                                  sigma=f1("sigma", 0.0, T.TEX_SIGMA),
                                  tex_ids=tex_ids)
+        if name == "plastic":
+            return mat_mod.plastic(kd=spec3("Kd", (0.25,) * 3, T.TEX_KD),
+                                   ks=spec3("Ks", (0.25,) * 3, T.TEX_KS),
+                                   roughness=f1("roughness", 0.1,
+                                                T.TEX_ROUGH),
+                                   tex_ids=tex_ids)
         if name == "mirror":
             return mat_mod.mirror(kr=spec3("Kr", (0.9,) * 3, T.TEX_KR),
                                   tex_ids=tex_ids)
@@ -348,6 +464,71 @@ class PbrtAPI:
             return mat_mod.glass(kr=spec3("Kr", (1.0,) * 3, T.TEX_KR),
                                  kt=spec3("Kt", (1.0,) * 3, T.TEX_KT),
                                  index=f1("index", 1.5), tex_ids=tex_ids)
+        if name == "metal":
+            return mat_mod.metal(eta=spec3("eta", mat_mod.COPPER_ETA),
+                                 k=spec3("k", mat_mod.COPPER_K),
+                                 roughness=f1("roughness", 0.01,
+                                              T.TEX_ROUGH),
+                                 tex_ids=tex_ids)
+        if name == "shinymetal":
+            return mat_mod.shinymetal(ks=spec3("Ks", (1.0,) * 3, T.TEX_KS),
+                                      kr=spec3("Kr", (1.0,) * 3, T.TEX_KR),
+                                      roughness=f1("roughness", 0.1,
+                                                   T.TEX_ROUGH),
+                                      tex_ids=tex_ids)
+        if name == "substrate":
+            urough = f1("uroughness", 0.1, T.TEX_ROUGH)
+            return mat_mod.substrate(kd=spec3("Kd", (0.5,) * 3, T.TEX_KD),
+                                     ks=spec3("Ks", (0.5,) * 3, T.TEX_KS),
+                                     roughness=urough,
+                                     vroughness=geom_params.find_one_float(
+                                         "vroughness", urough),
+                                     tex_ids=tex_ids)
+        if name == "translucent":
+            return mat_mod.translucent(
+                kd=spec3("Kd", (0.25,) * 3, T.TEX_KD),
+                ks=spec3("Ks", (0.25,) * 3, T.TEX_KS),
+                roughness=f1("roughness", 0.1, T.TEX_ROUGH),
+                reflect=spec3("reflect", (0.5,) * 3),
+                transmit=spec3("transmit", (0.5,) * 3), tex_ids=tex_ids)
+        if name == "uber":
+            return mat_mod.uber(kd=spec3("Kd", (0.25,) * 3, T.TEX_KD),
+                                ks=spec3("Ks", (0.25,) * 3, T.TEX_KS),
+                                kr=spec3("Kr", (0.0,) * 3, T.TEX_KR),
+                                kt=spec3("Kt", (0.0,) * 3, T.TEX_KT),
+                                roughness=f1("roughness", 0.1, T.TEX_ROUGH),
+                                index=f1("index", 1.5),
+                                opacity=spec3("opacity", (1.0,) * 3),
+                                tex_ids=tex_ids)
+        if name == "mix":
+            m1 = self.gs.named_materials.get(
+                geom_params.find_one_string("namedmaterial1", ""))
+            m2 = self.gs.named_materials.get(
+                geom_params.find_one_string("namedmaterial2", ""))
+            amt = spec3("amount", (0.5,) * 3)
+            if m1 and m2:
+                self.log("warning: 'mix' material blends the two materials' "
+                         "PARAMETERS into one fixed-slot BSDF (the reference "
+                         "scales and stacks both lobe sets, "
+                         "mix_material.dart); highlight shapes can differ")
+                return mat_mod.mix_materials(m1, m2, amt)
+            self.log("warning: mix material missing named materials")
+            return mat_mod.matte()
+        if name == "measured":
+            # an unloadable file is a warning and a matte material (known
+            # behaviour k): the scene file's semantics
+            fname = geom_params.find_one_string("filename", "")
+            if fname and self.resolver is not None:
+                try:
+                    data = merl.load(self.resolver(fname, binary=True),
+                                     fname)
+                    return mat_mod.measured(data, key=fname,
+                                            tex_ids=tex_ids)
+                except Exception as e:  # noqa: BLE001
+                    self.log(f"warning: measured {fname!r} failed: {e}")
+            self.log("warning: measured material without loadable file; "
+                     "using matte")
+            return mat_mod.matte(kd=(0.5,) * 3)
         self.log(f"warning: unknown material {name!r}; using matte")
         return mat_mod.matte()
 

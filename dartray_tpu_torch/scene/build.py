@@ -8,7 +8,6 @@ import numpy as np
 
 from .. import lights as lt_mod
 from .. import materials as mat_mod
-from .. import textures as tex_mod
 from ..core import transform as tr
 from . import mesh as mesh_mod
 from . import types as st
@@ -48,7 +47,6 @@ class SceneBuilder:
         if self.volume is not None:
             raise NotImplementedError(
                 "participating media are not ported (ROADMAP Queue 1 item 8)")
-        tex_mod.check_supported(self.textures)
         if not self.mat_rows:
             self.mat_rows.append(mat_mod.matte())
         # area lights: assign light ids per emissive mesh, record tri ranges

@@ -96,7 +96,8 @@ def compile_geometry(meshes, mat_ids=None, light_ids=None,
             "(ROADMAP Queue 1 item 10, alternate accelerators)")
     if any(getattr(m, "alpha_tid", -1) >= 0 for m in meshes):
         raise NotImplementedError(
-            "alpha cut-outs are not ported (ROADMAP Queue 1 item 6, textures)")
+            "alpha cut-outs are not ported (ROADMAP Queue 1 item 6, alpha "
+            "cut-outs)")
     n_meshes = len(meshes)
     mat_ids = mat_ids if mat_ids is not None else [0] * n_meshes
     light_ids = light_ids if light_ids is not None else [-1] * n_meshes
@@ -285,7 +286,8 @@ QUERIES = {"rays": 0}
 def _query(geom, *rays):
     if geom.has_alpha:
         raise NotImplementedError(
-            "alpha cut-outs are not ported (ROADMAP Queue 1 item 6, textures)")
+            "alpha cut-outs are not ported (ROADMAP Queue 1 item 6, alpha "
+            "cut-outs)")
     QUERIES["rays"] += sum(r.n for r in rays)
 
 

@@ -95,15 +95,25 @@ def test_from_reference_round_trip():
 
 
 def test_from_reference_refuses_what_is_not_ported():
+    """The grid accelerator, alpha cut-outs and participating media raise;
+    a plastic row (ported since the material system) is carried."""
     ref = th.np_tree(ref_sb.cornell_box(
         sphere_material=None).build())
     ref["geometry"]["alt_kind"] = "grid"
     with pytest.raises(NotImplementedError):
         adapt.from_reference(ref)
+    ref = th.np_tree(ref_sb.cornell_box().build())
+    ref["geometry"]["has_alpha"] = True
+    with pytest.raises(NotImplementedError, match="alpha"):
+        adapt.from_reference(ref)
+    ref = th.np_tree(ref_sb.cornell_box().build())
+    ref["volume"] = {"kind": np.zeros(1, np.int32)}
+    with pytest.raises(NotImplementedError, match="media"):
+        adapt.from_reference(ref)
     rb = ref_sb.cornell_box()
     rb.mat_rows[-1] = ref_mat.plastic()
-    with pytest.raises(NotImplementedError, match="lobes"):
-        adapt.from_reference(th.np_tree(rb.build()))
+    ref = th.np_tree(rb.build())
+    _assert_same_leaves(adapt.from_reference(ref), ref)
 
 
 def _cutout_mesh():
@@ -113,17 +123,10 @@ def _cutout_mesh():
 
 
 @pytest.mark.parametrize("name,call", [
-    ("plastic", lambda: mat_mod.plastic()),
-    ("metal", lambda: mat_mod.metal()),
-    ("substrate", lambda: mat_mod.substrate()),
-    ("uber", lambda: mat_mod.uber()),
-    ("measured", lambda: mat_mod.measured(np.zeros((2, 2, 2, 3)))),
-    ("glossy_row", lambda: mat_mod.build_table(
-        [mat_mod._row(ks=(0.5, 0.5, 0.5))])),
-    ("conductor_row", lambda: mat_mod.build_table(
-        [mat_mod._row(kr=(1, 1, 1), spec_fresnel=mat_mod.FR_CONDUCTOR)])),
-    ("bump", lambda: mat_mod.build_table(
-        [mat_mod.matte(tex_ids={mat_mod.TEX_BUMP: 0})])),
+    ("subsurface_row", lambda: mat_mod.build_table(
+        [dict(mat_mod.plastic(), _sss=((1, 1, 1), (0, 0, 0), 1.3))])),
+    ("opacity_texture", lambda: mat_mod.build_table(
+        [mat_mod.matte(tex_ids={mat_mod.TEX_OPACITY: 0})])),
     ("goniometric_light", lambda: lt_mod.build_table(
         [lt_mod.LightSpec(lt_mod.GONIOMETRIC)],
         attr=np.zeros((1, 48), np.float32))),
@@ -140,13 +143,57 @@ def _cutout_mesh():
     ("infinite_light", lambda: lt_mod.build_table(
         [lt_mod.LightSpec(lt_mod.INFINITE)],
         attr=np.zeros((1, 48), np.float32))),
-    ("image_texture", lambda: textures.check_supported(
-        textures.TextureData(kind=None, value=None, n=1,
-                             kinds_present=(0, 1)))),
 ])
 def test_left_out_branch_raises_by_name(name, call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call()
+
+
+def _image_textures(mod):
+    b = mod.TextureBuilder()
+    img = np.random.RandomState(4).rand(5, 7, 3).astype(np.float32)
+    b.add(mod.CONST, (0.2, 0.3, 0.4))
+    b.add(mod.IMAGEMAP, (1.5, 1.5, 1.5), params=(2, 3, 0.1, 0.2),
+          image=img, mapping=mod.MAP_PLANAR)
+    b.add(mod.CHECKER2D, sub=(0, 1))
+    return b.build()
+
+
+# what the refusals above held before the material system was ported: each
+# now builds the reference's table, leaf by leaf
+PORTED_BRANCHES = {
+    "plastic": lambda m: [m.plastic()],
+    "metal": lambda m: [m.metal(roughness=0.05)],
+    "substrate": lambda m: [m.substrate(roughness=0.1, vroughness=0.3)],
+    "uber": lambda m: [m.uber(opacity=(0.6, 0.6, 0.6))],
+    "measured": lambda m: [m.matte(), m.measured(
+        np.arange(24, dtype=np.float32).reshape(2, 2, 2, 3), key="a")],
+    "glossy_row": lambda m: [m._row(ks=(0.5, 0.5, 0.5))],
+    "conductor_row": lambda m: [m._row(kr=(1, 1, 1),
+                                       spec_fresnel=m.FR_CONDUCTOR)],
+    "bump": lambda m: [m.matte(tex_ids={m.TEX_BUMP: 0})],
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED_BRANCHES) + ["image_texture"])
+def test_branch_ported_since_builds_the_references_table(name):
+    from dartray_tpu import textures as ref_tex
+    if name == "image_texture":
+        port = _image_textures(textures)
+        ref = th.np_tree(_image_textures(ref_tex))
+        # the resampled level is float64 in the reference's host table and
+        # float32 in its device copy, which the port's table stands for
+        ref["texels"] = ref["texels"].astype(np.float32)
+    else:
+        port = mat_mod.build_table(PORTED_BRANCHES[name](mat_mod))
+        ref = th.np_tree(ref_mat.build_table(PORTED_BRANCHES[name](ref_mat)))
+    n = 0
+    for path, leaf in th.port_leaves(port).items():
+        want = th.ref_leaf(ref, path)
+        assert (th.same_bits(leaf, want) if isinstance(leaf, np.ndarray)
+                else leaf == want), path
+        n += 1
+    assert n >= 11      # every array and scalar of the table
 
 
 def test_builder_choice_is_logged_once(caplog):

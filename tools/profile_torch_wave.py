@@ -2,11 +2,13 @@
 
     python tools/profile_torch_wave.py [--waves 4] [--res 512] [--depth 5]
                                        [--integrator path|direct|whitted|ao]
-                                       [--moving] [--grad]
+                                       [--moving] [--grad] [--pbrt FILE]
 
 Builds the bench scene (with `--moving` its big sphere translates by
-(0.6, 0, 0) over the shutter, so every launch is the motion kernel's), warms
-up, then runs `--waves` waves of
+(0.6, 0, 0) over the shutter, so every launch is the motion kernel's), or
+with ``--pbrt`` parses FILE (files it names are looked up beside it and in
+``scenes/``) and takes its scene, camera, sampler, resolution and surface
+integrator, warms up, then runs `--waves` waves of
 renderers.sampler.render_wave of the chosen integrator (default: the path
 integrator; ``ao`` takes ``--ao-samples`` probes, default 64) under
 torch.profiler with the port's stages
@@ -38,19 +40,25 @@ from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E
 import bench_torch  # noqa: E402
 
 from dartray_tpu_torch import bsdf, cameras, film as film_mod  # noqa: E402
-from dartray_tpu_torch import materials, samplers  # noqa: E402
+from dartray_tpu_torch import materials, samplers, textures  # noqa: E402
 from dartray_tpu_torch.core import transform as tr  # noqa: E402
 from dartray_tpu_torch.integrators import ao, common, direct  # noqa: E402
 from dartray_tpu_torch.integrators import path as pi, whitted  # noqa: E402
 from dartray_tpu_torch import lights  # noqa: E402
 from dartray_tpu_torch.ops import traverse_cuda as tc  # noqa: E402
+from dartray_tpu_torch.renderers import manager  # noqa: E402
 from dartray_tpu_torch.renderers import sampler as rend  # noqa: E402
 from dartray_tpu_torch.scene import build as sb, types as st  # noqa: E402
+from dartray_tpu_torch.scene import parser, resources  # noqa: E402
+
+SCENES = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "scenes")
 
 STAGES = [
     (samplers, "sample_1d"), (samplers, "sample_2d"),
     (cameras, "generate_rays"), (st, "interaction"),
-    (materials, "eval_params"), (bsdf, "make_frame"), (bsdf, "sample_f"),
+    (materials, "eval_params"), (materials, "bump_shading_normal"),
+    (textures, "evaluate"), (bsdf, "make_frame"), (bsdf, "sample_f"),
     (common, "nee_prepare"), (common, "emitter_hit_mis"),
     (common, "estimate_direct"), (lights, "sample_li"), (bsdf, "f"),
     (tc, "sort_key_i32"), (tc, "_sorted_launch"), (tc, "traverse6"),
@@ -103,10 +111,13 @@ def main():
     ap.add_argument("--ao-samples", type=int, default=64)
     ap.add_argument("--moving", action="store_true")
     ap.add_argument("--grad", action="store_true")
+    ap.add_argument("--pbrt", metavar="FILE")
     a = ap.parse_args()
-    if a.grad and (a.integrator != "path" or a.depth != bench_torch.MAX_DEPTH):
+    if a.grad and (a.integrator != "path" or a.depth != bench_torch.MAX_DEPTH
+                   or a.pbrt):
         ap.error("--grad profiles bench_torch.grad_probe: the path "
-                 f"integrator at depth {bench_torch.MAX_DEPTH}")
+                 f"integrator at depth {bench_torch.MAX_DEPTH} on the bench "
+                 "scene")
     if not torch.cuda.is_available():
         print("needs one CUDA device", file=sys.stderr)
         return 2
@@ -115,24 +126,37 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    bench = sb.bench_scene()
-    if a.moving:
-        big = bench.meshes[0]
-        big.verts_end = big.verts + np.asarray([0.6, 0.0, 0.0], np.float32)
-    scene = st.to_device(bench.build(), dev)
-    cam = cameras.perspective(
-        tr.look_at([0, 2.2, -5.0], [0, 0.9, 0], [0, 1, 0]), 42.0, a.res,
-        a.res, device=dev)
-    smp = samplers.make_sampler("lowdiscrepancy", spp=a.spp)
-    li = integrator(a.integrator, a.depth, a.ao_samples)
-    film = film_mod.make_film(a.res, a.res, device=dev)
-    px, py = rend.pixel_grid(a.res, a.res, device=dev)
+    if a.pbrt:
+        with open(a.pbrt) as f:
+            job = parser.parse(f.read(), resolver=resources.Resolver(
+                [os.path.dirname(os.path.abspath(a.pbrt)), SCENES]),
+                log=lambda *_: None, device=dev)
+        scene, cam, smp = st.to_device(job.scene, dev), job.camera, job.sampler
+        li = manager.build_surface_li(job)
+        width, height = job.width, job.height
+        a.integrator = job.surf_integrator
+        a.depth = job.surf_params.find_one_int("maxdepth", 5)
+    else:
+        bench = sb.bench_scene()
+        if a.moving:
+            big = bench.meshes[0]
+            big.verts_end = big.verts + np.asarray([0.6, 0.0, 0.0],
+                                                   np.float32)
+        scene = st.to_device(bench.build(), dev)
+        cam = cameras.perspective(
+            tr.look_at([0, 2.2, -5.0], [0, 0.9, 0], [0, 1, 0]), 42.0, a.res,
+            a.res, device=dev)
+        smp = samplers.make_sampler("lowdiscrepancy", spp=a.spp)
+        li = integrator(a.integrator, a.depth, a.ao_samples)
+        width = height = a.res
+    film = film_mod.make_film(width, height, device=dev)
+    px, py = rend.pixel_grid(width, height, device=dev)
 
     def wave(s):
         return rend.render_wave(
             scene, cam, smp, film, px, py,
             torch.full(px.shape, s, dtype=torch.int32, device=dev),
-            li_fn=li, width=a.res, height=a.res, spp=smp.spp, device=dev)
+            li_fn=li, width=width, height=height, spp=smp.spp, device=dev)
 
     def run(first):
         """`a.waves` waves from sample index `first` (--grad: one gradient
@@ -195,8 +219,8 @@ def main():
     self_dev = lambda e: e.self_device_time_total
     top = sorted(kernels, key=lambda e: -self_dev(e))[:12]
     print(json.dumps({
-        "card": smi, "integrator": a.integrator, "moving": a.moving,
-        "grad": a.grad, "res": a.res,
+        "card": smi, "pbrt": a.pbrt, "integrator": a.integrator,
+        "moving": a.moving, "grad": a.grad, "res": [width, height],
         "depth": a.depth, "waves": a.waves,
         "traversal_launches_per_wave": {
             k: v / (3 * a.waves) for k, v in tc.LAUNCHES.items() if v},
