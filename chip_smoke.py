@@ -1368,6 +1368,215 @@ def materials_path_phase(dev, main_rays_per_s):
     say("materials_path", **out)
 
 
+# alpha cut-outs and the remaining lights: the two fixture scenes and the
+# reference's renders of them (tools/make_lights_golden.py)
+ALPHA_PBRT = os.path.join(SCENES_DIR, "alpha.pbrt")
+LIGHTS_PBRT = os.path.join(SCENES_DIR, "lights.pbrt")
+LIGHTS_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tools", "lights_golden.npz")
+# alpha.pbrt: direct lighting to depth 1 (2 levels), 2 spp, one light: a
+# level is the surface query and estimate_direct's occlusion and BSDF
+# queries, each ALPHA_ROUNDS closest-hit launches on an alpha scene
+ALPHA_FILE_LAUNCHES = {"traverse6:closest": 2 * 2 * 3 * st.ALPHA_ROUNDS}
+LIGHTS_WAVES = 4           # lights.pbrt: 4 spp, path depth 3
+LIGHTS_DEPTH = 3
+# a path wave at depth MAX_DEPTH on an alpha scene: 1 camera, MAX_DEPTH
+# extension and MAX_DEPTH + 1 shadow queries, each ALPHA_ROUNDS closest-hit
+# launches (48), and no any-hit or mixed launch
+ALPHA_WAVE_LAUNCHES = {"traverse6:closest": st.ALPHA_ROUNDS * (
+    1 + MAX_DEPTH + MAX_DEPTH + 1)}
+# ... and its traversal queries in lanes: a closest-hit query counts its
+# rays ALPHA_ROUNDS times, an occlusion query once more
+ALPHA_WAVE_QUERIES = (st.ALPHA_ROUNDS * (1 + MAX_DEPTH)
+                      + (st.ALPHA_ROUNDS + 1) * (MAX_DEPTH + 1))
+ALPHA_FLOOR = [
+    'Texture "floorcut" "float" "checkerboard" "float uscale" [16] '
+    '"float vscale" [16] "float tex1" [1] "float tex2" [0]',
+    "AttributeBegin", "Rotate -90 1 0 0",
+    'LightSource "infinite" "string mapname" ["envmap.pfm"]',
+    "AttributeEnd"]
+# (c)'s window: centred on this floor point, a corner of four checker cells
+# under the displaced sphere's front (cut and kept cells, the sphere and the
+# rays that fall through the floor all in view)
+ALPHA_WINDOW_POINT = (-0.75, 0.0, 0.0)
+
+
+def alpha_env_bench_pbrt(path):
+    """``bench_scene_pbrt``'s file with two changes: an infinite light over
+    envmap.pfm (z up, turned to y up) beside the area light, and the 12 x 12
+    floor under a 16 x 16 checkerboard alpha mask (its trianglemesh gains
+    uv coordinates and the mask), so that half its cells are cut. Every
+    other line is the writer's, byte for byte."""
+    b = bench_scene_pbrt(path)
+    floor = b.meshes[2]
+    require(floor.n_faces == 2 and b.mesh_area_light[2] is None,
+            "alpha bench: the bench scene's third mesh is not the floor")
+    line = trianglemesh(floor, floor.faces) + "\n"
+    with open(path) as f:
+        text = f.read()
+    require(text.count(line) == 1 and text.count("WorldBegin\n") == 1,
+            "alpha bench: the floor's line is not in the file once")
+    text = text.replace(line, line[:-1] + ' "float uv" [0 0 1 0 1 1 0 1] '
+                        '"texture alpha" "floorcut"\n')
+    text = text.replace("WorldBegin\n",
+                        "WorldBegin\n" + "\n".join(ALPHA_FLOOR) + "\n")
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def window_kinds(job, x0, y0):
+    """What the window's first camera rays see (CPU): "floor" (a kept cell),
+    "sphere" (anything above the floor) and "through" (no hit: a cut cell
+    or the sky)."""
+    px, py = rend.pixel_grid(WINDOW, WINDOW, x0=x0, y0=y0, device="cpu")
+    cs = samplers.camera_samples(job.sampler, px, py, torch.zeros_like(px))
+    rays, _, _ = cameras.generate_rays(job.camera, cs, job.width, job.height)
+    geom = st.to_device(job.scene.geometry, "cpu")
+    hits = st.intersect(geom, rays)
+    y = st.interaction(geom, rays, hits)["p"].y
+    kinds = set()
+    if (hits.prim < 0).any():
+        kinds.add("through")
+    if (hits.hit & (y.abs() < 1e-3)).any():
+        kinds.add("floor")
+    if (hits.hit & (y > 1e-2)).any():
+        kinds.add("sphere")
+    return kinds
+
+
+def alpha_round(geom, dev):
+    """One continuation round on (b)'s scene: the camera wave's first hits,
+    the lanes whose hit is cut re-traced and every other lane dead. Times
+    (CUDA events) of the whole round through ``scene.types`` (sort, gather,
+    launch, unsort, finish), of its sort alone and of the kernel alone on the
+    sorted planes, beside the kernel on the whole live camera wave."""
+    _, _, _, _, rays = camera_wave(dev)
+    with torch.no_grad():
+        h = st._closest(geom, rays, False)
+        cut = st._alpha_cut(geom, h)
+        cont = rays._replace(
+            tmin=torch.where(cut, h.t + st.ray_epsilon(h.t), rays.tmin),
+            tmax=torch.where(cut, rays.tmax, -1.0))
+        lo, hi = geom.world_bound[0], geom.world_bound[1]
+        oc, dc = tc._components(cont.o, cont.d)
+        key = tc.sort_key_i32(oc, dc, cont.tmin, cont.tmax, lo, hi)
+        order = torch.sort(key, stable=True).indices
+        s = [p[order] for p in (*oc, *dc, cont.tmin, cont.tmax)]
+        so, sd = vm.V3(*s[0:3]), vm.V3(*s[3:6])
+        return {
+            "lanes": int(cut.numel()), "live_lanes": int(cut.sum()),
+            "round_ms": time_ms(lambda: st._closest(geom, cont, True)),
+            "sort_ms": time_ms(lambda: torch.sort(key, stable=True)),
+            "kernel_ms": time_ms(lambda: tc.traverse6(
+                geom.packed, so, sd, s[6], s[7])),
+            "kernel_whole_camera_wave_ms": time_ms(lambda: tc.traverse6(
+                geom.packed, rays.o, rays.d, rays.tmin, rays.tmax))}
+
+
+def alpha_env_path_phase(dev, main_rays_per_s):
+    """Alpha cut-outs and the remaining lights on the card, through the v6
+    kernel's closest-hit mode inside the static continuation loop and its
+    three modes with escaped rays carrying radiance. (a) ``render_pbrt`` of
+    scenes/alpha.pbrt (direct lighting, 4 rounds a query: 48 closest-hit
+    launches and no other kernel) and scenes/lights.pbrt (path depth 3: 1
+    closest, 3 mixed, 1 any-hit launch a wave) against the reference's
+    renders by ``compare_images``. (b) The bench scene at full width with
+    an infinite light over envmap.pfm and its floor under a checkerboard
+    alpha mask, through ``manager.run``: 48 closest-hit launches a wave and
+    no other kernel, the traversal queries as the reference counts them, a
+    finite image; render seconds and rays/s beside main_path's; one
+    continuation round timed. (c) A WINDOW x WINDOW window of (b) where cut
+    and kept floor cells and the sphere meet, its first WINDOW_WAVES waves
+    on the card against the CPU by ``compare_images``."""
+    os.makedirs(PBRT_DIR, exist_ok=True)
+    golden = np.load(LIGHTS_GOLDEN)
+    out = {}
+    # (a) the two fixtures against the reference
+    for name, path, want in (
+            ("alpha", ALPHA_PBRT, ALPHA_FILE_LAUNCHES),
+            ("lights", LIGHTS_PBRT, {
+                "traverse6:closest": LIGHTS_WAVES,
+                "traverse6:mixed": LIGHTS_DEPTH * LIGHTS_WAVES,
+                "traverse6:any": LIGHTS_WAVES})):
+        tc.reset_overflow(dev)
+        tc.reset_launches()
+        t0 = time.time()
+        img = manager.render_pbrt(path, log=QUIET, device=dev)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = counted_launches()
+        require(launches == want, f"{name} scene: kernel launches {launches}")
+        close, rel_mean = compare_images(f"{name} scene vs the reference",
+                                         golden[name], img)
+        out[name] = {"seconds": secs, "launches": launches,
+                     "pixels_close": close, "rel_mean": rel_mean,
+                     "img_mean": float(img.mean()),
+                     "golden_mean": float(golden[name].mean())}
+    # (b) the bench scene with an environment light and an alpha floor
+    path = os.path.join(PBRT_DIR, "alpha_env_bench.pbrt")
+    alpha_env_bench_pbrt(path)
+    with open(path) as f:
+        text = f.read()
+    resolver = resources.Resolver([PBRT_DIR, SCENES_DIR])
+    t0 = time.time()
+    job = parser.parse(text, resolver=resolver, log=QUIET, device=dev)
+    parse_s = time.time() - t0
+    g, lt = job.scene.geometry, job.scene.lights
+    require(g.n_prims == 103956 and g.has_alpha and lt.env_light_index >= 0
+            and job.sampler.spp == SPP,
+            "alpha bench: the scene did not compile as written")
+    stats = stats_mod.RenderStats()
+    tc.reset_overflow(dev)
+    tc.reset_launches()
+    t0 = time.time()
+    img = manager.run(job, log=QUIET, stats=stats, device=dev)
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    launches = counted_launches()
+    want = {k: v * SPP for k, v in ALPHA_WAVE_LAUNCHES.items()}
+    require(launches == want, f"alpha bench: kernel launches {launches}, "
+            f"expected {want}")
+    require(int(tc.overflow_flag(dev).item()) == 0,
+            "alpha bench: stack overflow in the kernel")
+    require(img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(img).all()
+            and img.mean() > 0, "alpha bench: image not finite")
+    lanes = WIDTH * HEIGHT
+    queries = stats.counters["rays/traversal_queries"]
+    require(queries == lanes * ALPHA_WAVE_QUERIES * SPP,
+            f"alpha bench: {queries} traversal queries counted")
+    rays = lanes * 2 * (MAX_DEPTH + 1) * SPP
+    out["bench"] = {
+        "file_bytes": os.path.getsize(path), "parse_s": parse_s,
+        "waves": SPP, "render_s": render_s, "rays_per_s": rays / render_s,
+        "main_path_rays_per_s": main_rays_per_s,
+        "rays_per_s_over_main_path": rays / render_s / main_rays_per_s,
+        "stats_timings": stats.timings, "launches": launches,
+        "launches_per_wave": {k: v / SPP for k, v in launches.items()},
+        "rays/traversal_queries": queries, "img_mean": float(img.mean()),
+        "tris": g.n_prims, "env_map": list(lt.env_map.shape),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    out["alpha_round"] = alpha_round(st.to_device(g, dev), dev)
+    # (c) a window where cut and kept cells and the sphere meet: card
+    # against CPU
+    cpu_job = parser.parse(text, resolver=resolver, log=QUIET, device="cpu")
+    x0, y0 = window_origin(cpu_job.camera, ALPHA_WINDOW_POINT)
+    kinds = window_kinds(cpu_job, x0, y0)
+    require(kinds == {"floor", "sphere", "through"},
+            f"alpha window at {(x0, y0)} sees only {sorted(kinds)}")
+    t0 = time.time()
+    card = window_render(job, dev, x0, y0)
+    card_s = time.time() - t0
+    t0 = time.time()
+    cpu = window_render(cpu_job, "cpu", x0, y0)
+    cpu_s = time.time() - t0
+    close, rel_mean = compare_images("alpha window, card vs CPU", cpu, card)
+    out["window"] = {"x0": x0, "y0": y0, "waves": WINDOW_WAVES,
+                     "sees": sorted(kinds), "card_s": card_s, "cpu_s": cpu_s,
+                     "pixels_close": close, "rel_mean": rel_mean,
+                     "img_mean": float(card.mean())}
+    say("alpha_env_path", **out)
+
+
 def window_origin(camera, p):
     """The top-left pixel of the WINDOW x WINDOW window centred on the
     image of world point `p`."""
@@ -1574,6 +1783,9 @@ def main():
     # the material system (its launches are printed on materials_path's
     # line)
     materials_path_phase(dev, main_rays_per_s)
+    # alpha cut-outs and the remaining lights (their launches are printed on
+    # alpha_env_path's line)
+    alpha_env_path_phase(dev, main_rays_per_s)
     # the differentiable render: its launches are printed on grad_path's
     # line, not counted into the kernels line (main_path's are)
     grad_small_phase(dev)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 F32 = torch.float32
@@ -169,6 +170,15 @@ def coordinate_system(v1):
     v2 = where3(big_x, V3(-z * inv_a, zero, x * inv_a),
                 V3(zero, z * inv_a, -y * inv_a))
     return v2, cross(v1, v2)
+
+
+def spherical_theta(v: V3):
+    return torch.arccos(v.z.clamp(-1.0, 1.0))
+
+
+def spherical_phi(v: V3):
+    p = torch.atan2(v.y, v.x)
+    return torch.where(p < 0.0, p + 2.0 * np.pi, p)
 
 
 def xform_point3(m, p: V3) -> V3:

@@ -9,10 +9,11 @@ each multiply, add and left shift is followed by ``& M32``, and right shifts
 always see a non-negative value, so they are logical shifts.
 
 Ported: the hash RNG, ``index_permute``, ``van_der_corput``, ``sobol2``,
-``sample02`` and the warps the integrators use (concentric disk, cosine
-hemisphere, uniform sphere, uniform triangle, power heuristic). Halton / radical inverse,
-stratified and Latin-hypercube helpers and the 1D/2D distributions are not
-ported yet.
+``sample02``, the warps the integrators and lights use (concentric disk,
+cosine hemisphere, uniform sphere, uniform cone, uniform triangle, power
+heuristic) and the host-side 1D / 2D piecewise-constant distributions the
+environment light is built from. Halton / radical inverse, stratified and
+Latin-hypercube helpers are not ported yet.
 """
 from __future__ import annotations
 
@@ -170,6 +171,23 @@ def uniform_sample_sphere(u):
     return vm.V3(r * torch.cos(phi), r * torch.sin(phi), z)
 
 
+UNIFORM_SPHERE_PDF = float(1.0 / (4.0 * np.pi))
+
+
+def uniform_sample_cone(u, cos_theta_max):
+    """Direction in the cone of half-angle acos(cos_theta_max) about +z."""
+    u = vm.from_arr2(u)
+    costheta = (1.0 - u.x) + u.x * cos_theta_max
+    sintheta = torch.sqrt((1.0 - costheta * costheta).clamp_min(0.0))
+    phi = u.y * 2.0 * np.pi
+    return vm.V3(torch.cos(phi) * sintheta, torch.sin(phi) * sintheta,
+                 costheta)
+
+
+def uniform_cone_pdf(cos_theta_max):
+    return 1.0 / (2.0 * np.pi * (1.0 - cos_theta_max).clamp_min(1e-8))
+
+
 def uniform_sample_triangle(u):
     """Barycentric (b1, b2) of a uniform point on a triangle."""
     u = vm.from_arr2(u)
@@ -183,3 +201,46 @@ def power_heuristic(nf, f_pdf, ng, g_pdf):
     f = nf * f_pdf
     g = ng * g_pdf
     return (f * f) / (f * f + g * g).clamp_min(1e-30)
+
+
+# --- Distribution1D / Distribution2D (host numpy) -----------------------------
+
+class Distribution1D:
+    """Piecewise-constant 1D distribution(s) over the last axis, built on the
+    host. func: (..., n) non-negative; cdf (..., n+1). An all-zero row falls
+    back to the uniform distribution."""
+
+    def __init__(self, func):
+        func = np.asarray(func, np.float32)
+        n = func.shape[-1]
+        cdf = np.concatenate([np.zeros(func.shape[:-1] + (1,), np.float32),
+                              np.cumsum(func / n, axis=-1)], axis=-1)
+        total = cdf[..., -1:]
+        uniform_cdf = np.linspace(0.0, 1.0, n + 1, dtype=np.float32)
+        uniform_cdf = np.broadcast_to(uniform_cdf, cdf.shape)
+        self.degenerate = total[..., 0] == 0.0
+        self.cdf = np.where(self.degenerate[..., None], uniform_cdf,
+                            cdf / np.where(total == 0.0, 1.0, total))
+        self.func = np.where(self.degenerate[..., None], np.ones_like(func),
+                             func)
+        self.func_int = np.where(self.degenerate, 1.0 / n, total[..., 0])
+        self.n = n
+
+
+class Distribution2D:
+    """2D distribution: one conditional per row plus the marginal over rows,
+    as flat arrays: cond_cdf (nv, nu+1), cond_func (nv, nu), cond_int (nv,),
+    marg_cdf (nv+1,), marg_func (nv,), marg_int ()."""
+
+    def __init__(self, func2d):
+        func2d = np.asarray(func2d, np.float32)  # (nv, nu)
+        nv, nu = func2d.shape
+        self.nu, self.nv = nu, nv
+        cond = Distribution1D(func2d)             # batched over rows
+        self.cond_cdf = cond.cdf
+        self.cond_func = cond.func
+        self.cond_int = cond.func_int
+        marg = Distribution1D(self.cond_int)
+        self.marg_cdf = marg.cdf
+        self.marg_func = marg.func
+        self.marg_int = marg.func_int

@@ -7,8 +7,9 @@ ray) serve the path integrator; ``estimate_direct`` (MIS light +
 BSDF sampling toward one light, two SEPARATE traversal launches: an any-hit
 shadow wave and a closest-hit wave) and ``uniform_sample_one_light`` /
 ``uniform_sample_all_lights`` built on it serve the direct-lighting
-integrator. There is no environment light yet (``env_light_index`` is -1), so
-an escaped BSDF-sample ray gathers nothing.
+integrator. With an infinite light in the table, a BSDF-sample or extension
+ray that escapes the scene gathers the environment's radiance, MIS-weighted
+against ``env_pdf``; without one that term is never evaluated.
 """
 from __future__ import annotations
 
@@ -33,13 +34,6 @@ def shadow_ray(p, ng, n_side, wi, dist, eps, time=None):
                    time=torch.zeros_like(dist) if time is None else time)
 
 
-def require_no_env_light(lt):
-    if lt.env_light_index >= 0:
-        raise NotImplementedError(
-            "infinite (environment) lights are not ported (ROADMAP Queue 1 "
-            "item 5, remaining lights)")
-
-
 def estimate_direct(scene, it, frame, params, wo, light_idx,
                     u_light, uc_light, u_bsdf, uc_bsdf,
                     flags=bx.ALL & ~bx.SPECULAR):
@@ -47,7 +41,6 @@ def estimate_direct(scene, it, frame, params, wo, light_idx,
     direct radiance estimate."""
     geom = scene.geometry
     lt = scene.lights
-    require_no_env_light(lt)
     p = it["p"]
     eps = st.ray_epsilon(it["t"])
     ns = frame.n
@@ -92,10 +85,19 @@ def estimate_direct(scene, it, frame, params, wo, light_idx,
     light_pdf_b = torch.where(
         same_light, lt_mod.pdf_li_area(lt, light_idx, p, bs.wi, bh.t,
                                        torch.abs(cos_hit)), 0.0)
+    got_light = same_light
+    if lt.env_light_index >= 0:
+        # escaped toward the infinite light
+        escaped = (bh.prim < 0) & (
+            lt.kind[light_idx.clamp_min(0).long()] == lt_mod.INFINITE)
+        li_b = vm.where3(escaped, lt_mod.env_le(lt, bs.wi), li_b)
+        light_pdf_b = torch.where(escaped, lt_mod.env_pdf(lt, bs.wi),
+                                  light_pdf_b)
+        got_light = escaped | same_light
     w_b = torch.where(sampled_specular, 1.0,
                       smp.power_heuristic(1.0, bs.pdf, 1.0, light_pdf_b))
     contrib_b = bs.f * li_b * (cos_b * w_b / bs.pdf.clamp_min(1e-20))
-    return ld + vm.where3(b_usable & same_light, contrib_b, 0.0)
+    return ld + vm.where3(b_usable & got_light, contrib_b, 0.0)
 
 
 def nee_prepare(scene, it, frame, params, wo, u_select, u_light, uc_light,
@@ -143,8 +145,8 @@ def emitter_hit_mis(scene, cur, hits, it, prev_pdf, prev_specular,
     """MIS-weighted emitted radiance gathered by the path-extension ray.
 
     Returns V3: weighted Le for lanes whose extension ray hit an emissive
-    prim. first_vertex / prev_specular lanes get weight 1 (primary
-    visibility or delta-sampled)."""
+    prim or escaped to the infinite light. first_vertex / prev_specular
+    lanes get weight 1 (primary visibility or delta-sampled)."""
     lt = scene.lights
     geom = scene.geometry
     shape, dev = cur.tmin.shape, cur.tmin.device
@@ -163,7 +165,18 @@ def emitter_hit_mis(scene, cur, hits, it, prev_pdf, prev_specular,
         w_surf = torch.ones_like(w_mis)
     else:
         w_surf = torch.where(prev_specular, 1.0, w_mis)
-    return vm.where3(lid >= 0, le * w_surf, 0.0)
+    out = vm.where3(lid >= 0, le * w_surf, 0.0)
+    if lt.env_light_index >= 0:
+        # escaped to the environment light
+        le_env = lt_mod.env_le(lt, cur.d)
+        pdf_env = lt_mod.env_pdf(lt, cur.d) / n_l
+        if first_vertex:
+            w_env = torch.ones_like(pdf_env)
+        else:
+            w_env = torch.where(prev_specular, 1.0, smp.power_heuristic(
+                1.0, prev_pdf, 1.0, pdf_env))
+        out = out + vm.where3(hits.prim < 0, le_env * w_env, 0.0)
+    return out
 
 
 def uniform_sample_one_light(scene, it, frame, params, wo, u_select,

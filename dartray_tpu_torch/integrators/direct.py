@@ -92,6 +92,10 @@ def li(ig: DirectLightingIntegrator, scene: st.CompiledScene, rays, diffs,
     for depth in range(ig.max_depth + 1):
         hits = st.intersect(geom, cur)
         hit = hits.hit & active
+        if lt is not None and lt.env_light_index >= 0:
+            # an escaped ray sees the environment light
+            L = L + vm.where3(active & ~hits.hit,
+                              throughput * lt_mod.env_le(lt, cur.d), 0.0)
         it, frame, params = surface_hit(scene, cur, hits,
                                         diffs0 if depth == 0 else None)
         # emitted radiance at the hit (area lights are visible)

@@ -44,10 +44,13 @@ def li(ig: WhittedIntegrator, scene: st.CompiledScene, rays, diffs, sctx):
     for depth in range(ig.max_depth + 1):
         hits = st.intersect(geom, cur)
         hit = hits.hit & active
+        if lt is not None and lt.env_light_index >= 0:
+            # an escaped ray sees the environment light
+            L = L + vm.where3(active & ~hits.hit,
+                              throughput * lt_mod.env_le(lt, cur.d), 0.0)
         it, frame, params = surface_hit(scene, cur, hits,
                                         diffs0 if depth == 0 else None)
         if lt is not None:
-            common.require_no_env_light(lt)
             le = lt_mod.le_emitted(lt, geom, hits.prim, it["wo"], it["ns"],
                                    lid=it["light_id"])
             L = L + vm.where3(hit, throughput * le, 0.0)

@@ -8,9 +8,11 @@ each parameter slot can carry a texture id (-1 = the constant row value).
 Measured BRDF tables live in one pool beside the rows.
 
 Ported: matte, plastic, mirror, glass, metal, shinymetal, substrate,
-translucent, uber, mix and measured, every texture slot but the opacity one,
-and bump maps. Not ported: subsurface rows (ROADMAP Queue 1 item 8) and
-opacity textures (alpha cut-outs), which ``build_table`` refuses.
+translucent, uber, mix and measured, every texture slot, and bump maps. An
+opacity texture id is kept in its slot and, as in the reference, never read:
+a row renders with its constant opacity, which ``uber`` bakes into its
+transmission. Not ported: subsurface rows (ROADMAP Queue 1 item 8), which
+``build_table`` refuses.
 
 Conductor spectra: the RGB-projected copper eta / k are the default of both
 metal and shinymetal.
@@ -188,15 +190,6 @@ def measured(data: np.ndarray, key: str = "", **tex):
     return row
 
 
-def check_supported(table: MaterialTable):
-    """Raise NotImplementedError for an opacity texture slot: it is the
-    alpha cut-out, which is not ported."""
-    if TEX_OPACITY in table.used_tex_slots:
-        raise NotImplementedError(
-            "opacity textures (alpha cut-outs) are not ported (ROADMAP "
-            "Queue 1 item 6, alpha cut-outs)")
-
-
 def build_table(rows: List[dict]) -> MaterialTable:
     if not rows:
         rows = [matte()]
@@ -227,7 +220,7 @@ def build_table(rows: List[dict]) -> MaterialTable:
         pool_len += nth * ntd * npd
     meas_pool = (np.concatenate(pool) if pool
                  else np.zeros((1, 3), np.float32))
-    table = MaterialTable(
+    return MaterialTable(
         kd=col("kd"), sigma=col("sigma"), kd_t=col("kd_t"), ks=col("ks"),
         exponent=col("exponent"), exponent_v=col("exponent_v"),
         gloss_fresnel=col("gloss_fresnel", np.int32), ks_t=col("ks_t"),
@@ -240,8 +233,6 @@ def build_table(rows: List[dict]) -> MaterialTable:
             s for r in rows for s in range(N_TEX_SLOTS)
             if r["tex_ids"][s] >= 0})),
         has_measured=bool(pool))
-    check_supported(table)
-    return table
 
 
 def _g3(a, m):

@@ -23,7 +23,8 @@ from . import types as st
 
 
 def _arr(x, dtype):
-    a = np.ascontiguousarray(x)
+    a = np.asarray(x)
+    a = np.ascontiguousarray(a).reshape(a.shape)
     if a.dtype != dtype:
         raise TypeError(f"expected {dtype} leaf, got {a.dtype}")
     return a
@@ -83,10 +84,11 @@ def _cluster(d) -> cluster_mod.ClusterBVH:
 
 
 def _geometry(d) -> st.Geometry:
-    if d.get("has_alpha") or d.get("alt_kind"):
+    if d.get("alt_kind"):
         raise NotImplementedError(
-            "alpha cut-outs and the grid / kd-tree accelerators are not "
-            "ported (ROADMAP Queue 1)")
+            "the grid / kd-tree accelerators are not ported (ROADMAP Queue 1 "
+            "item 10, alternate accelerators)")
+    has_alpha = bool(d.get("has_alpha", False))
     return st.Geometry(
         cl=_cluster(d["cl"]), packed=_packed(d["packed"]),
         perm=_i32(d["perm"]), attr=_f32(d["attr"]), attrp=_f32(d["attrp"]),
@@ -95,23 +97,23 @@ def _geometry(d) -> st.Geometry:
         uv=tuple(vm.V2(_f32(c[0]), _f32(c[1])) for c in d["uv"]),
         mat_id=_i32(d["mat_id"]), light_id=_i32(d["light_id"]),
         world_bound=_f32(d["world_bound"]),
+        alpha_tid=_i32(d["alpha_tid"]) if has_alpha else None,
+        alpha_tex=_textures(d["alpha_tex"]) if has_alpha else None,
         n_prims=int(d["n_prims"]), n_nodes=int(d["n_nodes"]),
-        has_motion=bool(d.get("has_motion", False)),
+        has_alpha=has_alpha, has_motion=bool(d.get("has_motion", False)),
         shutter=tuple(d.get("shutter", (0.0, 1.0))))
 
 
 def _materials(d) -> mat_mod.MaterialTable:
     f3 = ("kd", "kd_t", "ks", "ks_t", "kr", "kt", "eta_c", "k_c", "opacity",
           "sigma", "exponent", "exponent_v", "eta")
-    table = mat_mod.MaterialTable(
+    return mat_mod.MaterialTable(
         **{k: _f32(d[k]) for k in f3},
         gloss_fresnel=_i32(d["gloss_fresnel"]),
         spec_fresnel=_i32(d["spec_fresnel"]), tex_ids=_i32(d["tex_ids"]),
         meas_meta=_i32(d["meas_meta"]), meas_pool=_f32(d["meas_pool"]),
         n=int(d["n"]), used_tex_slots=tuple(d["used_tex_slots"]),
         has_measured=bool(d["has_measured"]))
-    mat_mod.check_supported(table)
-    return table
 
 
 def _textures(d) -> tex_mod.TextureData:
@@ -128,25 +130,23 @@ def _textures(d) -> tex_mod.TextureData:
 
 
 def _lights(d) -> lt_mod.LightTable:
-    n = int(d["n"])
-    kind = _i32(d["kind"])
-    if (not np.isin(kind[:n], lt_mod._PORTED).all()
-            or int(d["env_light_index"]) >= 0):
-        raise NotImplementedError(
-            "infinite, projection and goniometric lights are not ported "
-            "(ROADMAP Queue 1, remaining lights)")
     if d.get("tri_rows") is None:
         raise ValueError("the reference light table was built without the "
                          "geometry attr table (tri_rows is None)")
+    env = ("env_map", "env_cond_cdf", "env_cond_func", "env_cond_int",
+           "env_marg_cdf", "env_marg_func", "env_marg_int", "proj_map")
     return lt_mod.LightTable(
-        kind=kind, p=_f32(d["p"]), intensity=_f32(d["intensity"]),
+        kind=_i32(d["kind"]), p=_f32(d["p"]), intensity=_f32(d["intensity"]),
         params=_f32(d["params"]), w2l=_f32(d["w2l"]),
         tri_offset=_i32(d["tri_offset"]), tri_count=_i32(d["tri_count"]),
         tri_area_cdf=_f32(d["tri_area_cdf"]),
         cdf_offset=_i32(d["cdf_offset"]), total_area=_f32(d["total_area"]),
         power_cdf=_f32(d["power_cdf"]), tri_rows=_f32(d["tri_rows"]),
         tri_row_offset=_i32(d["tri_row_offset"]),
-        scene_radius=float(d["scene_radius"]), n=n)
+        **{k: _f32(d[k]) for k in env},
+        scene_radius=float(d["scene_radius"]), n=int(d["n"]),
+        env_light_index=int(d["env_light_index"]), env_w=int(d["env_w"]),
+        env_h=int(d["env_h"]))
 
 
 def from_reference(tree) -> st.CompiledScene:

@@ -11,10 +11,9 @@ integrator configuration.
 Unknown names warn and fall back exactly as in the reference (matte, the
 perspective camera, the lowdiscrepancy sampler). A kind the reference knows
 and the port does not yet have raises ``NotImplementedError`` naming its
-ROADMAP item: here (volumes, subsurface materials, the infinite,
-projection and goniometric lights, cameras, the adaptive sampler) or in the
-module that would build it (``samplers``, ``film``, ``materials``,
-``scene/types``).
+ROADMAP item: here (volumes, subsurface materials, cameras, the adaptive
+sampler) or in the module that would build it (``samplers``, ``film``,
+``materials``, ``scene/types``).
 """
 from __future__ import annotations
 
@@ -44,7 +43,6 @@ ALL_TRANSFORMS_BITS = 3
 # item
 _NOT_PORTED_MATERIALS = dict.fromkeys(("subsurface", "kdsubsurface"),
                                       "item 8, subsurface scattering")
-_NOT_PORTED_LIGHTS = ("infinite", "projection", "goniometric")
 _SAMPLERS = ("lowdiscrepancy", "02sequence", "stratified", "random",
              "halton", "bestcandidate")
 
@@ -534,9 +532,8 @@ class PbrtAPI:
 
     # --- lights -----------------------------------------------------------
     def light_source(self, name, params):
-        if name in _NOT_PORTED_LIGHTS:
-            raise not_ported(f"light {name!r}", "item 5, remaining lights")
         l2w = self.ctm[0]
+        w2l = np.asarray(l2w.m_inv, np.float64)
         scale_ = params.find_one_spectrum("scale", (1, 1, 1))
         if name == "point":
             i = params.find_one_spectrum("I", (1, 1, 1)) * scale_
@@ -570,8 +567,40 @@ class PbrtAPI:
             to_w = np.asarray(l2w.xform_point(np.asarray(to, np.float32)))
             self.builder.add_light(lt_mod.distant_light(frm_w - to_w,
                                                         tuple(L)))
+        elif name == "infinite":
+            # a map that does not load is a warning and a white map: the
+            # scene file's semantics, as in the reference
+            L = params.find_one_spectrum("L", (1, 1, 1)) * scale_
+            env = self._light_map(params, "envmap {!r} load failed")
+            if env is None:
+                env = np.ones((16, 32, 3), np.float32)
+            self.builder.add_light(lt_mod.infinite_light(
+                env, w2l=w2l, L_scale=tuple(L)))
+        elif name in ("projection", "goniometric"):
+            i = params.find_one_spectrum("I", (1, 1, 1)) * scale_
+            p = np.asarray(l2w.xform_point(np.zeros(3, np.float32)))
+            img = self._light_map(params, "light map {!r} failed")
+            if name == "projection":
+                fov = params.find_one_float("fov", 45.0)
+                self.builder.add_light(lt_mod.projection_light(
+                    tuple(p), w2l, tuple(i), fov, proj_map=img))
+            else:
+                self.builder.add_light(lt_mod.goniometric_light(
+                    tuple(p), w2l, tuple(i), gonio_map=img))
         else:
             self.log(f"warning: unknown light {name!r}")
+
+    def _light_map(self, params, failed):
+        """The image a light's "mapname" names, or None (no name, no
+        resolver, or a load that failed: logged as `failed`)."""
+        mapname = params.find_one_string("mapname", "")
+        if not mapname or self.resolver is None:
+            return None
+        try:
+            return io_img.load(self.resolver(mapname, binary=True), mapname)
+        except Exception as e:  # noqa: BLE001
+            self.log(f"warning: {failed.format(mapname)}: {e}")
+            return None
 
     def area_light_source(self, name, params):
         L = params.find_one_spectrum("L", (1, 1, 1))
@@ -678,8 +707,7 @@ class PbrtAPI:
             if uv is None:
                 uv = p.find_uvs("st")
             m = mesh_mod.make_mesh(pts, idx.reshape(-1, 3), normals, uv)
-            # alpha-mask cut-outs: a float texture at the hit uv (the scene
-            # compiler raises for them: not ported)
+            # alpha-mask cut-outs: a float texture at the hit uv
             aname = p.find_texture("alpha")
             if aname is not None:
                 tid = self.tex_ids.get(aname)

@@ -7,14 +7,20 @@ device once, at render entry. The device side (``intersect``,
 ``intersect_p``, ``intersect_pair``, ``interaction``) works on whole
 wavefronts of rays.
 
+A mesh with an alpha texture makes the scene an alpha one: every traversal
+query runs the closest-hit kernel in a static loop of ``ALPHA_ROUNDS``
+launches, each later launch re-tracing only the lanes whose hit landed on a
+texel of alpha below 1e-3 (every other lane dead), so occlusion is a
+closest-hit query too and no launch is a mixed one.
+
 A mesh with ``verts_end`` makes the scene a moving one: ONE shutter-union BVH
 plus per-triangle (close - open) deltas, every traversal carries the rays'
 normalised shutter time and the kernel lerps the leaf triangles to it.
 Finish vertices are lerped too; shading attributes (normals, uv, ``ng``,
 ``dpdu``) stay at shutter start, as in the reference.
 
-Not ported yet (each raises ``NotImplementedError``): alpha cut-outs, the grid
-and kd-tree accelerators.
+Not ported yet (raises ``NotImplementedError``): the grid and kd-tree
+accelerators.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from .. import textures as tex_mod
 from ..accel import bvh as bvh_mod
 from ..accel import cluster as cluster_mod
 from ..accel.traverse import Hits
@@ -59,6 +66,8 @@ class Geometry:
     mat_id: Any
     light_id: Any
     world_bound: Any           # (2, 3)
+    alpha_tid: Any = None      # (F,) int32 alpha texture id (-1 none)
+    alpha_tex: Any = None      # the scene's TextureData when has_alpha
     n_prims: int = 0
     n_nodes: int = 0
     has_alpha: bool = False
@@ -87,23 +96,25 @@ def compile_geometry(meshes, mat_ids=None, light_ids=None,
                      split_method="sah", textures=None,
                      shutter=(0.0, 1.0), accelerator="bvh") -> Geometry:
     """meshes: list of TriangleMesh (world space). mat_ids/light_ids:
-    per-mesh ints. Returns a host (numpy-leaved) Geometry."""
+    per-mesh ints. textures: the scene's TextureData, which the geometry
+    references when a mesh carries an alpha texture (without a texture table
+    the alpha ids are dropped and the scene is not an alpha one). Returns a
+    host (numpy-leaved) Geometry."""
     if not meshes:
         raise ValueError("empty scene")
     if accelerator != "bvh":
         raise NotImplementedError(
             f"accelerator {accelerator!r}: only the cluster BVH is ported "
             "(ROADMAP Queue 1 item 10, alternate accelerators)")
-    if any(getattr(m, "alpha_tid", -1) >= 0 for m in meshes):
-        raise NotImplementedError(
-            "alpha cut-outs are not ported (ROADMAP Queue 1 item 6, alpha "
-            "cut-outs)")
     n_meshes = len(meshes)
     mat_ids = mat_ids if mat_ids is not None else [0] * n_meshes
     light_ids = light_ids if light_ids is not None else [-1] * n_meshes
 
+    alpha_ids = []
     v0s, e1s, e2s, vns, uvs, mids, lids = [], [], [], [], [], [], []
     for m, mid, lid in zip(meshes, mat_ids, light_ids):
+        alpha_ids.append(np.full(m.faces.shape[0],
+                                 getattr(m, "alpha_tid", -1), np.int32))
         v0, e1, e2 = bvh_mod.triangles_to_mt(m.verts, m.faces)
         f = m.faces
         if m.normals is not None:
@@ -150,7 +161,8 @@ def compile_geometry(meshes, mat_ids=None, light_ids=None,
     uv_all = np.concatenate(uvs)          # (F, 3 corners, 2)
     mat_all = np.concatenate(mids)
     light_all = np.concatenate(lids)
-    alpha_tid = np.full(v0.shape[0], -1, np.int32)
+    alpha_tid = np.concatenate(alpha_ids)
+    has_alpha = bool((alpha_tid >= 0).any()) and textures is not None
     attr = _pack_attr(v0, e1, e2, vn_all, uv_all, mat_all, light_all,
                       alpha_tid)
     # packed-order combined finish+interaction rows: attr rows reordered to
@@ -169,7 +181,9 @@ def compile_geometry(meshes, mat_ids=None, light_ids=None,
                  for k in range(3)),
         mat_id=mat_all, light_id=light_all,
         world_bound=wb.astype(np.float32),
-        n_prims=int(v0.shape[0]), n_nodes=cb.n_nodes,
+        alpha_tid=alpha_tid if has_alpha else None,
+        alpha_tex=textures if has_alpha else None,
+        n_prims=int(v0.shape[0]), n_nodes=cb.n_nodes, has_alpha=has_alpha,
         has_motion=has_motion, shutter=tuple(shutter))
 
 
@@ -241,7 +255,8 @@ def to_device(tree, device=device_mod.DEFAULT):
 
     def walk(x):
         if isinstance(x, np.ndarray):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            return torch.from_numpy(
+                np.ascontiguousarray(x).reshape(x.shape)).to(dev)
         if torch.is_tensor(x):
             return x.to(dev)
         if isinstance(x, np.generic):
@@ -276,18 +291,18 @@ def _bits_i32(col):
     return col.contiguous().view(torch.int32)
 
 
-# traversal queries issued on either device: the rays handed to intersect,
-# intersect_p and intersect_pair (both halves). The render manager reads how
-# far it moves over a render; on the card it equals the traversal launches
-# times their lanes, since a launch takes its whole wave
+# traversal queries issued on either device: the rays handed to the
+# kernel's launcher, one count per launch of a wave (an alpha query's
+# continuation rounds and intersect_p's own count each add the wave again,
+# as the reference's QUERY_LOG does). The render manager reads how far it
+# moves over a render; on the card it equals the traversal launches times
+# their lanes, since a launch takes its whole wave
 QUERIES = {"rays": 0}
 
+ALPHA_ROUNDS = 4     # cut layers a query pierces at most: 1 + 3 re-traces
 
-def _query(geom, *rays):
-    if geom.has_alpha:
-        raise NotImplementedError(
-            "alpha cut-outs are not ported (ROADMAP Queue 1 item 6, alpha "
-            "cut-outs)")
+
+def _query(*rays):
     QUERIES["rays"] += sum(r.n for r in rays)
 
 
@@ -300,12 +315,9 @@ def _shutter_time01(geom: Geometry, rays):
     return ((rays.time - open_) / max(close - open_, 1e-9)).clamp(0.0, 1.0)
 
 
-@torch.no_grad()
-def intersect(geom: Geometry, rays, sort: bool = True) -> Hits:
-    """Closest hit over the scene BVH. No gradient passes the traversal:
-    visibility decisions carry no derivative, shading is evaluated at the
-    returned hit points."""
-    _query(geom, rays)
+def _closest(geom: Geometry, rays, sort: bool) -> Hits:
+    """One closest-hit launch over the wave, finished with its attr rows."""
+    _query(rays)
     t, prim, b1, b2, rows = tc.intersect_rays(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
         rays.o, rays.d, rays.tmin, rays.tmax, any_hit=False, sort=sort,
@@ -313,14 +325,67 @@ def intersect(geom: Geometry, rays, sort: bool = True) -> Hits:
     return Hits(t=t, prim=prim, b1=b1, b2=b2, rows=rows)
 
 
+def _alpha_cut(geom: Geometry, hits: Hits):
+    """True where a hit lands on a texel of alpha below 1e-3 of an
+    alpha-masked face. The alpha texture is evaluated at the hit's uv with
+    p = 0, so a 3-D texture is read at the origin, as in the reference. The
+    face's uv corners and alpha id come from the hit's attr rows (columns
+    27-32 and 35); without rows they are gathered."""
+    rows = hits.rows
+    if rows is None:
+        rows = attr_rows(geom, hits.prim.clamp_min(0))
+    tid = _bits_i32(rows[35])
+    b0 = 1.0 - hits.b1 - hits.b2
+    uv = vm.V2(rows[27] * b0 + rows[29] * hits.b1 + rows[31] * hits.b2,
+               rows[28] * b0 + rows[30] * hits.b1 + rows[32] * hits.b2)
+    it = {"uv": uv, "p": vm.v3zeros(b0.shape, b0.device)}
+    a = tex_mod.eval_or(geom.alpha_tex, tid, it,
+                        vm.v3ones(b0.shape, b0.device))
+    return (hits.prim >= 0) & (tid >= 0) & (a.x < 1e-3)
+
+
+@torch.no_grad()
+def intersect(geom: Geometry, rays, sort: bool = True) -> Hits:
+    """Closest hit over the scene BVH. No gradient passes the traversal:
+    visibility decisions carry no derivative, shading is evaluated at the
+    returned hit points.
+
+    On an alpha scene the query is ALPHA_ROUNDS launches whatever the lanes
+    hold: after each of the first three, the lanes whose hit is cut re-trace
+    from just past it (tmin = t + ray_epsilon(t)) and every other lane is
+    dead (tmax = -1); the re-traced hits replace the cut ones. A ray that
+    pierces more than three cut layers keeps its fourth hit, cut or not."""
+    h = _closest(geom, rays, sort)
+    if not geom.has_alpha:
+        return h
+    cand = torch.ones_like(h.prim, dtype=torch.bool)
+    for _ in range(ALPHA_ROUNDS - 1):
+        cut = cand & _alpha_cut(geom, h)
+        cont = rays._replace(
+            tmin=torch.where(cut, h.t + ray_epsilon(h.t), rays.tmin),
+            tmax=torch.where(cut, rays.tmax, -1.0))
+        h2 = _closest(geom, cont, sort)
+        h = Hits(t=torch.where(cut, h2.t, h.t),
+                 prim=torch.where(cut, h2.prim, h.prim),
+                 b1=torch.where(cut, h2.b1, h.b1),
+                 b2=torch.where(cut, h2.b2, h.b2),
+                 rows=torch.where(cut[None, :], h2.rows, h.rows))
+        cand = cut
+    return h
+
+
 @torch.no_grad()
 def intersect_pair(geom: Geometry, ext_rays, shadow_rays):
     """Closest hit over ext_rays + any-hit over shadow_rays in ONE merged
     traversal launch (the kernel's mixed mode): both sets start at the same
-    bounce hit points, so they share the coherence sort and the launch.
+    bounce hit points, so they share the coherence sort and the launch. An
+    alpha scene takes ``intersect`` and ``intersect_p`` instead: its
+    continuation loops need the split form.
 
     Returns (Hits for ext_rays, occluded bool for shadow_rays)."""
-    _query(geom, ext_rays, shadow_rays)
+    if geom.has_alpha:
+        return intersect(geom, ext_rays), intersect_p(geom, shadow_rays)
+    _query(ext_rays, shadow_rays)
     t, prim, b1, b2, occ, rows = tc.intersect_rays_pair(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
         ext_rays.o, ext_rays.d, ext_rays.tmin, ext_rays.tmax,
@@ -332,8 +397,11 @@ def intersect_pair(geom: Geometry, ext_rays, shadow_rays):
 
 @torch.no_grad()
 def intersect_p(geom: Geometry, rays, sort: bool = True):
-    """Any-hit occlusion: (R,) bool."""
-    _query(geom, rays)
+    """Any-hit occlusion: (R,) bool. On an alpha scene a blocker may be a
+    cut texel, so occlusion is ``intersect`` and a hit test."""
+    _query(rays)
+    if geom.has_alpha:
+        return intersect(geom, rays, sort=sort).prim >= 0
     _, prim, _, _ = tc.intersect_rays(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
         rays.o, rays.d, rays.tmin, rays.tmax, any_hit=True, sort=sort,

@@ -1,7 +1,8 @@
 """PyTorch port, host side: the port's own scene compiler (numpy, no JAX)
 against the reference's, leaf by leaf and bit for bit; the adapter that
-carries a reference scene over; the branches this slice leaves out, which
-must raise by name instead of rendering something else.
+carries a reference scene over; the branches the port leaves out, which
+must raise by name instead of rendering something else, and those that
+raised before and are ported since, held against the reference's tables.
 """
 import numpy as np
 import pytest
@@ -26,7 +27,7 @@ import torchhelp as th
 torch.set_num_threads(1)
 
 
-def _assert_same_leaves(port_tree, ref_tree):
+def _assert_same_leaves(port_tree, ref_tree, min_leaves=61):
     n = 0
     for path, leaf in th.port_leaves(port_tree).items():
         want = th.ref_leaf(ref_tree, path)
@@ -39,7 +40,7 @@ def _assert_same_leaves(port_tree, ref_tree):
         else:
             assert leaf == want, path
         n += 1
-    assert n > 60      # the whole tree was walked, not an empty one
+    assert n >= min_leaves    # the whole tree was walked, not an empty one
 
 
 def _builders(variant):
@@ -94,18 +95,32 @@ def test_from_reference_round_trip():
     assert (ids >= -1).all() and ids.max() == ref["geometry"]["n_prims"] - 1
 
 
+def _checker_textures(mod):
+    """A texture table of two constants under a 4x4 checkerboard (id 2)."""
+    b = mod.TextureBuilder()
+    b.add(mod.CONST, (1.0, 1.0, 1.0))
+    b.add(mod.CONST, (0.0, 0.0, 0.0))
+    b.add(mod.CHECKER2D, params=(4, 4, 0, 0, 8, 0.5, 1, 0), sub=(0, 1))
+    return b.build()
+
+
 def test_from_reference_refuses_what_is_not_ported():
-    """The grid accelerator, alpha cut-outs and participating media raise;
-    a plastic row (ported since the material system) is carried."""
+    """The grid accelerator and participating media raise; a plastic row
+    (ported since the material system) and an alpha-masked floor (ported
+    since the alpha cut-outs) are carried leaf by leaf."""
+    from dartray_tpu import textures as ref_tex
     ref = th.np_tree(ref_sb.cornell_box(
         sphere_material=None).build())
     ref["geometry"]["alt_kind"] = "grid"
     with pytest.raises(NotImplementedError):
         adapt.from_reference(ref)
-    ref = th.np_tree(ref_sb.cornell_box().build())
-    ref["geometry"]["has_alpha"] = True
-    with pytest.raises(NotImplementedError, match="alpha"):
-        adapt.from_reference(ref)
+    rb = ref_sb.cornell_box()
+    rb.textures = _checker_textures(ref_tex)
+    rb.meshes[0].alpha_tid = 2
+    ref = th.np_tree(rb.build())
+    scene = adapt.from_reference(ref)
+    assert scene.geometry.has_alpha and ref["geometry"]["has_alpha"]
+    _assert_same_leaves(scene, ref)
     ref = th.np_tree(ref_sb.cornell_box().build())
     ref["volume"] = {"kind": np.zeros(1, np.int32)}
     with pytest.raises(NotImplementedError, match="media"):
@@ -116,20 +131,9 @@ def test_from_reference_refuses_what_is_not_ported():
     _assert_same_leaves(adapt.from_reference(ref), ref)
 
 
-def _cutout_mesh():
-    m = mesh_mod.sphere(nu=8, nv=4)
-    m.alpha_tid = 0
-    return m
-
-
 @pytest.mark.parametrize("name,call", [
     ("subsurface_row", lambda: mat_mod.build_table(
         [dict(mat_mod.plastic(), _sss=((1, 1, 1), (0, 0, 0), 1.3))])),
-    ("opacity_texture", lambda: mat_mod.build_table(
-        [mat_mod.matte(tex_ids={mat_mod.TEX_OPACITY: 0})])),
-    ("goniometric_light", lambda: lt_mod.build_table(
-        [lt_mod.LightSpec(lt_mod.GONIOMETRIC)],
-        attr=np.zeros((1, 48), np.float32))),
     ("sampler_random", lambda: samplers.make_sampler("random")),
     ("sampler_halton", lambda: samplers.make_sampler("halton")),
     ("filter_gaussian", lambda: film_mod.make_film(4, 4, "gaussian",
@@ -139,10 +143,6 @@ def _cutout_mesh():
     ("spectrum_sampled", lambda: spec.set_mode("sampled")),
     ("accel_grid", lambda: st.compile_geometry(
         [mesh_mod.sphere(nu=8, nv=4)], accelerator="grid")),
-    ("alpha", lambda: st.compile_geometry([_cutout_mesh()])),
-    ("infinite_light", lambda: lt_mod.build_table(
-        [lt_mod.LightSpec(lt_mod.INFINITE)],
-        attr=np.zeros((1, 48), np.float32))),
 ])
 def test_left_out_branch_raises_by_name(name, call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -159,6 +159,34 @@ def _image_textures(mod):
     return b.build()
 
 
+def _light_maps():
+    rng = np.random.RandomState(7)
+    env = (rng.rand(6, 10, 3).astype(np.float32) ** 2) * 2.0
+    env[1, 3] = 30.0
+    gonio = rng.rand(5, 8, 3).astype(np.float32)
+    w2l = np.asarray([[0.8, 0.0, -0.6, 0.2], [0.0, 1.0, 0.0, -1.0],
+                      [0.6, 0.0, 0.8, 0.3], [0, 0, 0, 1]], np.float64)
+    return env, gonio, w2l
+
+
+def _ported_since_lights(name, lt, tex, geo, mesh):
+    """The refusals of light kinds, opacity textures and alpha cut-outs,
+    before the slice that ported them: each builds the reference's table."""
+    env, gonio, w2l = _light_maps()
+    attr = np.zeros((1, 48), np.float32)
+    if name == "goniometric_light":
+        return lt.build_table([lt.goniometric_light(
+            (0.1, 2.0, 0.3), w2l, (2.0, 1.5, 1.0), gonio_map=gonio)],
+            attr=attr)
+    if name == "infinite_light":
+        return lt.build_table([lt.infinite_light(
+            env, w2l=w2l, L_scale=(1.5, 1.0, 0.5))], scene_radius=7.5,
+            attr=attr)
+    m = mesh.sphere(nu=8, nv=4)
+    m.alpha_tid = 2
+    return geo.compile_geometry([m], textures=_checker_textures(tex))
+
+
 # what the refusals above held before the material system was ported: each
 # now builds the reference's table, leaf by leaf
 PORTED_BRANCHES = {
@@ -172,12 +200,26 @@ PORTED_BRANCHES = {
     "conductor_row": lambda m: [m._row(kr=(1, 1, 1),
                                        spec_fresnel=m.FR_CONDUCTOR)],
     "bump": lambda m: [m.matte(tex_ids={m.TEX_BUMP: 0})],
+    "opacity_texture": lambda m: [m.matte(tex_ids={m.TEX_OPACITY: 0})],
 }
+PORTED_SINCE_LIGHTS = ("goniometric_light", "infinite_light", "alpha")
 
 
-@pytest.mark.parametrize("name", sorted(PORTED_BRANCHES) + ["image_texture"])
+@pytest.mark.parametrize("name", sorted(PORTED_BRANCHES) + ["image_texture"]
+                         + list(PORTED_SINCE_LIGHTS))
 def test_branch_ported_since_builds_the_references_table(name):
+    from dartray_tpu import lights as ref_lt
     from dartray_tpu import textures as ref_tex
+    from dartray_tpu.scene import mesh as ref_mesh
+    from dartray_tpu.scene import types as ref_st
+    if name in PORTED_SINCE_LIGHTS:
+        port = _ported_since_lights(name, lt_mod, textures, st, mesh_mod)
+        ref = th.np_tree(_ported_since_lights(name, ref_lt, ref_tex, ref_st,
+                                              ref_mesh))
+        if name == "alpha":
+            assert port.has_alpha and (port.alpha_tid == 2).all()
+        _assert_same_leaves(port, ref, min_leaves=24)
+        return
     if name == "image_texture":
         port = _image_textures(textures)
         ref = th.np_tree(_image_textures(ref_tex))

@@ -372,14 +372,48 @@ def test_path_image_is_brighter_than_direct(cornell):
 
 
 def test_environment_light_still_raises(lit):
-    """What the integrators leave out raises by name."""
-    import dataclasses
-    lt = dataclasses.replace(lit["scene"].lights, env_light_index=0)
-    scene = dataclasses.replace(lit["scene"], lights=lt)
-    li = torch.zeros(lit["n"], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        common.estimate_direct(scene, lit["it"], lit["frame"], lit["params"],
-                               lit["it"]["wo"], li, *_ed_args(lit, "port"))
+    """What raised before the remaining lights were ported: estimate_direct
+    with an infinite light in the table equals the reference's, toward the
+    infinite light (its map sampled; an escaped BSDF ray gathers Le,
+    MIS-weighted by env_pdf) and toward the area light beside it."""
+    rng = np.random.RandomState(12)
+    env = (rng.rand(8, 16, 3).astype(np.float32) ** 2) * 2.0
+    env[2, 5] = 25.0
+    w2l = np.asarray(ref_tr.rotate_y(35.0).m, np.float64)
+    rb = ref_sb.cornell_box()
+    rb.add_light(ref_lt.infinite_light(env, w2l=w2l, L_scale=(1.0, 0.9, 0.8)))
+    host = rb.build()
+    assert host.lights.env_light_index == 0
+    rscene = ref_st.to_device(host)
+    scene = st.to_device(adapt.from_reference(th.np_tree(host)), "cpu")
+    m = lit["hit"]
+    for light in (0, 1):
+        li = np.full(lit["n"], light, np.int32)
+        want = ref_common.estimate_direct(
+            rscene, lit["rit"], lit["rframe"], lit["rparams"],
+            lit["rit"]["wo"], jnp.asarray(li), *_ed_args(lit, "ref"))
+        got = common.estimate_direct(
+            scene, lit["it"], lit["frame"], lit["params"], lit["it"]["wo"],
+            torch.from_numpy(li), *_ed_args(lit, "port"))
+        close = np.isclose(th.n3(got)[m], th.n3(want)[m], rtol=RTOL,
+                           atol=ATOL).all(-1)
+        assert close.mean() >= 0.99, (light, close.mean())
+        assert th.n3(got)[m].sum() > 0
+
+
+@pytest.mark.parametrize("scene", ["alpha.pbrt", "lights.pbrt"])
+def test_alpha_and_env_scenes_run_on_the_card_by_default(scene):
+    """No CUDA device here: an alpha scene and an environment-lit scene
+    asked for with the default device raise; nothing falls back."""
+    import os
+    from dartray_tpu_torch.renderers import manager
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scenes", scene)
+    with pytest.raises(RuntimeError, match="cuda"):
+        manager.render_pbrt(path, overrides={"quick_render": True},
+                            log=lambda *a, **k: None)
 
 
 @pytest.mark.parametrize("entry", ["direct", "whitted", "ao"])

@@ -369,14 +369,11 @@ def test_unknown_names_warn_and_fall_back_as_the_reference():
 
 
 NOT_PORTED = {
-    "igi-env.pbrt": ("file", "item 5"),
+    "igi-env.pbrt": ("file", "item 7"),
     "smoke.pbrt": ("file", "item 8"),
     "subsurface": (_scene('Material "kdsubsurface"\n' + QUAD), "item 8"),
     "subsurface_named": (_scene('MakeNamedMaterial "s" "string type" '
                                 '"subsurface"\n'), "item 8"),
-    "alpha": (_scene('Texture "a" "float" "constant" "float value" [0.5]\n'
-                     + QUAD.replace("\n", ' "texture alpha" "a"\n')),
-              "item 6"),
     "orthographic": (_scene("").replace('"perspective" "float fov" [40]',
                                         '"orthographic"'), "item 7"),
     "animated_camera": ("ActiveTransform EndTime\nTranslate 0 0 1\n"
@@ -400,19 +397,44 @@ def test_known_but_unported_kinds_raise_naming_their_item(case):
                      device="cpu")
 
 
-# kinds that raised before the material system was ported: each file now
-# compiles to the reference's scene, leaf by leaf
+# kinds that raised before the material system, the alpha cut-outs and the
+# remaining lights were ported: each file now compiles to the reference's
+# scene, leaf by leaf (the light maps resolved from scenes/, a map that does
+# not load falls back as in the reference)
 PORTED_KINDS = {
     "plastic": 'Material "plastic"\n' + QUAD,
     "imagemap": ('Texture "i" "color" "imagemap" "string filename" "x.png"\n'
                  'Material "matte" "texture Kd" "i"\n' + QUAD),
+    "alpha": ('Texture "a" "float" "checkerboard" "float uscale" [4] '
+              '"float vscale" [4] "float tex1" [1] "float tex2" [0]\n'
+              + QUAD.replace("\n", ' "float uv" [0 0 1 0 1 1 0 1] '
+                             '"texture alpha" "a"\n')),
+    "infinite": ('Rotate -90 1 0 0\nLightSource "infinite" "string mapname" '
+                 '["envmap.pfm"] "color L" [1 0.8 0.6]\n' + QUAD),
+    "infinite_no_map": ('LightSource "infinite" "string mapname" '
+                        '["missing.pfm"]\n' + QUAD),
+    "projection": ('Translate 0 2 -1\nLightSource "projection" "string '
+                   'mapname" ["materials.pfm"] "float fov" [50] "rgb I" '
+                   '[5 5 5]\n' + QUAD),
+    "goniometric": ('Rotate 30 1 0 0\nLightSource "goniometric" "string '
+                    'mapname" ["envmap.pfm"] "rgb I" [3 3 3]\n' + QUAD),
+}
+PORTED_KIND_HOLDS = {
+    "alpha": lambda s: s.geometry.has_alpha,
+    "infinite": lambda s: s.lights.env_light_index == 0
+    and s.lights.env_map.shape == (32, 64, 3),
+    "infinite_no_map": lambda s: s.lights.env_map.shape == (16, 32, 3),
+    "projection": lambda s: s.lights.proj_map.shape[:2] == (20, 24),
+    "goniometric": lambda s: s.lights.proj_map.shape[:2] == (32, 64),
 }
 
 
 @pytest.mark.parametrize("case", sorted(PORTED_KINDS))
 def test_kinds_ported_since_compile_equal(case):
-    port, _ = _same_scene(_scene(PORTED_KINDS[case]))
-    assert port.scene.materials.n >= 2
+    port, _ = _same_scene(_scene(PORTED_KINDS[case]), resolvers=(
+        resources.Resolver([SCENES]), ref_res.Resolver([SCENES])))
+    assert PORTED_KIND_HOLDS.get(case, lambda s: s.materials.n >= 2)(
+        port.scene)
 
 
 def test_kdtree_override_and_sampled_spectrum_raise():

@@ -62,7 +62,8 @@ STAGES = [
     (common, "nee_prepare"), (common, "emitter_hit_mis"),
     (common, "estimate_direct"), (lights, "sample_li"), (bsdf, "f"),
     (tc, "sort_key_i32"), (tc, "_sorted_launch"), (tc, "traverse6"),
-    (tc, "finish_hits_rows"), (film_mod, "add_samples"),
+    (tc, "finish_hits_rows"), (st, "_alpha_cut"), (lights, "env_le"),
+    (lights, "env_pdf"), (lights, "_env_sample"), (film_mod, "add_samples"),
     (film_mod, "add_samples_functional"), (torch.autograd, "grad"),
 ]
 
