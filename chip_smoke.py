@@ -92,6 +92,28 @@ and the script exits non-zero:
                32x32 window of (b) about the sphere's pole, where every band
                is hit, its first 2 waves on the card against the CPU by
                compare_images
+  alpha_env_path  alpha cut-outs and the remaining lights: scenes/alpha.pbrt
+               and scenes/lights.pbrt against tools/lights_golden.npz; the
+               bench scene under an environment light with an alpha-masked
+               floor at full width (48 closest launches a wave); a window
+               card vs CPU
+  sampling_path  samplers, filters, cameras, the sampled spectrum mode,
+               checkpoints and the adaptive renderer: (a) five variants of
+               scenes/sampling.pbrt (orthographic / stratified / mitchell,
+               environment / halton / gaussian, an animated camera / random
+               / sinc, bestcandidate at 32 spp / triangle in the sampled
+               mode, adaptive / a wide box) through render_pbrt against
+               tools/sampling_golden.npz, 5 v6 launches a wave and no other
+               kernel, the adaptive renderer's refined pixels equal; a
+               render stopped after wave 2 and resumed from its checkpoint
+               equal to the uninterrupted one bit for bit; (b1) the bench
+               scene through render with stratified 8x8 and mitchell (a 5x5
+               footprint on every sample), (b2) its .pbrt text with the
+               environment camera, halton, gaussian in the sampled mode
+               through render_pbrt: 64 waves of 7 v6 launches and no other
+               kernel, render seconds, rays/s beside main_path's, device
+               kernels a wave; (c) 32x32 windows of (b1) and (b2) at the
+               image's corner, first 2 waves, card vs CPU
   grad_small   the gradient of the Cornell render's mean w.r.t. materials.kd
                and lights.intensity (32x32, 4 spp, depth 3): card against
                CPU (plain traversal) within 2e-3 of the largest element,
@@ -134,6 +156,7 @@ from dartray_tpu_torch import film as film_mod
 from dartray_tpu_torch import stats as stats_mod
 from dartray_tpu_torch.accel import native
 from dartray_tpu_torch.core import math as vm
+from dartray_tpu_torch.core import spectrum as spec
 from dartray_tpu_torch.core import transform as tr
 from dartray_tpu_torch.integrators import ao as ao_mod
 from dartray_tpu_torch.integrators import direct as di
@@ -144,6 +167,7 @@ from dartray_tpu_torch.ops import traverse_cuda as tc
 from dartray_tpu_torch.renderers import manager
 from dartray_tpu_torch.renderers import sampler as rend
 from dartray_tpu_torch.scene import build as sb
+from dartray_tpu_torch.scene import paramset
 from dartray_tpu_torch.scene import parser
 from dartray_tpu_torch.scene import resources
 from dartray_tpu_torch.scene import types as st
@@ -1240,12 +1264,15 @@ def materials_bench_pbrt(path):
 
 def window_render(job, where, x0, y0):
     """The first WINDOW_WAVES waves of `job` over the WINDOW x WINDOW pixels
-    at (x0, y0) on `where`, into a full-size film (the same samples as the
-    whole render's first waves); returns the window's pixels."""
+    at (x0, y0) on `where`, into a full-size film under the job's filter
+    (the same samples as the whole render's first waves); returns the
+    window's pixels."""
     scene = st.to_device(job.scene, where)
     li = manager.build_surface_li(job, log=QUIET)
     px, py = rend.pixel_grid(WINDOW, WINDOW, x0=x0, y0=y0, device=where)
-    film = film_mod.make_film(job.width, job.height, device=where)
+    film = film_mod.make_film(job.width, job.height,
+                              filter_name=job.filter_name,
+                              filter_params=job.filter_params, device=where)
     with torch.no_grad():
         for s in range(WINDOW_WAVES):
             film = rend.render_wave(
@@ -1577,6 +1604,278 @@ def alpha_env_path_phase(dev, main_rays_per_s):
     say("alpha_env_path", **out)
 
 
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tools"))
+import make_sampling_golden as sampling_golden  # noqa: E402
+
+SAMPLING_DEPTH = 3            # scenes/sampling.pbrt's path depth
+SAMPLING_WAVES = {"v4": 32, "v5": 8}      # the others: 4 waves
+
+
+def device_kernels_a_wave(wave):
+    """Device kernels one call of `wave` runs, from a torch.profiler trace
+    (an entry with device time and no host time lies on the card's
+    timeline)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wave()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.cpu_time_total == 0 and e.self_device_time_total > 0)
+
+
+def profiled_wave(job, dev, s):
+    """One wave of `job` at sample index `s` into a film of its filter, for
+    ``device_kernels_a_wave``."""
+    scene = st.to_device(job.scene, dev)
+    li = manager.build_surface_li(job, log=QUIET)
+    px, py = rend.pixel_grid(job.width, job.height, device=dev)
+    film = film_mod.make_film(job.width, job.height,
+                              filter_name=job.filter_name,
+                              filter_params=job.filter_params, device=dev)
+
+    def wave():
+        with torch.no_grad():
+            rend.render_wave(
+                scene, job.camera, job.sampler, film, px, py,
+                torch.full(px.shape, s, dtype=torch.int32, device=dev),
+                li_fn=li, width=job.width, height=job.height,
+                spp=job.sampler.spp, device=dev)
+    return wave
+
+
+def wave_ms(wave, waves=4):
+    """Host-clock ms a call of `wave` takes, after one warm-up call, over
+    `waves` calls ended by a synchronize."""
+    wave()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(waves):
+        wave()
+    torch.cuda.synchronize()
+    return (time.time() - t0) / waves * 1e3
+
+
+def sampling_bench_b2(path):
+    """The bench scene's .pbrt text with the environment camera (from the
+    bench camera's eye), halton at SPP and the gaussian filter."""
+    bench_scene_pbrt(path)
+    with open(path) as f:
+        text = f.read()
+    for old, new in (
+            (f'Sampler "lowdiscrepancy" "integer pixelsamples" [{SPP}]',
+             f'Sampler "halton" "integer pixelsamples" [{SPP}]\n'
+             'PixelFilter "gaussian"'),
+            ('Camera "perspective" "float fov" [42]',
+             'Camera "environment"')):
+        require(old in text, f"bench .pbrt text lacks {old!r}")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+    return text
+
+
+def sampling_path_phase(dev, main_rays_per_s):
+    """Samplers, filters, cameras, the sampled spectrum mode, checkpoints
+    and the adaptive renderer on the card, through the v6 kernel. (a) The
+    five variants of scenes/sampling.pbrt through ``render_pbrt`` against
+    the reference's renders (tools/sampling_golden.npz) by
+    ``compare_images``: 1 closest, 3 mixed and 1 any-hit launch a wave and
+    no other kernel, the adaptive renderer's refinement waves included, its
+    refined pixels equal to the reference's; V1 stopped after wave 2 and
+    resumed from its checkpoint equals the uninterrupted render bit for
+    bit. (b1) The bench scene through ``render`` with stratified 8x8 and
+    mitchell, (b2) its .pbrt text with the environment camera, halton and
+    gaussian in the sampled mode through ``render_pbrt``: every lane live,
+    7 v6 launches a wave and no other kernel, a finite image; render
+    seconds and rays/s beside main_path's and device kernels a wave beside
+    main_path's wave, and the three waves' host-clock ms timed in turns
+    (main, b1, b2, b2, b1, main). (c) A WINDOW x WINDOW window of each at
+    the image's lower left corner (footprints cross the edge), first
+    WINDOW_WAVES waves, card against CPU by ``compare_images``. The spectrum mode is "rgb" again
+    after each sampled render."""
+    os.makedirs(PBRT_DIR, exist_ok=True)
+    golden = np.load(sampling_golden.GOLDEN)
+    out = {}
+    # (a) the five variants against the reference
+    for name in sampling_golden.VARIANTS:
+        waves = SAMPLING_WAVES.get(name, 4)
+        messages = []
+        tc.reset_overflow(dev)
+        tc.reset_launches()
+        t0 = time.time()
+        try:
+            img = manager.render_pbrt(
+                sampling_golden.variant_text(name),
+                search_paths=[SCENES_DIR],
+                overrides=sampling_golden.OVERRIDES.get(name),
+                log=lambda m, *a, **k: messages.append(str(m)), device=dev)
+            torch.cuda.synchronize()
+        finally:
+            spec.set_mode("rgb")
+        secs = time.time() - t0
+        launches = counted_launches()
+        want = {"traverse6:closest": waves,
+                "traverse6:mixed": SAMPLING_DEPTH * waves,
+                "traverse6:any": waves}
+        require(launches == want, f"sampling {name}: kernel launches "
+                f"{launches}, expected {want}")
+        require(int(tc.overflow_flag(dev).item()) == 0,
+                f"sampling {name}: stack overflow in the kernel")
+        close, rel_mean = compare_images(f"sampling {name} vs the reference",
+                                         golden[name], img)
+        out[name] = {"seconds": secs, "launches": launches,
+                     "pixels_close": close, "rel_mean": rel_mean,
+                     "img_mean": float(img.mean())}
+        if name == "v5":
+            refined = sampling_golden.refined_from(messages)
+            require(refined == int(golden["v5_n_refined"]),
+                    f"adaptive: {refined} pixels refined, the reference "
+                    f"{int(golden['v5_n_refined'])}")
+            out[name]["n_refined"] = refined
+    # a V1 render stopped after wave 2 and resumed from its checkpoint
+    job = parser.parse(sampling_golden.variant_text("v1"),
+                       resolver=resources.Resolver([SCENES_DIR]), log=QUIET,
+                       device=dev)
+    li = manager.build_surface_li(job, log=QUIET)
+    args = (job.scene, job.camera, job.sampler, li, job.width, job.height)
+    kw = dict(filter_name=job.filter_name, filter_params=job.filter_params,
+              device=dev)
+    whole = rend.render(*args, **kw)
+    ck = os.path.join(PBRT_DIR, "sampling_v1.ckpt.npz")
+    if os.path.exists(ck):
+        os.remove(ck)
+
+    class Stop(Exception):
+        pass
+
+    def stop_after_2(s, spp, film):
+        if s > 2:           # the wave-2 checkpoint is written after wave 2
+            raise Stop()
+    try:
+        rend.render(*args, checkpoint_path=ck, checkpoint_every=2,
+                    progress=stop_after_2, **kw)
+        require(False, "checkpoint: the render was not stopped")
+    except Stop:
+        pass
+    resumed = rend.render(*args, checkpoint_path=ck, checkpoint_every=2,
+                          **kw)
+    require(np.array_equal(resumed, whole),
+            "checkpoint: the resumed render differs from the whole one")
+    out["checkpoint"] = {"resumed_equals_whole": True, "waves": job.sampler.spp}
+    # the main path's wave, for the device kernels a wave
+    cam, smp, _, _, _ = camera_wave(dev)
+    main_job = manager.RenderJob(
+        scene=sb.bench_scene().build(), camera=cam, sampler=smp,
+        width=WIDTH, height=HEIGHT, filter_name="box", filter_params=None,
+        surf_integrator="path", surf_params=paramset.ParamSet(),
+        vol_integrator="emission", vol_params=paramset.ParamSet(),
+        renderer="sampler", renderer_params=paramset.ParamSet())
+    main_kernels = device_kernels_a_wave(profiled_wave(main_job, dev, 1))
+    rays = WIDTH * HEIGHT * 2 * (MAX_DEPTH + 1) * SPP
+
+    def drive(what, run):
+        tc.reset_overflow(dev)
+        tc.reset_launches()
+        t0 = time.time()
+        img, stats = run()
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
+        launches = counted_launches()
+        want = {k: v * SPP for k, v in path_launches(1).items()}
+        require(launches == want, f"{what}: kernel launches {launches}, "
+                f"expected {want}")
+        require(int(tc.overflow_flag(dev).item()) == 0,
+                f"{what}: stack overflow in the kernel")
+        require(img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(img).all()
+                and img.mean() > 0, f"{what}: image not finite")
+        render_s = sum(stats.timings.values())
+        return img, {"waves": SPP, "wall_s": wall_s, "render_s": render_s,
+                     "rays_per_s": rays / render_s,
+                     "main_path_rays_per_s": main_rays_per_s,
+                     "rays_per_s_over_main_path":
+                         rays / render_s / main_rays_per_s,
+                     "launches": launches,
+                     "launches_per_wave": {k: v / SPP
+                                           for k, v in launches.items()},
+                     "img_mean": float(img.mean()),
+                     "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    def window(what, gpu_job, cpu_job):
+        """(c): the window at the image's lower left corner (the floor in
+        both views), card against CPU."""
+        y0 = HEIGHT - WINDOW
+        t0 = time.time()
+        card = window_render(gpu_job, dev, 0, y0)
+        card_s = time.time() - t0
+        cpu = window_render(cpu_job, "cpu", 0, y0)
+        close, rel_mean = compare_images(
+            f"sampling window {what}, card vs CPU", cpu, card)
+        out[f"window_{what}"] = {
+            "x0": 0, "y0": y0, "waves": WINDOW_WAVES, "card_s": card_s,
+            "pixels_close": close, "rel_mean": rel_mean,
+            "img_mean": float(card.mean())}
+    # (b1) the bench scene through render: stratified 8x8, mitchell
+    b1 = dataclasses.replace(
+        main_job, sampler=samplers.make_sampler("stratified", SPP),
+        filter_name="mitchell")
+    require(b1.sampler.nx == b1.sampler.ny == 8, "b1: not 8x8 strata")
+    ig = pi.PathIntegrator(max_depth=MAX_DEPTH)
+    li = lambda s_, r, d, c: pi.li(ig, s_, r, d, c)
+
+    def run_b1():
+        stats = stats_mod.RenderStats()
+        img = rend.render(st.to_device(b1.scene, dev), b1.camera, b1.sampler,
+                          li, WIDTH, HEIGHT, filter_name="mitchell",
+                          stats=stats, device=dev)
+        return img, stats
+    _, out["b1"] = drive("sampling b1", run_b1)
+    out["b1"]["device_kernels_a_wave"] = device_kernels_a_wave(
+        profiled_wave(b1, dev, 1))
+    out["b1"]["main_path_device_kernels_a_wave"] = main_kernels
+    window("b1", b1, dataclasses.replace(b1, camera=dataclasses.replace(
+        b1.camera, device=torch.device("cpu"))))
+    # (b2) its .pbrt text: environment camera, halton, gaussian, sampled
+    path = os.path.join(PBRT_DIR, "sampling_bench.pbrt")
+    text = sampling_bench_b2(path)
+
+    def run_b2():
+        stats = stats_mod.RenderStats()
+        img = manager.render_pbrt(path, search_paths=[SCENES_DIR],
+                                  overrides={"spectrum": "sampled"},
+                                  log=QUIET, stats=stats, device=dev)
+        return img, stats
+    try:
+        _, out["b2"] = drive("sampling b2", run_b2)
+        resolver = resources.Resolver([PBRT_DIR, SCENES_DIR])
+        b2 = parser.parse(text, resolver=resolver, log=QUIET, device=dev)
+        require(b2.camera.kind == cameras.ENVIRONMENT
+                and b2.sampler.kind == samplers.HALTON
+                and b2.filter_name == "gaussian",
+                "b2: the scene did not compile as written")
+        out["b2"]["device_kernels_a_wave"] = device_kernels_a_wave(
+            profiled_wave(b2, dev, 1))
+        out["b2"]["main_path_device_kernels_a_wave"] = main_kernels
+        window("b2", b2, parser.parse(text, resolver=resolver, log=QUIET,
+                                      device="cpu"))
+        # the three waves in turns, each in its own spectrum mode, so that
+        # their ratios are read under the same host conditions
+        waves = {"main": (profiled_wave(main_job, dev, 1), "rgb"),
+                 "b1": (profiled_wave(b1, dev, 1), "rgb"),
+                 "b2": (profiled_wave(b2, dev, 1), "sampled")}
+        turns = {k: [] for k in waves}
+        for k in ("main", "b1", "b2", "b2", "b1", "main"):
+            spec.set_mode(waves[k][1])
+            turns[k].append(wave_ms(waves[k][0]))
+        out["wave_ms_in_turns"] = turns
+        out["wave_ms_over_main"] = {
+            k: sum(turns[k]) / sum(turns["main"]) for k in ("b1", "b2")}
+    finally:
+        spec.set_mode("rgb")
+    say("sampling_path", **out)
+
+
 def window_origin(camera, p):
     """The top-left pixel of the WINDOW x WINDOW window centred on the
     image of world point `p`."""
@@ -1786,6 +2085,9 @@ def main():
     # alpha cut-outs and the remaining lights (their launches are printed on
     # alpha_env_path's line)
     alpha_env_path_phase(dev, main_rays_per_s)
+    # samplers, filters, cameras, the sampled mode, checkpoints and the
+    # adaptive renderer (their launches are printed on sampling_path's line)
+    sampling_path_phase(dev, main_rays_per_s)
     # the differentiable render: its launches are printed on grad_path's
     # line, not counted into the kernels line (main_path's are)
     grad_small_phase(dev)

@@ -7,3 +7,5 @@ imports ``torch`` and ``numpy`` only. Entry points take an explicit
 not there raises (see ``device.resolve``).
 """
 __version__ = "0.1.0"
+# the global spectral representation ("rgb" | "sampled"), set before parsing
+from .core.spectrum import set_mode as set_spectrum_mode  # noqa: F401,E402

@@ -1,14 +1,16 @@
 """Native (C++) host components, loaded via ctypes.
 
 ``bvh_builder.cpp`` is built on first use with g++ (the ``.so`` is cached
-next to the source and rebuilt when the source is newer). When no compiler
-is available the caller falls back to the pure-numpy builder; which builder
+next to the source and rebuilt when the source is newer; processes that start
+together build it once, see ``build_library``). When no compiler is available
+the caller falls back to the pure-numpy builder; which builder
 built a tree is logged once (``dartray_tpu_torch.accel`` logger), so a slow
 host build is visible instead of silent.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import logging
 import os
 import subprocess
@@ -41,6 +43,35 @@ def report_builder(which: str, reason: str = ""):
                         "large meshes)%s", f": {reason}" if reason else "")
 
 
+def build_library(src: str, so: str) -> ctypes.CDLL:
+    """Build `src` into the shared library `so` (where it is missing or older
+    than its source) and load it, safely across processes: one process
+    compiles at a time (an ``flock`` on ``so + ".lock"``), into a file of its
+    own that is then renamed onto `so`, so no process ever loads a library
+    that another one is still writing. A load that fails anyway (a file put
+    there by a writer that does not take the lock) rebuilds once and loads
+    again. Raises ``OSError`` / ``SubprocessError`` when it cannot."""
+    def build(force):
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        with open(so + ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if (force or not os.path.exists(so)
+                    or os.path.getmtime(so) < os.path.getmtime(src)):
+                tmp = f"{so}.{os.getpid()}.tmp"
+                subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp,
+                                src], check=True, capture_output=True,
+                               timeout=240)
+                os.replace(tmp, so)
+
+    build(False)
+    try:
+        return ctypes.CDLL(so)
+    except OSError as e:
+        log.warning("reloading %s after a failed load (%s)", so, e)
+        build(True)
+        return ctypes.CDLL(so)
+
+
 def _load():
     global _lib, _tried
     with _lock:
@@ -48,12 +79,7 @@ def _load():
             return _lib
         _tried = True
         try:
-            if (not os.path.exists(_SO)
-                    or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
-                subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-o", _SO, _SRC],
-                    check=True, capture_output=True, timeout=240)
-            lib = ctypes.CDLL(_SO)
+            lib = build_library(_SRC, _SO)
             f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
             i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
             lib.cluster_bvh_build.restype = ctypes.c_int

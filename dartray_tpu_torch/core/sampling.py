@@ -9,11 +9,11 @@ each multiply, add and left shift is followed by ``& M32``, and right shifts
 always see a non-negative value, so they are logical shifts.
 
 Ported: the hash RNG, ``index_permute``, ``van_der_corput``, ``sobol2``,
-``sample02``, the warps the integrators and lights use (concentric disk,
-cosine hemisphere, uniform sphere, uniform cone, uniform triangle, power
-heuristic) and the host-side 1D / 2D piecewise-constant distributions the
-environment light is built from. Halton / radical inverse, stratified and
-Latin-hypercube helpers are not ported yet.
+``sample02``, the radical inverse of the Halton sampler, the warps the
+integrators and lights use (concentric disk, cosine hemisphere, uniform
+sphere, uniform cone, uniform triangle, power heuristic) and the host-side
+1D / 2D piecewise-constant distributions the environment light is built
+from.
 """
 from __future__ import annotations
 
@@ -131,6 +131,37 @@ def sample02(n, scramble2, n_bits: int = 32):
     """(0,2)-sequence 2D sample; scramble2 is a pair of u32 tensors."""
     return vm.V2(van_der_corput(n, scramble2[0]),
                  sobol2(n, scramble2[1], n_bits))
+
+
+# --- Radical inverse (the Halton sampler) ----------------------------------
+
+_PRIMES = np.array([
+    2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53, 59, 61, 67,
+    71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127, 131, 137, 139, 149,
+    151, 157, 163, 167, 173, 179, 181, 191, 193, 197, 199, 211, 223, 227, 229],
+    np.int64)
+
+
+def radical_inverse(n, base: int):
+    """Radical inverse of `n` (u32-in-int64, read as int32) in `base`:
+    a fixed trip of ceil(32 / log2 base) + 1 digits, each added in float32
+    as one fused multiply-add ``fma(digit, base**-k, val)`` (the reference's
+    loop compiles to one), with base**-k the float32 running product of
+    1/base. The fused step is taken in float64: the product of a digit and
+    a float32 is exact there, and so is the sum for every index below
+    2**24, so rounding it to float32 rounds once, as the fused op does."""
+    n_digits = int(np.ceil(32 / np.log2(base))) + 1
+    inv_base = np.float32(1.0 / base)
+    nn = ((n.to(torch.int64) & M32) ^ 0x80000000) - 0x80000000   # int32
+    val = torch.zeros(n.shape, dtype=torch.float32, device=n.device)
+    inv_bi = inv_base
+    for _ in range(n_digits):
+        val = (val.to(torch.float64)
+               + (nn % base).to(torch.float64) * float(inv_bi)
+               ).to(torch.float32)
+        inv_bi = np.float32(inv_bi * inv_base)
+        nn = nn // base
+    return val.clamp_max(ONE_MINUS_EPS)
 
 
 # --- Geometric sampling transforms -----------------------------------------

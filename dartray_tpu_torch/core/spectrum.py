@@ -1,11 +1,16 @@
-"""Color handling: RGB channel tensors, XYZ at the film (counterpart of the
+"""Color handling: 3-channel tensors, XYZ at the film (counterpart of the
 JAX reference's ``core/spectrum.py``).
 
-All radiometric quantities are RGB, stored component-SoA over the wavefront
-(``V3``) and converted to XYZ only at film accumulation. Sampled SPD data
-(``spectrum`` and ``blackbody`` scene parameters) converts to RGB at scene
-compile time (``spd_to_rgb``, numpy). The reference's ``sampled`` spectrum
-mode is not ported (``set_mode`` raises for it).
+Radiometric quantities are stored component-SoA over the wavefront (``V3``)
+and converted to XYZ only at film accumulation. A global mode (``set_mode``,
+set BEFORE a scene is parsed: the conversions are baked into its tables)
+says what the three channels are: "rgb" primaries, or in "sampled" mode the
+averages of three wavelength bands (400-500-600-700 nm), which transport
+multiplies per band. Sampled SPD data (``spectrum`` and ``blackbody`` scene
+parameters) converts at scene compile time (numpy): to RGB through the CIE
+observer (``spd_to_rgb``), or to band averages (``spd_to_bands``); RGB
+values convert to bands with the same XYZ (``rgb_to_bands``; illuminants
+through a D65-shaped basis).
 """
 from __future__ import annotations
 
@@ -23,13 +28,6 @@ RGB_TO_XYZ = np.array([
     [0.412453, 0.357580, 0.180423],
     [0.212671, 0.715160, 0.072169],
     [0.019334, 0.119193, 0.950227]], np.float32)
-
-
-def set_mode(mode: str):
-    if mode != "rgb":
-        raise NotImplementedError(
-            f"spectrum mode {mode!r}: only 'rgb' is ported (ROADMAP Queue 1 "
-            "item 7)")
 
 
 def _mat3(m, c):
@@ -52,13 +50,16 @@ def xyz_to_rgb(xyz):
 
 
 def to_xyz(c):
-    """Radiance channels -> XYZ (the film accumulation conversion)."""
+    """Radiance channels -> XYZ under the current mode (the film
+    accumulation conversion)."""
+    if _mode == "sampled":
+        return _mat3(BANDS_TO_XYZ, c)
     return rgb_to_xyz(c)
 
 
 def luminance(c):
-    """Y channel of a V3 color."""
-    w = RGB_TO_XYZ[1]
+    """Y of a V3 color under the current mode."""
+    w = BANDS_TO_XYZ[1] if _mode == "sampled" else RGB_TO_XYZ[1]
     return float(w[0]) * c.x + float(w[1]) * c.y + float(w[2]) * c.z
 
 
@@ -116,3 +117,88 @@ def spd_to_rgb(lambdas, values):
     xyz /= (cmf[:, 1].sum() * 5.0)
     rgb = XYZ_TO_RGB.astype(np.float64) @ xyz
     return rgb.astype(np.float32)
+
+
+# --- the sampled-spectrum mode ----------------------------------------------
+# Three bands ride the 3-channel layout of every color table: the arrays are
+# reinterpreted, not widened.
+
+N_BANDS = 3
+BAND_EDGES = np.array([400.0, 500.0, 600.0, 700.0])   # nm
+
+_mode = "rgb"
+
+
+def set_mode(mode: str):
+    """The global spectral representation, "rgb" or "sampled"."""
+    global _mode
+    if mode not in ("rgb", "sampled"):
+        raise ValueError(f"spectrum mode {mode!r}: 'rgb' or 'sampled'")
+    _mode = mode
+
+
+def mode() -> str:
+    return _mode
+
+
+def _bands_cmf():
+    cmf = cie_xyz_fit(_CIE_LAMBDA)
+    m = np.zeros((3, N_BANDS))
+    for b in range(N_BANDS):
+        sel = ((_CIE_LAMBDA >= BAND_EDGES[b])
+               & (_CIE_LAMBDA < BAND_EDGES[b + 1]))
+        m[:, b] = cmf[sel].sum(axis=0) * 5.0
+    # a flat spectrum of 1 has Y = 1, as (1, 1, 1) has in rgb mode
+    return m / (cmf[:, 1].sum() * 5.0)
+
+
+BANDS_TO_XYZ = _bands_cmf().astype(np.float32)          # (3 xyz, 3 bands)
+_XYZ_TO_BANDS = np.linalg.inv(BANDS_TO_XYZ).astype(np.float32)
+
+
+def spd_to_bands(lambdas, values):
+    """Piecewise-linear SPD -> (3,) float32 band averages (resampled every
+    2 nm over 400-700 nm)."""
+    lambdas = np.asarray(lambdas, np.float64)
+    values = np.asarray(values, np.float64)
+    order = np.argsort(lambdas)
+    lambdas, values = lambdas[order], values[order]
+    grid = np.arange(BAND_EDGES[0], BAND_EDGES[-1], 2.0)
+    v = np.interp(grid, lambdas, values)
+    out = np.zeros(N_BANDS)
+    for b in range(N_BANDS):
+        sel = (grid >= BAND_EDGES[b]) & (grid < BAND_EDGES[b + 1])
+        out[b] = v[sel].mean()
+    return out.astype(np.float32)
+
+
+def _d65_bands():
+    """CIE D65 band averages (its relative SPD every 20 nm over 400-700
+    nm), normalised to luminance 1."""
+    lam = np.arange(400.0, 701.0, 20.0)
+    d65 = np.array([82.75, 93.43, 104.86, 117.01, 115.92, 114.86, 108.81,
+                    104.79, 107.69, 104.41, 104.05, 100.00, 96.33, 95.79,
+                    88.69, 90.01], np.float64)
+    out = np.zeros(N_BANDS)
+    for b in range(N_BANDS):
+        sel = (lam >= BAND_EDGES[b]) & (lam < BAND_EDGES[b + 1])
+        out[b] = d65[sel].mean()
+    y = float(BANDS_TO_XYZ[1] @ out)
+    return (out / max(y, 1e-12)).astype(np.float32)
+
+
+_D65_BANDS = _d65_bands()
+# illuminant XYZ -> bands: white maps to the D65 band shape, XYZ kept
+# exactly: diag(d65) @ inv(BANDS_TO_XYZ @ diag(d65))
+_XYZ_TO_BANDS_ILLUM = (np.diag(_D65_BANDS)
+                       @ np.linalg.inv(BANDS_TO_XYZ @ np.diag(_D65_BANDS))
+                       ).astype(np.float32)
+
+
+def rgb_to_bands(rgb, illuminant=False):
+    """RGB (..., 3) -> bands with the same XYZ, clamped >= 0 (float32
+    numpy). illuminant=True takes the D65-shaped basis: a white illuminant
+    has D65's band shape, a white reflectance is flat."""
+    xyz = np.asarray(rgb, np.float32) @ RGB_TO_XYZ.T
+    basis = _XYZ_TO_BANDS_ILLUM if illuminant else _XYZ_TO_BANDS
+    return np.maximum(xyz @ basis.T, 0.0)

@@ -197,7 +197,8 @@ def build_table(specs, scene_radius=10.0, attr=None) -> LightTable:
                     else np.zeros(1, np.float32))
     # power CDF over the lights
     powers = np.zeros(l, np.float32)
-    lum_w = spec.RGB_TO_XYZ[1]
+    lum_w = (spec.BANDS_TO_XYZ[1] if spec.mode() == "sampled"
+             else spec.RGB_TO_XYZ[1])
     for i, s in enumerate(specs):
         lum = float(np.dot(lum_w, np.asarray(s.intensity)))
         if s.kind == POINT:
@@ -217,6 +218,13 @@ def build_table(specs, scene_radius=10.0, attr=None) -> LightTable:
             powers[i] = 4 * np.pi * lum
     pc = np.concatenate([[0.0], np.cumsum(powers)])
     pc = pc / max(pc[-1], 1e-20)
+    if spec.mode() == "sampled":
+        # the maps are RGB illuminants: to bands through the D65-shaped
+        # basis (the infinite light's power above read the RGB map)
+        env_map = spec.rgb_to_bands(env_map, illuminant=True).astype(
+            np.float32)
+        proj_map = spec.rgb_to_bands(proj_map, illuminant=True).astype(
+            np.float32)
     # the infinite light's importance: luminance x sin(theta) per texel
     he, we = env_map.shape[:2]
     lum_img = env_map @ lum_w

@@ -4,7 +4,8 @@
 ``render_pbrt`` parses a scene file or text, applies the render overrides and
 runs the job on `device` (default the card; asking for a card that is not
 there raises). ``run`` dispatches on the job's renderer: ``sampler`` (the
-wavefront render of ``renderers/sampler.py``) or ``aggregatetest`` (random
+wavefront render of ``renderers/sampler.py``, or its ``render_adaptive``
+when the scene asks for the adaptive sampler) or ``aggregatetest`` (random
 rays through the BVH against the exhaustive intersector). The surface
 integrators are ``path``, ``directlighting``, ``whitted`` and
 ``ambientocclusion``; an unknown name warns and renders with ``path``, as in
@@ -101,8 +102,17 @@ def run(job: RenderJob, progress: Optional[Callable] = None, log=print,
         return np.zeros((job.height, job.width, 3), np.float32)
     if rname != "sampler":
         log(f"warning: unknown renderer {rname!r}; using sampler")
-    st_ = stats if stats is not None else stats_mod.RenderStats()
     li = build_surface_li(job, log=log)
+    if job.adaptive is not None:
+        mn, mx = job.adaptive
+        img, n_ref = rend.render_adaptive(
+            scene, job.camera, job.sampler, li, job.width, job.height,
+            min_spp=mn, max_spp=mx, progress=progress,
+            filter_name=job.filter_name, filter_params=job.filter_params,
+            device=dev)
+        log(f"adaptive: refined {n_ref} pixels to {mx} spp")
+        return img
+    st_ = stats if stats is not None else stats_mod.RenderStats()
     queries = st.QUERIES["rays"]
     img = rend.render(scene, job.camera, job.sampler, li, job.width,
                       job.height, progress=progress,
@@ -183,8 +193,9 @@ def render_pbrt(text_or_path: str, search_paths=None,
     """Parse and render a PBRT scene (a file, or the scene's text) on
     `device`; returns (H, W, 3) linear RGB as numpy.
 
-    overrides: keys of ``apply_overrides``, and "spectrum" (only "rgb" is
-    ported), applied before parsing. log: message callback; defaults to
+    overrides: keys of ``apply_overrides``, and "spectrum" ("rgb" or
+    "sampled", the global mode, set before parsing: the scene's tables are
+    built in it). log: message callback; defaults to
     the leveled logger (``log.default``: "warning:" lines at WARNING, SEVERE
     raises)."""
     dev = device_mod.resolve(device)
@@ -282,22 +293,30 @@ def apply_overrides(job: RenderJob, ov: dict, log=print) -> RenderJob:
 def _override_camera(job: RenderJob, name: str, params, log=print) \
         -> RenderJob:
     """Rebuild the camera without re-parsing: the requested type over the
-    parsed camera's camera-to-world transform and shutter (params: fov /
-    lensradius / focaldistance)."""
+    parsed camera's camera-to-world transform, shutter and animated
+    transform (params: fov / lensradius / focaldistance where they
+    apply)."""
     old = job.camera
     pf = (lambda k, d: params.find_one_float(k, d)) if params \
         else (lambda k, d: d)
-    if name in ("orthographic", "environment"):
-        raise not_ported(f"the {name} camera", "item 7")
-    if name != "perspective":
+    common = dict(shutter_open=float(old.shutter_open),
+                  shutter_close=float(old.shutter_close),
+                  animated=old.animated, device=old.device)
+    lens = lambda: dict(
+        lens_radius=pf("lensradius", float(old.lens_radius)),
+        focal_distance=pf("focaldistance", float(old.focal_distance)))
+    if name == "perspective":
+        cam = cam_mod.perspective(old.cam2world, pf("fov", 60.0), job.width,
+                                  job.height, **lens(), **common)
+    elif name == "orthographic":
+        cam = cam_mod.orthographic(old.cam2world, job.width, job.height,
+                                   **lens(), **common)
+    elif name == "environment":
+        cam = cam_mod.environment(old.cam2world, job.width, job.height,
+                                  **common)
+    else:
         log(f"warning: unknown camera override {name!r} ignored")
         return job
-    cam = cam_mod.perspective(
-        old.cam2world, pf("fov", 60.0), job.width, job.height,
-        lens_radius=pf("lensradius", float(old.lens_radius)),
-        focal_distance=pf("focaldistance", float(old.focal_distance)),
-        shutter_open=float(old.shutter_open),
-        shutter_close=float(old.shutter_close), device=old.device)
     return dataclasses.replace(job, camera=cam)
 
 

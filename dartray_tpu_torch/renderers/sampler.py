@@ -5,13 +5,14 @@ One *wave* = every film pixel x one sample index, fully vectorized: generate
 camera samples and rays, evaluate the surface integrator's Li over the wave,
 scatter-add into the film. ``render`` iterates waves over the sample indices,
 with the reference's preview callback (``progress``, its cadence set by
-``sampling_mode``), statistics and partial result on a failed wave.
-Checkpoints and adaptive sampling are not ported yet (ROADMAP Queue 1
-item 7).
+``sampling_mode``), statistics, partial result on a failed wave and
+checkpoints to resume from. ``render_adaptive`` renders min_spp waves, then
+refines the pixels whose samples disagree with max_spp - min_spp more.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -21,6 +22,7 @@ from .. import cameras as cam_mod
 from .. import device as device_mod
 from .. import film as film_mod
 from .. import samplers as smp_mod
+from ..core import spectrum as spec_mod
 from ..scene import types as st
 
 
@@ -86,7 +88,7 @@ def render_wave(scene, camera: cam_mod.Camera, sampler: smp_mod.Sampler,
 def render(scene, camera, sampler, li_fn, width, height,
            progress: Optional[Callable] = None, filter_name="box",
            filter_params=None, stats=None, checkpoint_path=None,
-           on_error: str = "raise", log=None,
+           checkpoint_every=8, on_error: str = "raise", log=None,
            sampling_mode: str = "iterative", device=device_mod.DEFAULT):
     """Full render: returns (H, W, 3) linear RGB as a numpy array. The scene
     is moved to `device` once; every wave runs there.
@@ -98,16 +100,23 @@ def render(scene, camera, sampler, li_fn, width, height,
     after the first wave (when `stats` is given) and at the end, "full" at
     the end only; pixel values do not depend on it.
     on_error="partial": an exception in a wave after the first returns the
-    film of the waves before it (logged through `log`) instead of raising."""
-    if checkpoint_path is not None:
-        raise NotImplementedError(
-            "render checkpoints are not ported (ROADMAP Queue 1 item 7)")
+    film of the waves before it (logged through `log`) instead of raising.
+    checkpoint_path: the film and the next sample index are saved there
+    every `checkpoint_every` waves, and a checkpoint found there resumes the
+    render at its next wave (without `stats`' first-wave split). Samples
+    are keyed by (pixel, sample index, dimension), so a resumed render
+    equals an uninterrupted one bit for bit."""
     dev = device_mod.resolve(device)
     scene = st.to_device(scene, dev)
     film = film_mod.make_film(width, height, filter_name=filter_name,
                               filter_params=filter_params, device=dev)
     px, py = pixel_grid(width, height, device=dev)
     spp = sampler.spp
+    resume_s = 0
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        film, resume_s = film_mod.load_checkpoint(checkpoint_path, film)
+    if resume_s > 0:
+        stats = None
 
     def wave(film, s):
         s_idx = torch.full(px.shape, s, dtype=torch.int32, device=dev)
@@ -120,7 +129,7 @@ def render(scene, camera, sampler, li_fn, width, height,
             stats.add("waves", 1)
             stats.add("rays/camera", px.shape[0])
 
-    start = 0
+    start = resume_s
     with torch.no_grad():
         if stats is not None:
             with stats.time("time/compile+first_wave"):
@@ -152,5 +161,60 @@ def render(scene, camera, sampler, li_fn, width, height,
                         f"image accumulated so far")
                     break
                 counted()
+                if (checkpoint_path is not None
+                        and (s + 1) % checkpoint_every == 0 and s + 1 < spp):
+                    film_mod.save_checkpoint(checkpoint_path, film, s + 1)
             out = film_mod.to_rgb(film).cpu().numpy()
     return out
+
+
+def render_adaptive(scene, camera, sampler, li_fn, width, height,
+                    min_spp=4, max_spp=32, contrast_threshold=0.5,
+                    progress: Optional[Callable] = None, filter_name="box",
+                    filter_params=None, device=device_mod.DEFAULT):
+    """Adaptive supersampling: min_spp waves track each pixel's luminance
+    min / max; a pixel whose contrast (max - min) / (max + min) exceeds
+    `contrast_threshold` gets the max_spp - min_spp waves after them. Those
+    waves run over the whole image with every other lane dead (tmax = -1,
+    so the traversal skips it) and masked at the deposit; the film divides
+    by each pixel's own weight, so uneven sample counts are exact. Ray
+    differentials are scaled for max_spp. Returns (H, W, 3) linear RGB as
+    numpy and the number of refined pixels, the one value read back to
+    the host."""
+    dev = device_mod.resolve(device)
+    scene = st.to_device(scene, dev)
+    film = film_mod.make_film(width, height, filter_name=filter_name,
+                              filter_params=filter_params, device=dev)
+    px, py = pixel_grid(width, height, device=dev)
+    diff_scale = 1.0 / np.sqrt(max(max_spp, 1))
+
+    def wave(s, refine=None):
+        s_idx = torch.full(px.shape, s, dtype=torch.int32, device=dev)
+        cs = smp_mod.camera_samples(sampler, px, py, s_idx)
+        rays, diffs, weight = cam_mod.generate_rays(camera, cs, width,
+                                                    height, diff_scale)
+        if refine is not None:
+            rays = rays._replace(tmax=torch.where(refine, rays.tmax, -1.0))
+        sctx = {"sampler": sampler, "px": px, "py": py, "s_idx": s_idx}
+        L = li_fn(scene, rays, diffs, sctx) * weight
+        film_mod.add_samples(film, cs.image_xy, L, mask=refine)
+        return L
+
+    with torch.no_grad():
+        lmin = torch.full(px.shape, float("inf"), device=dev)
+        lmax = torch.full(px.shape, float("-inf"), device=dev)
+        for s in range(min_spp):
+            lum = spec_mod.luminance(wave(s))
+            lmin = torch.minimum(lmin, lum)
+            lmax = torch.maximum(lmax, lum)
+            if progress is not None:
+                progress(s + 1, max_spp, film)
+        contrast = (lmax - lmin) / (lmax + lmin).clamp_min(1e-6)
+        refine = (contrast > contrast_threshold) & torch.isfinite(contrast)
+        for s in range(min_spp, max_spp):
+            wave(s, refine)
+            if progress is not None:
+                progress(s + 1, max_spp, film)
+        n_refined = int(refine.sum())
+        out = film_mod.to_rgb(film).cpu().numpy()
+    return out, n_refined

@@ -11,9 +11,8 @@ integrator configuration.
 Unknown names warn and fall back exactly as in the reference (matte, the
 perspective camera, the lowdiscrepancy sampler). A kind the reference knows
 and the port does not yet have raises ``NotImplementedError`` naming its
-ROADMAP item: here (volumes, subsurface materials, cameras, the adaptive
-sampler) or in the module that would build it (``samplers``, ``film``,
-``materials``, ``scene/types``).
+ROADMAP item: here (volumes, subsurface materials) or in the module that
+would build it (``materials``, ``scene/types``).
 """
 from __future__ import annotations
 
@@ -92,6 +91,8 @@ class RenderJob:
     renderer: str
     renderer_params: ps.ParamSet
     crop: tuple = (0.0, 1.0, 0.0, 1.0)
+    # the adaptive sampler's (minsamples, maxsamples), or None
+    adaptive: tuple = None
     # progressive delivery mode: "full" | "twopass" | "iterative". Every
     # wave is a 1-spp full-image sweep; the mode sets the preview cadence
     sampling_mode: str = "iterative"
@@ -797,33 +798,52 @@ class PbrtAPI:
         c2w_t = self.opts["camera_to_world"][0]
         shutter_open = cam_p.find_one_float("shutteropen", 0.0)
         shutter_close = cam_p.find_one_float("shutterclose", 1.0)
+        # an animated camera transform is stored on the camera and never
+        # applied (rays leave through the shutter-open transform c2w_t)
+        animated = None
         c2w0, c2w1 = self.opts["camera_to_world"]
         if not np.allclose(np.asarray(c2w0.m), np.asarray(c2w1.m)):
-            raise not_ported("an animated camera transform", "item 7")
-        if cam_name in ("orthographic", "environment"):
-            raise not_ported(f"the {cam_name} camera", "item 7")
-        if cam_name != "perspective":
-            self.log(f"warning: unknown camera {cam_name!r}; perspective")
-        fov = cam_p.find_one_float("fov", 60.0) \
-            if cam_name == "perspective" else 60.0
+            animated = tr.animated(c2w0, c2w1, shutter_open, shutter_close)
+        common = dict(lens_radius=cam_p.find_one_float("lensradius", 0.0),
+                      focal_distance=cam_p.find_one_float("focaldistance",
+                                                          1e30),
+                      shutter_open=shutter_open, shutter_close=shutter_close,
+                      animated=animated, device=self.device)
         sw = cam_p.find_floats("screenwindow")
-        camera = cam_mod.perspective(
-            c2w_t, fov, width, height,
-            lens_radius=cam_p.find_one_float("lensradius", 0.0),
-            focal_distance=cam_p.find_one_float("focaldistance", 1e30),
-            shutter_open=shutter_open, shutter_close=shutter_close,
-            screen_window=None if sw is None else tuple(sw),
-            device=self.device)
+        if sw is not None:
+            common["screen_window"] = tuple(sw)
+        if cam_name == "perspective":
+            camera = cam_mod.perspective(
+                c2w_t, cam_p.find_one_float("fov", 60.0), width, height,
+                **common)
+        elif cam_name == "orthographic":
+            camera = cam_mod.orthographic(c2w_t, width, height, **common)
+        elif cam_name == "environment":
+            camera = cam_mod.environment(
+                c2w_t, width, height, shutter_open=shutter_open,
+                shutter_close=shutter_close, animated=animated,
+                device=self.device)
+        else:
+            self.log(f"warning: unknown camera {cam_name!r}; perspective")
+            camera = cam_mod.perspective(c2w_t, 60.0, width, height, **common)
 
         smp_name, smp_p = self.opts["sampler"]
+        spp = smp_p.find_one_int("pixelsamples", 4)
+        if smp_name == "stratified":
+            spp = (smp_p.find_one_int("xsamples", 2)
+                   * smp_p.find_one_int("ysamples", 2))
+        adaptive = None
         if smp_name == "adaptive":
-            raise not_ported("the adaptive sampler", "item 7")
-        if smp_name not in _SAMPLERS:
+            # the contrast method: (minsamples, maxsamples)
+            adaptive = (smp_p.find_one_int("minsamples", 4),
+                        smp_p.find_one_int("maxsamples", 32))
+            spp = adaptive[1]
+        elif smp_name not in _SAMPLERS:
             self.log(f"warning: unknown sampler {smp_name!r}; "
                      f"using lowdiscrepancy")
-            smp_name = "lowdiscrepancy"
         sampler = smp_mod.make_sampler(
-            smp_name, spp=smp_p.find_one_int("pixelsamples", 4))
+            smp_name if smp_name in _SAMPLERS else "lowdiscrepancy",
+            spp=spp, jitter=smp_p.find_one_bool("jitter", True))
 
         filt_name, filt_p = self.opts["filter"]
         filt_params = {}
@@ -852,7 +872,8 @@ class PbrtAPI:
                          filter_params=filt_params,
                          surf_integrator=si_name, surf_params=si_p,
                          vol_integrator=vi_name, vol_params=vi_p,
-                         renderer=r_name, renderer_params=r_p, crop=crop)
+                         renderer=r_name, renderer_params=r_p, crop=crop,
+                         adaptive=adaptive)
 
 
 def _coord_sys(d):

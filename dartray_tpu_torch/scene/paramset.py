@@ -104,37 +104,41 @@ class ParamSet:
             default, np.float64)
 
     def find_one_spectrum(self, name, default=(0.0, 0.0, 0.0)):
-        """Returns an RGB triple: rgb / color as given, xyz through the XYZ
-        to RGB matrix, blackbody (temperature, scale) and spectrum data
-        (inline (lambda, value) pairs or an .spd file) through the CIE
-        observer, a float as a grey."""
+        """A 3-channel triple in the global spectrum mode: RGB primaries in
+        "rgb" mode (rgb / color as given, xyz through the XYZ to RGB
+        matrix, blackbody (temperature, scale) and spectrum data (inline
+        (lambda, value) pairs or an .spd file) through the CIE observer),
+        band averages in "sampled" mode (RGB converted with its XYZ, SPDs
+        averaged over each band); a float is a grey in both."""
+        sampled = spec.mode() == "sampled"
+        bands = lambda c: (spec.rgb_to_bands(c).astype(np.float64)
+                           if sampled else c)
+        conv = spec.spd_to_bands if sampled else spec.spd_to_rgb
         if name in self.items:
             t, v = self.items[name]
             self.used.add(name)
             if t in ("rgb", "color"):
-                return np.asarray(v[:3], np.float64)
+                return bands(np.asarray(v[:3], np.float64))
             if t == "xyz":
-                return np.asarray(spec.XYZ_TO_RGB, np.float64) @ np.asarray(
-                    v[:3], np.float64)
+                return bands(np.asarray(spec.XYZ_TO_RGB, np.float64)
+                             @ np.asarray(v[:3], np.float64))
             if t == "blackbody":
                 temp = float(v[0])
                 scale = float(v[1]) if len(v) > 1 else 1.0
                 lam = np.arange(380.0, 781.0, 5.0)
                 sp = spec.blackbody(lam, temp)
                 sp = sp / max(sp.max(), 1e-30)
-                return spec.spd_to_rgb(lam, sp) * scale
+                return conv(lam, sp) * scale
             if t == "spectrum":
                 if isinstance(v[0], str):
                     # an .spd file
                     if SPD_LOADER is not None:
                         lv = SPD_LOADER(str(v[0]))
                         if lv is not None:
-                            return np.asarray(spec.spd_to_rgb(lv[0], lv[1]),
-                                              np.float64)
+                            return np.asarray(conv(lv[0], lv[1]), np.float64)
                     return np.asarray(default, np.float64)
                 arr = np.asarray(v, np.float64).reshape(-1, 2)
-                return np.asarray(spec.spd_to_rgb(arr[:, 0], arr[:, 1]),
-                                  np.float64)
+                return np.asarray(conv(arr[:, 0], arr[:, 1]), np.float64)
             if t == "float":
                 return np.full(3, float(v[0]))
         return np.asarray(default, np.float64)

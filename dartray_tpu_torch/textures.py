@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .core import math as vm
+from .core import spectrum as spec
 
 CONST = 0
 IMAGEMAP = 1
@@ -160,6 +161,9 @@ class TextureBuilder:
         # float32, as the reference's device copy does
         texels = (np.concatenate(self.pool).astype(np.float32) if self.pool
                   else np.zeros((1, 3), np.float32))
+        if spec.mode() == "sampled":
+            # image files are RGB: texels become band averages
+            texels = spec.rgb_to_bands(texels).astype(np.float32)
         col = lambda k, dt=np.float32: \
             np.stack([r[k] for r in self.rows]).astype(dt)
         return TextureData(

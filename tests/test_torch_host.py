@@ -134,19 +134,42 @@ def test_from_reference_refuses_what_is_not_ported():
 @pytest.mark.parametrize("name,call", [
     ("subsurface_row", lambda: mat_mod.build_table(
         [dict(mat_mod.plastic(), _sss=((1, 1, 1), (0, 0, 0), 1.3))])),
-    ("sampler_random", lambda: samplers.make_sampler("random")),
-    ("sampler_halton", lambda: samplers.make_sampler("halton")),
-    ("filter_gaussian", lambda: film_mod.make_film(4, 4, "gaussian",
-                                                   device="cpu")),
-    ("filter_wide_box", lambda: film_mod.make_film(
-        4, 4, "box", {"xwidth": 1.0}, device="cpu")),
-    ("spectrum_sampled", lambda: spec.set_mode("sampled")),
     ("accel_grid", lambda: st.compile_geometry(
         [mesh_mod.sphere(nu=8, nv=4)], accelerator="grid")),
 ])
 def test_left_out_branch_raises_by_name(name, call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call()
+
+
+@pytest.mark.parametrize("name", ["sampler_random", "sampler_halton",
+                                  "filter_gaussian", "filter_wide_box",
+                                  "spectrum_sampled"])
+def test_branch_ported_since_builds_the_references(name):
+    """Branches that raised before the samplers, filters and the spectrum
+    mode were ported now build what the reference builds."""
+    from dartray_tpu import film as ref_film, samplers as ref_smp
+    from dartray_tpu.core import spectrum as ref_spec
+    if name.startswith("sampler_"):
+        kind = name.split("_")[1]
+        got, want = samplers.make_sampler(kind, 6), ref_smp.make_sampler(
+            kind, 6)
+        assert (got.kind, got.spp) == (want.kind, want.spp)
+    elif name.startswith("filter_"):
+        fname, fp = (("gaussian", None) if name == "filter_gaussian"
+                     else ("box", {"xwidth": 1.0}))
+        film = film_mod.make_film(4, 4, fname, fp, device="cpu")
+        table, xw, yw = ref_film.filter_table(fname, fp)
+        assert th.same_bits(film.ftable.numpy(), np.asarray(table))
+        assert (film.xwidth, film.ywidth) == (xw, yw)
+    else:
+        try:
+            spec.set_mode("sampled")
+            assert spec.mode() == "sampled"
+            assert th.same_bits(spec.rgb_to_bands([0.2, 0.5, 0.9]),
+                                ref_spec.rgb_to_bands([0.2, 0.5, 0.9]))
+        finally:
+            spec.set_mode("rgb")
 
 
 def _image_textures(mod):

@@ -8,9 +8,11 @@ bit (``torchhelp.same_bits``, leaf by leaf); the spectral conversions to
 rtol 1e-6. Nothing here renders.
 """
 import bz2
+import collections
 import gzip
 import io
 import os
+import sys
 import zipfile
 
 import numpy as np
@@ -369,17 +371,11 @@ def test_unknown_names_warn_and_fall_back_as_the_reference():
 
 
 NOT_PORTED = {
-    "igi-env.pbrt": ("file", "item 7"),
+    "igi-env.pbrt": ("file", "item 8"),
     "smoke.pbrt": ("file", "item 8"),
     "subsurface": (_scene('Material "kdsubsurface"\n' + QUAD), "item 8"),
     "subsurface_named": (_scene('MakeNamedMaterial "s" "string type" '
                                 '"subsurface"\n'), "item 8"),
-    "orthographic": (_scene("").replace('"perspective" "float fov" [40]',
-                                        '"orthographic"'), "item 7"),
-    "animated_camera": ("ActiveTransform EndTime\nTranslate 0 0 1\n"
-                        "ActiveTransform All\n" + _scene(""), "item 7"),
-    "adaptive": ('Sampler "adaptive"\n' + _scene(QUAD), "item 7"),
-    "stratified": ('Sampler "stratified"\n' + _scene(QUAD), "item 7"),
     "kdtree_statement": ('Accelerator "kdtree"\n' + _scene(QUAD),
                          "item 10"),
 }
@@ -388,20 +384,29 @@ NOT_PORTED = {
 @pytest.mark.parametrize("case", sorted(NOT_PORTED))
 def test_known_but_unported_kinds_raise_naming_their_item(case):
     """A kind the reference builds and the port does not yet raises
-    NotImplementedError naming its ROADMAP Queue 1 item; never a stand-in."""
+    NotImplementedError naming its ROADMAP Queue 1 item, when the scene is
+    parsed or, for a surface integrator, when the job builds it; never a
+    stand-in."""
     text, item = NOT_PORTED[case]
     if text == "file":
         text = _read(case)
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        parser.parse(text, resolver=resources.Resolver([SCENES]), log=QUIET,
-                     device="cpu")
+        job = parser.parse(text, resolver=resources.Resolver([SCENES]),
+                           log=QUIET, device="cpu")
+        manager.build_surface_li(job, log=QUIET)
 
 
-# kinds that raised before the material system, the alpha cut-outs and the
-# remaining lights were ported: each file now compiles to the reference's
-# scene, leaf by leaf (the light maps resolved from scenes/, a map that does
-# not load falls back as in the reference)
+# kinds that raised before the material system, the alpha cut-outs, the
+# remaining lights, the cameras and the samplers were ported: each file now
+# compiles to the reference's scene, leaf by leaf (the light maps resolved
+# from scenes/, a map that does not load falls back as in the reference)
 PORTED_KINDS = {
+    "orthographic": _scene(QUAD).replace('"perspective" "float fov" [40]',
+                                         '"orthographic"'),
+    "animated_camera": ("ActiveTransform EndTime\nTranslate 0 0 1\n"
+                        "ActiveTransform All\n" + _scene(QUAD)),
+    "adaptive": 'Sampler "adaptive"\n' + _scene(QUAD),
+    "stratified": 'Sampler "stratified"\n' + _scene(QUAD),
     "plastic": 'Material "plastic"\n' + QUAD,
     "imagemap": ('Texture "i" "color" "imagemap" "string filename" "x.png"\n'
                  'Material "matte" "texture Kd" "i"\n' + QUAD),
@@ -419,6 +424,13 @@ PORTED_KINDS = {
     "goniometric": ('Rotate 30 1 0 0\nLightSource "goniometric" "string '
                     'mapname" ["envmap.pfm"] "rgb I" [3 3 3]\n' + QUAD),
 }
+PORTED_JOB_HOLDS = {
+    "orthographic": lambda j: j.camera.kind == 1 and j.camera.animated is None,
+    "animated_camera": lambda j: j.camera.animated is not None
+    and j.camera.animated.actually_animated,
+    "adaptive": lambda j: j.adaptive == (4, 32) and j.sampler.spp == 32,
+    "stratified": lambda j: j.sampler.kind == 1 and j.sampler.spp == 4,
+}
 PORTED_KIND_HOLDS = {
     "alpha": lambda s: s.geometry.has_alpha,
     "infinite": lambda s: s.lights.env_light_index == 0
@@ -431,21 +443,37 @@ PORTED_KIND_HOLDS = {
 
 @pytest.mark.parametrize("case", sorted(PORTED_KINDS))
 def test_kinds_ported_since_compile_equal(case):
-    port, _ = _same_scene(_scene(PORTED_KINDS[case]), resolvers=(
+    text = PORTED_KINDS[case]
+    port, ref = _same_scene(text if case in PORTED_JOB_HOLDS
+                            else _scene(text), resolvers=(
         resources.Resolver([SCENES]), ref_res.Resolver([SCENES])))
-    assert PORTED_KIND_HOLDS.get(case, lambda s: s.materials.n >= 2)(
-        port.scene)
+    if case in PORTED_JOB_HOLDS:
+        assert PORTED_JOB_HOLDS[case](port)
+        assert port.adaptive == ref.adaptive
+        assert (port.sampler.kind, port.sampler.spp) == (
+            ref.sampler.kind, ref.sampler.spp)
+        assert port.camera.kind == ref.camera.kind
+        assert np.array_equal(port.camera.raster2camera,
+                              np.asarray(ref.camera.raster2camera))
+    else:
+        assert PORTED_KIND_HOLDS.get(case, lambda s: s.materials.n >= 2)(
+            port.scene)
 
 
 def test_kdtree_override_and_sampled_spectrum_raise():
+    """The kd-tree override still raises naming its item; the environment
+    camera override and the sampled spectrum, which raised before the
+    cameras and the spectrum mode were ported, now build: the camera over
+    the parsed transform and shutter, and an unknown mode raises."""
     job = parser.parse(_read("cornell.pbrt"), log=QUIET, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         manager.apply_overrides(job, {"accelerator": "kdtree"}, log=QUIET)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        manager.apply_overrides(job, {"camera": "environment"}, log=QUIET)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    env = manager.apply_overrides(job, {"camera": "environment"}, log=QUIET)
+    assert env.camera.kind == 2 and np.array_equal(env.camera.cam2world.m,
+                                                   job.camera.cam2world.m)
+    with pytest.raises(ValueError, match="spectrum mode"):
         manager.render_pbrt(os.path.join(SCENES, "cornell.pbrt"),
-                            overrides={"spectrum": "sampled"}, log=QUIET,
+                            overrides={"spectrum": "hero"}, log=QUIET,
                             device="cpu")
 
 
@@ -541,3 +569,70 @@ def _drive_stats(mod):
 def test_log_and_stats_are_the_references():
     assert _drive_log(log_mod) == _drive_log(ref_log)
     assert _drive_stats(stats_mod) == _drive_stats(ref_stats)
+
+
+# --- samplers, filters, cameras, the sampled mode and the adaptive renderer
+# through the front door, against the reference's renders of
+# scenes/sampling.pbrt (tools/sampling_golden.npz, made by
+# tools/make_sampling_golden.py): at least 99 % of pixels within rtol 1e-3 /
+# atol 1e-4, the means within 1e-3 relative, the adaptive renderer's
+# refined pixels equal
+
+sys.path.insert(0, os.path.join(th.ROOT, "tools"))
+import make_sampling_golden as sampling_golden  # noqa: E402
+
+
+@pytest.fixture
+def rgb_after():
+    yield
+    spec.set_mode("rgb")
+    ref_spec.set_mode("rgb")
+
+
+@pytest.mark.parametrize("name", sampling_golden.VARIANTS)
+def test_sampling_variants_match_the_references_golden(name, rgb_after,
+                                                       monkeypatch):
+    """V1 orthographic / stratified / mitchell, V2 environment / halton /
+    gaussian, V3 animated perspective / random / sinc, V4 bestcandidate at
+    32 spp / triangle in the sampled mode, V5 adaptive / wide box. Every
+    wave at depth 3 is 1 closest, 3 mixed and 1 any-hit v6 launch, the
+    adaptive renderer's refinement waves too (counted on the wrapper: the
+    plain version stands in for the kernel here)."""
+    from dartray_tpu_torch.ops import traverse_cuda as tc
+    counts = collections.Counter()
+    real = tc.traverse6
+
+    def counted(*a, any_hit=False, anyf=None, **k):
+        counts["mixed" if anyf is not None else
+               "any" if any_hit else "closest"] += 1
+        return real(*a, any_hit=any_hit, anyf=anyf, **k)
+
+    monkeypatch.setattr(tc, "traverse6", counted)
+    messages = []
+    img = manager.render_pbrt(
+        sampling_golden.variant_text(name),
+        search_paths=[sampling_golden.SCENES],
+        overrides=sampling_golden.OVERRIDES.get(name),
+        log=lambda m, *a, **k: messages.append(str(m)), device="cpu")
+    assert spec.mode() == ("sampled" if name == "v4" else "rgb")
+    gold = np.load(sampling_golden.GOLDEN)
+    want = gold[name]
+    assert img.shape == want.shape and np.isfinite(img).all()
+    close = np.isclose(img, want, rtol=1e-3, atol=1e-4).all(-1).mean()
+    assert close >= 0.99, close
+    assert abs(img.mean() - want.mean()) / want.mean() < 1e-3
+    if name == "v5":
+        assert sampling_golden.refined_from(messages) == int(
+            gold["v5_n_refined"]) > 0
+    waves = {"v4": 32, "v5": 8}.get(name, 4)
+    assert counts == {"closest": waves, "mixed": 3 * waves, "any": waves}
+
+
+@pytest.mark.slow
+def test_sampling_golden_file_is_the_references_render(rgb_after):
+    """The reference, run again, gives the committed golden images."""
+    gold = np.load(sampling_golden.GOLDEN)
+    out, _ = sampling_golden.make()
+    assert sorted(out) == sorted(gold.files)
+    for name, value in out.items():
+        assert np.array_equal(value, gold[name]), name

@@ -5,9 +5,35 @@ the port; results come back as numpy arrays. The only place where both
 packages meet is a test.
 """
 import dataclasses
+import os
 
 import numpy as np
 import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REF_NATIVE_SO = os.path.join(ROOT, "dartray_tpu_torch", "_build",
+                             "ref_native", "libbvh_builder.so")
+
+
+def _use_safe_reference_builder():
+    """Point the reference's native BVH builder at a copy of its library
+    built once per tree, atomically and under a lock (the port's
+    ``build_library``). The reference compiles its library straight onto its
+    shared path (``dartray_tpu/accel/native/__init__.py``), so processes that
+    start together on a fresh tree can load a half-written file, and such a
+    process silently takes the numpy builder, whose trees differ. Supplied
+    from outside the package, as the ``bf16`` name of known behaviour g."""
+    from dartray_tpu.accel import native as ref_native
+    from dartray_tpu_torch.accel.native import build_library
+    build_library(os.path.join(os.path.dirname(ref_native.__file__),
+                               "bvh_builder.cpp"), REF_NATIVE_SO)
+    with ref_native._lock:
+        ref_native._SO = REF_NATIVE_SO
+        if ref_native._lib is None:       # not loaded yet, or loaded a bad file
+            ref_native._tried = False
+
+
+_use_safe_reference_builder()
 
 
 def np_tree(x):

@@ -3,12 +3,14 @@
     python tools/profile_torch_wave.py [--waves 4] [--res 512] [--depth 5]
                                        [--integrator path|direct|whitted|ao]
                                        [--moving] [--grad] [--pbrt FILE]
+                                       [--spectrum rgb|sampled]
 
 Builds the bench scene (with `--moving` its big sphere translates by
 (0.6, 0, 0) over the shutter, so every launch is the motion kernel's), or
 with ``--pbrt`` parses FILE (files it names are looked up beside it and in
 ``scenes/``) and takes its scene, camera, sampler, resolution and surface
-integrator, warms up, then runs `--waves` waves of
+integrator, pixel filter (``--spectrum sampled`` parses it in the sampled
+spectrum mode), warms up, then runs `--waves` waves of
 renderers.sampler.render_wave of the chosen integrator (default: the path
 integrator; ``ao`` takes ``--ao-samples`` probes, default 64) under
 torch.profiler with the port's stages
@@ -41,6 +43,7 @@ import bench_torch  # noqa: E402
 
 from dartray_tpu_torch import bsdf, cameras, film as film_mod  # noqa: E402
 from dartray_tpu_torch import materials, samplers, textures  # noqa: E402
+from dartray_tpu_torch.core import spectrum  # noqa: E402
 from dartray_tpu_torch.core import transform as tr  # noqa: E402
 from dartray_tpu_torch.integrators import ao, common, direct  # noqa: E402
 from dartray_tpu_torch.integrators import path as pi, whitted  # noqa: E402
@@ -113,6 +116,7 @@ def main():
     ap.add_argument("--moving", action="store_true")
     ap.add_argument("--grad", action="store_true")
     ap.add_argument("--pbrt", metavar="FILE")
+    ap.add_argument("--spectrum", default="rgb", choices=("rgb", "sampled"))
     a = ap.parse_args()
     if a.grad and (a.integrator != "path" or a.depth != bench_torch.MAX_DEPTH
                    or a.pbrt):
@@ -127,7 +131,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+    filt = ("box", None)
     if a.pbrt:
+        spectrum.set_mode(a.spectrum)
         with open(a.pbrt) as f:
             job = parser.parse(f.read(), resolver=resources.Resolver(
                 [os.path.dirname(os.path.abspath(a.pbrt)), SCENES]),
@@ -135,6 +141,7 @@ def main():
         scene, cam, smp = st.to_device(job.scene, dev), job.camera, job.sampler
         li = manager.build_surface_li(job)
         width, height = job.width, job.height
+        filt = (job.filter_name, job.filter_params)
         a.integrator = job.surf_integrator
         a.depth = job.surf_params.find_one_int("maxdepth", 5)
     else:
@@ -150,7 +157,8 @@ def main():
         smp = samplers.make_sampler("lowdiscrepancy", spp=a.spp)
         li = integrator(a.integrator, a.depth, a.ao_samples)
         width = height = a.res
-    film = film_mod.make_film(width, height, device=dev)
+    film = film_mod.make_film(width, height, filter_name=filt[0],
+                              filter_params=filt[1], device=dev)
     px, py = rend.pixel_grid(width, height, device=dev)
 
     def wave(s):
@@ -221,6 +229,7 @@ def main():
     top = sorted(kernels, key=lambda e: -self_dev(e))[:12]
     print(json.dumps({
         "card": smi, "pbrt": a.pbrt, "integrator": a.integrator,
+        "filter": filt[0], "spectrum": a.spectrum,
         "moving": a.moving, "grad": a.grad, "res": [width, height],
         "depth": a.depth, "waves": a.waves,
         "traversal_launches_per_wave": {
