@@ -114,6 +114,31 @@ and the script exits non-zero:
                kernel, render seconds, rays/s beside main_path's, device
                kernels a wave; (c) 32x32 windows of (b1) and (b2) at the
                image's corner, first 2 waves, card vs CPU
+  accel_path   the grid and kd-tree accelerators (plain torch walks, no
+               kernel): (a) render_pbrt of tests/test_alt_accels.py's sphere
+               scene and of scenes/cornell.pbrt (1 spp) under each against
+               tools/accel_golden.npz, no kernel launched; (b) the bench
+               scene, nothing cut, under each: build seconds, closest hits of
+               the camera wave and of sorted incoherent rays equal to v6's
+               (rays hit outside their triangle's own box counted apart), the
+               camera query's host torch operations against its DDA steps /
+               nodes, 2 path waves (ms a wave, steps a query, image against
+               v6's); (c) a 32x32 window about the displaced sphere, 1 wave,
+               card vs CPU
+  volume_path  participating media: (a) scenes/smoke.pbrt and both variants
+               of scenes/volumes.pbrt against tools/volume_golden.npz, a
+               wave's launches the surface integrator's + 1 closest (+ 32
+               any under single scattering); (b) the bench scene in a
+               seeded 32^3 volumegrid with single scattering: 8 waves of 40
+               launches (2 closest, 5 mixed, 33 any) and no other kernel,
+               rays/s and device kernels a wave beside main_path's, wave ms
+               in turns; (c) a window, card vs CPU
+  igi_path     the IGI integrator: (a) scenes/igi-env.pbrt and its VPL set
+               against tools/volume_golden.npz (3 closest launches to shoot,
+               then 2 closest + 49 any a wave); (b) the bench scene through
+               igi's defaults: 4 waves of 2 closest + 321 any launches, wave
+               ms in turns; (c) a window, 1 wave, card vs CPU, and the VPL
+               sets shot on each
   grad_small   the gradient of the Cornell render's mean w.r.t. materials.kd
                and lights.intensity (32x32, 4 spp, depth 3): card against
                CPU (plain traversal) within 2e-3 of the largest element,
@@ -154,12 +179,15 @@ from dartray_tpu_torch import __main__ as cli
 from dartray_tpu_torch import cameras, grad, samplers
 from dartray_tpu_torch import film as film_mod
 from dartray_tpu_torch import stats as stats_mod
+from dartray_tpu_torch.accel import grid as grid_mod
+from dartray_tpu_torch.accel import kdtree as kd_mod
 from dartray_tpu_torch.accel import native
 from dartray_tpu_torch.core import math as vm
 from dartray_tpu_torch.core import spectrum as spec
 from dartray_tpu_torch.core import transform as tr
 from dartray_tpu_torch.integrators import ao as ao_mod
 from dartray_tpu_torch.integrators import direct as di
+from dartray_tpu_torch.integrators import igi as igi_mod
 from dartray_tpu_torch.integrators import path as pi
 from dartray_tpu_torch.integrators import whitted as wh
 from dartray_tpu_torch.io import image as io_img
@@ -1262,19 +1290,19 @@ def materials_bench_pbrt(path):
     return [len(band) for band in bands]
 
 
-def window_render(job, where, x0, y0):
-    """The first WINDOW_WAVES waves of `job` over the WINDOW x WINDOW pixels
-    at (x0, y0) on `where`, into a full-size film under the job's filter
-    (the same samples as the whole render's first waves); returns the
-    window's pixels."""
+def window_render(job, where, x0, y0, waves=WINDOW_WAVES):
+    """The first `waves` waves of `job` over the WINDOW x WINDOW pixels at
+    (x0, y0) on `where`, into a full-size film under the job's filter (the
+    same samples as the whole render's first waves); returns the window's
+    pixels."""
     scene = st.to_device(job.scene, where)
-    li = manager.build_surface_li(job, log=QUIET)
+    li = manager.build_li(job, log=QUIET, device=where)
     px, py = rend.pixel_grid(WINDOW, WINDOW, x0=x0, y0=y0, device=where)
     film = film_mod.make_film(job.width, job.height,
                               filter_name=job.filter_name,
                               filter_params=job.filter_params, device=where)
     with torch.no_grad():
-        for s in range(WINDOW_WAVES):
+        for s in range(waves):
             film = rend.render_wave(
                 scene, job.camera, job.sampler, film, px, py,
                 torch.full(px.shape, s, dtype=torch.int32, device=where),
@@ -1630,7 +1658,7 @@ def profiled_wave(job, dev, s):
     """One wave of `job` at sample index `s` into a film of its filter, for
     ``device_kernels_a_wave``."""
     scene = st.to_device(job.scene, dev)
-    li = manager.build_surface_li(job, log=QUIET)
+    li = manager.build_li(job, log=QUIET, device=dev)
     px, py = rend.pixel_grid(job.width, job.height, device=dev)
     film = film_mod.make_film(job.width, job.height,
                               filter_name=job.filter_name,
@@ -1766,13 +1794,7 @@ def sampling_path_phase(dev, main_rays_per_s):
             "checkpoint: the resumed render differs from the whole one")
     out["checkpoint"] = {"resumed_equals_whole": True, "waves": job.sampler.spp}
     # the main path's wave, for the device kernels a wave
-    cam, smp, _, _, _ = camera_wave(dev)
-    main_job = manager.RenderJob(
-        scene=sb.bench_scene().build(), camera=cam, sampler=smp,
-        width=WIDTH, height=HEIGHT, filter_name="box", filter_params=None,
-        surf_integrator="path", surf_params=paramset.ParamSet(),
-        vol_integrator="emission", vol_params=paramset.ParamSet(),
-        renderer="sampler", renderer_params=paramset.ParamSet())
+    main_job = bench_job(dev)
     main_kernels = device_kernels_a_wave(profiled_wave(main_job, dev, 1))
     rays = WIDTH * HEIGHT * 2 * (MAX_DEPTH + 1) * SPP
 
@@ -1834,8 +1856,7 @@ def sampling_path_phase(dev, main_rays_per_s):
     out["b1"]["device_kernels_a_wave"] = device_kernels_a_wave(
         profiled_wave(b1, dev, 1))
     out["b1"]["main_path_device_kernels_a_wave"] = main_kernels
-    window("b1", b1, dataclasses.replace(b1, camera=dataclasses.replace(
-        b1.camera, device=torch.device("cpu"))))
+    window("b1", b1, on_cpu(b1))
     # (b2) its .pbrt text: environment camera, halton, gaussian, sampled
     path = os.path.join(PBRT_DIR, "sampling_bench.pbrt")
     text = sampling_bench_b2(path)
@@ -1874,6 +1895,436 @@ def sampling_path_phase(dev, main_rays_per_s):
     finally:
         spec.set_mode("rgb")
     say("sampling_path", **out)
+
+
+import make_accel_golden as accel_golden  # noqa: E402
+import make_volume_golden as volume_golden  # noqa: E402
+
+ACCEL_WAVES = 2             # (b): path waves of the bench scene a walk
+ACCEL_WINDOW_WAVES = 1      # (c): its window's waves on each side
+# (c)'s window: centred on the displaced sphere's centre
+SPHERE_POINT = (-0.4, 1.05, 0.2)
+
+
+def alt_hits_compare(what, g_alt, g_v6, rays):
+    """Closest hits of the alternate walk against the v6 kernel's on the
+    same rays: prim equal on every ray but those one side hits outside the
+    triangle's own box (counted apart, as ``aggregate_compare`` does) and
+    ties, where each walk hits its own triangle at the same t bit for bit
+    (a ray through an edge two triangles share: the grid and kd-tree keep
+    the first triangle of their list, v6 the one it tests first); t within
+    T_RTOL where both hit the same triangle."""
+    h = st.intersect(g_alt, rays)
+    h6 = st.intersect(g_v6, rays)
+    differ = h.prim != h6.prim
+    apart = differ & (manager.misses_own_box(g_v6, rays, h6.prim)
+                      | manager.misses_own_box(g_alt, rays, h.prim))
+    tie = differ & ~apart & (h.prim >= 0) & (h6.prim >= 0) & (h.t == h6.t)
+    same = ~differ & (h.prim >= 0)
+    rel = ((h.t - h6.t).abs() / h6.t.abs())[same]
+    out = {"rays": rays.n, "hits": int(same.sum()),
+           "prim_differ": int(differ.sum()), "apart": int(apart.sum()),
+           "ties": int(tie.sum()),
+           "max_rel_dt": float(rel.max()) if rel.numel() else 0.0}
+    require(int((differ & ~apart & ~tie).sum()) == 0,
+            f"{what}: prims differ from v6's on {out}")
+    require(out["max_rel_dt"] <= T_RTOL, f"{what}: t off v6's: {out}")
+    return out
+
+
+def accel_path_phase(dev, scene, inc):
+    """The grid and kd-tree accelerators on the card: plain torch walks, no
+    kernel. (a) ``render_pbrt`` of the sphere scene of
+    tests/test_alt_accels.py and of scenes/cornell.pbrt (1 spp) under each
+    accelerator against tools/accel_golden.npz by ``compare_images``, with
+    no kernel launched. (b) The bench scene, nothing cut, compiled with each
+    accelerator: build seconds; the camera wave's and the sorted incoherent
+    rays' closest hits against v6's (``alt_hits_compare``); the camera
+    query's host torch operations against its steps (DDA steps or nodes);
+    ACCEL_WAVES path waves at depth MAX_DEPTH, no kernel launched, ms a wave
+    and steps a query, the image against the same waves through v6; the
+    scene written as _build/pbrt/accel_bench_{grid,kdtree}.pbrt. (c) A
+    WINDOW x WINDOW window about the displaced sphere, ACCEL_WINDOW_WAVES
+    waves, card against CPU."""
+    t_phase = time.time()
+    os.makedirs(PBRT_DIR, exist_ok=True)
+    golden = np.load(accel_golden.GOLDEN)
+    out = {}
+    for name in accel_golden.VARIANTS:
+        tc.reset_launches()
+        t0 = time.time()
+        img = manager.render_pbrt(
+            accel_golden.variant_text(name), search_paths=[SCENES_DIR],
+            overrides=accel_golden.overrides(name), log=QUIET, device=dev)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = counted_launches()
+        require(launches == {}, f"accel {name}: kernels launched {launches}")
+        close, rel_mean = compare_images(f"accel {name} vs the reference",
+                                         golden[name], img)
+        out[name] = {"seconds": secs, "pixels_close": close,
+                     "rel_mean": rel_mean, "img_mean": float(img.mean())}
+    _, _, _, _, cam_rays = camera_wave(dev)
+    ig = pi.PathIntegrator(max_depth=MAX_DEPTH)
+    li = lambda s_, r, d, c: pi.li(ig, s_, r, d, c)
+    _, v6_img, v6_info, _ = drive_waves(
+        "accel_path v6", scene, dev, li, ACCEL_WAVES,
+        path_launches(1))
+    for kind, mod in (("grid", grid_mod), ("kdtree", kd_mod)):
+        t0 = time.time()
+        host = sb.bench_scene().build(accelerator=kind)
+        res = {"build_s": time.time() - t0, "tris": host.geometry.n_prims}
+        alt = host.geometry.alt
+        res.update({"max_cell": alt.max_cell, "voxels": list(alt.nv),
+                    "tri_ids": int(alt.tri_ids.size)} if kind == "grid"
+                   else {"max_leaf": alt.max_leaf, "nodes": alt.n_nodes})
+        g = st.to_device(host, dev)
+        tc.reset_launches()
+        res["camera"] = alt_hits_compare(f"{kind} camera wave", g.geometry,
+                                         scene.geometry, cam_rays)
+        res["incoherent"] = alt_hits_compare(f"{kind} incoherent rays",
+                                             g.geometry, scene.geometry, inc)
+        # the camera query: its time, and its host operations (counted in
+        # a second call) against its steps
+        torch.cuda.synchronize()
+        t0 = time.time()
+        st.intersect(g.geometry, cam_rays)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        steps = mod.STEPS["steps"]
+        with stats_mod.TorchOps() as ops:
+            st.intersect(g.geometry, cam_rays)
+        steps = mod.STEPS["steps"] - steps
+        res["camera_query"] = {"ms": ms, "steps": steps, "torch_ops": ops.n,
+                               "torch_ops_per_step": ops.n / steps}
+        queries, steps = mod.STEPS["queries"], mod.STEPS["steps"]
+        _, img, info, _ = drive_waves(f"accel_path {kind}", g, dev, li,
+                                      ACCEL_WAVES, {})
+        queries = mod.STEPS["queries"] - queries
+        steps = mod.STEPS["steps"] - steps
+        close, rel_mean = compare_images(f"accel {kind} waves vs v6's",
+                                         v6_img, img)
+        res["waves"] = {
+            "waves": ACCEL_WAVES, "ms_a_wave": info["seconds"] / ACCEL_WAVES
+            * 1e3, "v6_ms_a_wave": v6_info["seconds"] / ACCEL_WAVES * 1e3,
+            "queries": queries, "steps": steps,
+            "steps_per_query": steps / queries, "pixels_close_to_v6": close,
+            "rel_mean_to_v6": rel_mean, "img_mean": info["img_mean"],
+            "peak_mem_bytes": info["peak_mem_bytes"]}
+        job = bench_job(dev, host)
+        x0, y0 = window_origin(job.camera, SPHERE_POINT)
+        t0 = time.time()
+        card = window_render(job, dev, x0, y0, waves=ACCEL_WINDOW_WAVES)
+        card_s = time.time() - t0
+        t0 = time.time()
+        cpu = window_render(on_cpu(job), "cpu", x0, y0,
+                            waves=ACCEL_WINDOW_WAVES)
+        cpu_s = time.time() - t0
+        close, rel_mean = compare_images(f"accel {kind} window, card vs CPU",
+                                         cpu, card)
+        res["window"] = {"x0": x0, "y0": y0, "waves": ACCEL_WINDOW_WAVES,
+                         "card_s": card_s, "cpu_s": cpu_s,
+                         "pixels_close": close, "rel_mean": rel_mean}
+        out[kind] = res
+        # the same scene as a file, for tools/profile_torch_wave.py --pbrt
+        bench_text_with(os.path.join(PBRT_DIR, f"accel_bench_{kind}.pbrt"),
+                        {PATH_LINE: f'{PATH_LINE}\nAccelerator "{kind}"'})
+    say("accel_path", seconds=time.time() - t_phase, **out)
+
+
+VOLUME_WAVES = 8
+VOLUME_RES = 32             # (b)'s density grid: VOLUME_RES^3 from a seed
+VOLUME_SEED = 21
+# (b)'s volumegrid region: it encloses both spheres
+VOLUME_BOUNDS = ((-1.7, -0.05, -1.3), (1.8, 2.3, 1.5))
+# a path wave (1 closest, MAX_DEPTH mixed, 1 any) + the camera segment's
+# closest + one shadow ray a step of single scattering's 32
+VOLUME_WAVE_LAUNCHES = {"traverse6:closest": 2, "traverse6:mixed": MAX_DEPTH,
+                        "traverse6:any": 33}
+IGI_WAVES = 4
+# igi's defaults: 64 paths x depth 5 VPLs a set, one any-hit launch each,
+# beside the camera closest and uniform_sample_one_light's closest + any
+IGI_WAVE_LAUNCHES = {"traverse6:closest": 2, "traverse6:any": 1 + 64 * 5}
+IGI_WINDOW_WAVES = 1
+
+
+def lanes_a_wave(launches):
+    """Traversal lanes a wave launches: a mixed launch takes two waves'
+    lanes (extension + shadow)."""
+    return WIDTH * HEIGHT * sum(
+        v * (2 if k.endswith(":mixed") else 1) for k, v in launches.items())
+
+
+def surface_launches_a_wave(job, dev):
+    """The v6 launches one wave of `job`'s surface integrator alone
+    makes."""
+    scene = st.to_device(job.scene, dev)
+    li = manager.build_surface_li(job, log=QUIET, device=dev)
+    px, py = rend.pixel_grid(job.width, job.height, device=dev)
+    film = film_mod.make_film(job.width, job.height, device=dev)
+    tc.reset_launches()
+    with torch.no_grad():
+        rend.render_wave(scene, job.camera, job.sampler, film, px, py,
+                         torch.zeros_like(px), li_fn=li, width=job.width,
+                         height=job.height, spp=job.sampler.spp, device=dev)
+    torch.cuda.synchronize()
+    return counted_launches()
+
+
+def bench_text_with(path, replace, world=""):
+    """``bench_scene_pbrt``'s text with the lines of `replace` (old: new)
+    swapped and `world` put after WorldBegin."""
+    bench_scene_pbrt(path)
+    with open(path) as f:
+        text = f.read()
+    for old, new in replace.items():
+        require(text.count(old) == 1, f"bench .pbrt text lacks {old!r}")
+        text = text.replace(old, new)
+    text = text.replace("WorldBegin\n", "WorldBegin\n" + world)
+    with open(path, "w") as f:
+        f.write(text)
+    return text
+
+
+PATH_LINE = f'SurfaceIntegrator "path" "integer maxdepth" [{MAX_DEPTH}]'
+
+
+def volume_bench_text(path):
+    """The bench scene in a volumegrid region about both spheres with
+    VOLUME_RES^3 seeded densities, single scattering."""
+    dens = np.random.RandomState(VOLUME_SEED).rand(VOLUME_RES ** 3).astype(
+        np.float32) * np.float32(1.5)
+    n = VOLUME_RES
+    vol = (f'Volume "volumegrid" "point p0" [{pbrt_numbers(VOLUME_BOUNDS[0])}]'
+           f' "point p1" [{pbrt_numbers(VOLUME_BOUNDS[1])}]'
+           f' "integer nx" [{n}] "integer ny" [{n}] "integer nz" [{n}]'
+           ' "rgb sigma_a" [0.05 0.05 0.05] "rgb sigma_s" [0.3 0.3 0.3]'
+           f' "float g" [0.2] "float density" [{pbrt_numbers(dens)}]\n')
+    return bench_text_with(path, {PATH_LINE: PATH_LINE + '\nVolumeIntegrator '
+                                  '"single"'}, vol)
+
+
+def in_turns(waves, order, repeats=4):
+    """Host-clock ms of each wave of `waves` (name -> wave function), taken
+    in the turns `order`, so that ratios are read under the same host
+    conditions."""
+    turns = {k: [] for k in waves}
+    for k in order:
+        turns[k].append(wave_ms(waves[k], repeats))
+    return turns
+
+
+def card_vs_cpu_window(what, job, text, resolver, waves, point, dev):
+    """(c): the WINDOW x WINDOW window about `point`, `waves` waves of
+    `job` on `dev` against the same text parsed for the CPU."""
+    cpu_job = parser.parse(text, resolver=resolver, log=QUIET, device="cpu")
+    x0, y0 = window_origin(cpu_job.camera, point)
+    t0 = time.time()
+    card = window_render(job, dev, x0, y0, waves=waves)
+    card_s = time.time() - t0
+    t0 = time.time()
+    cpu = window_render(cpu_job, "cpu", x0, y0, waves=waves)
+    cpu_s = time.time() - t0
+    close, rel_mean = compare_images(f"{what} window, card vs CPU", cpu, card)
+    return {"x0": x0, "y0": y0, "waves": waves, "card_s": card_s,
+            "cpu_s": cpu_s, "pixels_close": close, "rel_mean": rel_mean,
+            "img_mean": float(card.mean())}
+
+
+def volume_path_phase(dev, main_rays_per_s):
+    """Participating media on the card, through the v6 kernel. (a)
+    ``render_pbrt`` of scenes/smoke.pbrt and both variants of
+    scenes/volumes.pbrt against tools/volume_golden.npz: a wave's launches
+    are the surface integrator's (one wave of it alone, counted) plus 1
+    closest-hit launch, plus 32 any-hit launches under single scattering.
+    (b) The bench scene inside a VOLUME_RES^3 volumegrid with single
+    scattering, through ``build_li``: VOLUME_WAVES waves of exactly
+    VOLUME_WAVE_LAUNCHES and no other kernel, a finite image; rays/s
+    (lanes launched) and device kernels a wave beside main_path's, and the
+    two waves' host-clock ms in turns (main, volume, volume, main). (c) A
+    WINDOW x WINDOW window about the displaced sphere, card against CPU."""
+    t_phase = time.time()
+    golden = np.load(volume_golden.GOLDEN)
+    out = {}
+    for name in ("smoke", "volumes", "volumes_single"):
+        text = volume_golden.variant_text(name)
+        job = parser.parse(text, resolver=resources.Resolver([SCENES_DIR]),
+                           log=QUIET, device=dev)
+        surf = surface_launches_a_wave(job, dev)
+        extra = {"traverse6:closest": 1}
+        if job.vol_integrator == "single":
+            extra["traverse6:any"] = 32
+        want = {k: (surf.get(k, 0) + extra.get(k, 0)) * job.sampler.spp
+                for k in {**surf, **extra}}
+        tc.reset_overflow(dev)
+        tc.reset_launches()
+        t0 = time.time()
+        img = manager.render_pbrt(text, search_paths=[SCENES_DIR],
+                                  log=QUIET, device=dev)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = counted_launches()
+        require(launches == want, f"volume {name}: kernel launches "
+                f"{launches}, expected {want}")
+        close, rel_mean = compare_images(f"volume {name} vs the reference",
+                                         golden[name], img)
+        out[name] = {"seconds": secs, "launches": launches,
+                     "surface_launches_a_wave": surf,
+                     "pixels_close": close, "rel_mean": rel_mean,
+                     "img_mean": float(img.mean())}
+    os.makedirs(PBRT_DIR, exist_ok=True)
+    path = os.path.join(PBRT_DIR, "volume_bench.pbrt")
+    text = volume_bench_text(path)
+    resolver = resources.Resolver([PBRT_DIR, SCENES_DIR])
+    t0 = time.time()
+    job = parser.parse(text, resolver=resolver, log=QUIET, device=dev)
+    parse_s = time.time() - t0
+    v = job.scene.volume
+    require(v is not None and v.kind.tolist() == [2]
+            and v.grid.shape == (VOLUME_RES,) * 3
+            and job.vol_integrator == "single",
+            "volume bench: the scene did not compile as written")
+    scene = st.to_device(job.scene, dev)
+    li = manager.build_li(job, log=QUIET, device=dev)
+    _, img, info, _ = drive_waves("volume_path", scene, dev, li,
+                                  VOLUME_WAVES, VOLUME_WAVE_LAUNCHES)
+    require(img.mean() > 0, "volume bench: image black")
+    lanes = lanes_a_wave(VOLUME_WAVE_LAUNCHES) * VOLUME_WAVES
+    main_job = bench_job(dev)
+    waves = {"main": profiled_wave(main_job, dev, 1),
+             "volume": profiled_wave(job, dev, 1)}
+    turns = in_turns(waves, ("main", "volume", "volume", "main"))
+    out["bench"] = {
+        "parse_s": parse_s, "file_bytes": os.path.getsize(path), **info,
+        "rays_per_s": lanes / info["seconds"],
+        "main_path_rays_per_s": main_rays_per_s,
+        "rays_per_s_over_main_path": lanes / info["seconds"]
+        / main_rays_per_s,
+        "device_kernels_a_wave": device_kernels_a_wave(waves["volume"]),
+        "main_path_device_kernels_a_wave": device_kernels_a_wave(
+            waves["main"]),
+        "wave_ms_in_turns": turns,
+        "wave_ms_over_main": sum(turns["volume"]) / sum(turns["main"])}
+    out["window"] = card_vs_cpu_window("volume", job, text, resolver,
+                                       WINDOW_WAVES, SPHERE_POINT, dev)
+    say("volume_path", seconds=time.time() - t_phase, **out)
+
+
+def vpl_agreement(a, b):
+    """Share of VPL slots whose validity agrees, and of the slots valid in
+    both whose p, n and alpha agree to rtol 1e-5 / atol 1e-6."""
+    va, vb = np.asarray(a["igi_vpl_valid"]), np.asarray(b["igi_vpl_valid"])
+    both = va & vb
+    ok = np.ones(int(both.sum()), bool)
+    for k in ("igi_vpl_p", "igi_vpl_n", "igi_vpl_alpha"):
+        ok &= np.isclose(np.asarray(a[k])[both], np.asarray(b[k])[both],
+                         rtol=1e-5, atol=1e-6).all(-1)
+    return float((va == vb).mean()), float(ok.mean()), int(both.sum())
+
+
+def vpl_arrays(v):
+    v3 = lambda t: np.stack([c.cpu().numpy() for c in t], -1)
+    return {"igi_vpl_p": v3(v.p), "igi_vpl_n": v3(v.n),
+            "igi_vpl_alpha": v3(v.alpha),
+            "igi_vpl_valid": v.valid.cpu().numpy()}
+
+
+def igi_path_phase(dev, main_rays_per_s):
+    """The IGI integrator on the card, through the v6 kernel. (a)
+    ``render_pbrt`` of scenes/igi-env.pbrt as written against
+    tools/volume_golden.npz's image, its VPL set from ``preprocess`` against
+    the reference's (valid slots equal, >= 0.995 of values close): 3
+    closest-hit launches to shoot them, then a wave of 1 camera closest, 1
+    closest + 1 any-hit for the sampled light and 48 any-hit for the VPLs.
+    (b) The bench scene through igi at its defaults (64 paths, 4 sets, depth
+    5): IGI_WAVES waves of exactly IGI_WAVE_LAUNCHES and no other kernel;
+    rays/s beside main_path's, wave ms in turns (main, igi, igi, main, one
+    wave each after a warm-up). (c) A WINDOW x WINDOW window about the
+    displaced sphere, IGI_WINDOW_WAVES waves, card against CPU, each with
+    the VPLs it shot (their agreement printed)."""
+    t_phase = time.time()
+    golden = np.load(volume_golden.GOLDEN)
+    text = volume_golden.variant_text("igi_env")
+    job = parser.parse(text, resolver=resources.Resolver([SCENES_DIR]),
+                       log=QUIET, device=dev)
+    vpls = vpl_arrays(igi_mod.preprocess(
+        manager.igi_integrator(job.surf_params), job.scene, device=dev))
+    valid_eq, close, n_valid = vpl_agreement(vpls, golden)
+    require(valid_eq == 1.0 and close >= 0.995,
+            f"igi-env VPLs: valid slots agree {valid_eq}, values {close}")
+    tc.reset_launches()
+    t0 = time.time()
+    img = manager.render_pbrt(text, search_paths=[SCENES_DIR], log=QUIET,
+                              device=dev)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    spp = job.sampler.spp
+    launches = counted_launches()
+    want = {"traverse6:closest": 3 + 2 * spp, "traverse6:any": 49 * spp}
+    require(launches == want, f"igi-env: kernel launches {launches}, "
+            f"expected {want}")
+    close_img, rel_mean = compare_images("igi-env vs the reference",
+                                         golden["igi_env"], img)
+    out = {"igi_env": {"seconds": secs, "launches": launches,
+                       "vpls_valid": n_valid, "vpl_values_close": close,
+                       "pixels_close": close_img, "rel_mean": rel_mean,
+                       "img_mean": float(img.mean())}}
+    os.makedirs(PBRT_DIR, exist_ok=True)
+    path = os.path.join(PBRT_DIR, "igi_bench.pbrt")
+    text = bench_text_with(path, {PATH_LINE: 'SurfaceIntegrator "igi"'})
+    resolver = resources.Resolver([PBRT_DIR, SCENES_DIR])
+    job = parser.parse(text, resolver=resolver, log=QUIET, device=dev)
+    require(job.surf_integrator == "igi", "igi bench: not an igi job")
+    scene = st.to_device(job.scene, dev)
+    t0 = time.time()
+    li = manager.build_li(job, log=QUIET, device=dev)
+    torch.cuda.synchronize()
+    preprocess_s = time.time() - t0
+    _, img, info, _ = drive_waves("igi_path", scene, dev, li, IGI_WAVES,
+                                  IGI_WAVE_LAUNCHES)
+    require(img.mean() > 0, "igi bench: image black")
+    lanes = lanes_a_wave(IGI_WAVE_LAUNCHES) * IGI_WAVES
+    waves = {"main": profiled_wave(bench_job(dev), dev, 1),
+             "igi": profiled_wave(job, dev, 1)}
+    turns = in_turns(waves, ("main", "igi", "igi", "main"), repeats=1)
+    out["bench"] = {
+        "preprocess_s": preprocess_s, **info,
+        "rays_per_s": lanes / info["seconds"],
+        "main_path_rays_per_s": main_rays_per_s,
+        "rays_per_s_over_main_path": lanes / info["seconds"]
+        / main_rays_per_s,
+        "wave_ms_in_turns": turns,
+        "wave_ms_over_main": sum(turns["igi"]) / sum(turns["main"])}
+    cpu_job = parser.parse(text, resolver=resolver, log=QUIET, device="cpu")
+    ig = manager.igi_integrator(job.surf_params)
+    out["vpls_card_vs_cpu"] = dict(zip(
+        ("valid_agree", "values_close", "valid"), vpl_agreement(
+            vpl_arrays(igi_mod.preprocess(ig, job.scene, device=dev)),
+            vpl_arrays(igi_mod.preprocess(ig, cpu_job.scene,
+                                          device="cpu")))))
+    out["window"] = card_vs_cpu_window("igi", job, text, resolver,
+                                       IGI_WINDOW_WAVES, SPHERE_POINT, dev)
+    say("igi_path", seconds=time.time() - t_phase, **out)
+
+
+def bench_job(dev, host=None):
+    """The main path's render as a RenderJob: the bench scene (or `host`),
+    ``camera_wave``'s camera and sampler, the path integrator at its
+    default depth (MAX_DEPTH)."""
+    cam, smp, _, _, _ = camera_wave(dev)
+    return manager.RenderJob(
+        scene=sb.bench_scene().build() if host is None else host,
+        camera=cam, sampler=smp, width=WIDTH, height=HEIGHT,
+        filter_name="box", filter_params=None, surf_integrator="path",
+        surf_params=paramset.ParamSet(),
+        vol_integrator="emission", vol_params=paramset.ParamSet(),
+        renderer="sampler", renderer_params=paramset.ParamSet())
+
+
+def on_cpu(job):
+    """`job` with its camera on the CPU (the scene is host numpy)."""
+    return dataclasses.replace(job, camera=dataclasses.replace(
+        job.camera, device=torch.device("cpu")))
 
 
 def window_origin(camera, p):
@@ -2088,6 +2539,11 @@ def main():
     # samplers, filters, cameras, the sampled mode, checkpoints and the
     # adaptive renderer (their launches are printed on sampling_path's line)
     sampling_path_phase(dev, main_rays_per_s)
+    # the grid and kd-tree walks (no kernel), participating media and the
+    # IGI integrator (their launches are printed on their own lines)
+    accel_path_phase(dev, scene, shapes[1])
+    volume_path_phase(dev, main_rays_per_s)
+    igi_path_phase(dev, main_rays_per_s)
     # the differentiable render: its launches are printed on grad_path's
     # line, not counted into the kernels line (main_path's are)
     grad_small_phase(dev)

@@ -91,3 +91,65 @@ def brute_force_intersect(v0, e1, e2, rays: vm.Rays,
         b2 = torch.where(better, take(v), b2)
     t_out = torch.where(prim >= 0, t_best, float("inf"))
     return Hits(t=t_out, prim=prim, b1=b1, b2=b2)
+
+
+def inv_dir(d):
+    """1 / d with components below 1e-30 in magnitude taken as +-1e-30 (the
+    slab tests' reciprocal direction)."""
+    return 1.0 / torch.where(torch.abs(d) < 1e-30,
+                             torch.where(d < 0, -1e-30, 1e-30), d)
+
+
+def _dot(a, b):
+    return (a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1]) + a[:, 2] * b[:, 2]
+
+
+def _cross(a, b):
+    return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], -1)
+
+
+def first_closest(o, d, tmin, t_best, v0, e1, e2, ids, start, cnt, total):
+    """Lane i tests the triangles ``ids[start[i] : start[i] + cnt[i]]``
+    (cnt 0: none) against its ray, all (lane, triangle) pairs at once, and
+    keeps what a sequential loop over its list with the strict update
+    ``t < t_best`` keeps: the least accepted t, from the FIRST triangle in
+    list order that reaches it (ties go to the earlier triangle).
+
+    o, d: (R, 3); tmin, t_best: (R,); v0/e1/e2: (F, 3) soup; ids: flat
+    triangle lists; start, cnt: (R,) int; total: the Python int
+    ``cnt.sum()``, at least 1, which sizes the pair arrays (the caller reads
+    it with its loop condition). The host issues a fixed number of
+    operations whatever the lists' lengths. Returns (better (R,) bool, t,
+    prim int32, u, v): the new best where `better`, garbage elsewhere."""
+    r, dev = o.shape[0], o.device
+    cnt = cnt.long()
+    lanes = torch.repeat_interleave(torch.arange(r, device=dev), cnt,
+                                    output_size=total)
+    first = torch.cumsum(cnt, 0) - cnt
+    j = torch.arange(total, device=dev)
+    slot = start.long()[lanes] + (j - first[lanes])
+    idx = ids[slot.clamp_max(ids.shape[0] - 1).long()]
+    il = idx.long()
+    tv0, te1, te2 = v0[il], e1[il], e2[il]
+    dl = d[lanes]
+    pvec = _cross(dl, te2)
+    det = _dot(te1, pvec)
+    inv_det = 1.0 / torch.where(torch.abs(det) < TRI_EPS, 1.0, det)
+    tvec = o[lanes] - tv0
+    u = _dot(tvec, pvec) * inv_det
+    qvec = _cross(tvec, te1)
+    v = _dot(dl, qvec) * inv_det
+    t = _dot(te2, qvec) * inv_det
+    ok = ((torch.abs(det) >= TRI_EPS) & (u >= -BARY_EPS) & (v >= -BARY_EPS)
+          & (u + v <= 1.0 + BARY_EPS) & (t > tmin[lanes])
+          & (t < t_best[lanes]))
+    inf = torch.full((r,), float("inf"), device=dev)
+    t_min = inf.scatter_reduce(0, lanes, torch.where(ok, t, float("inf")),
+                               "amin")
+    win = ok & (t == t_min[lanes])
+    none = torch.full((r,), total, dtype=torch.int64, device=dev)
+    pick = none.scatter_reduce(0, lanes, torch.where(win, j, total), "amin")
+    pk = pick.clamp_max(total - 1)
+    return pick < total, t_min, idx[pk].to(torch.int32), u[pk], v[pk]

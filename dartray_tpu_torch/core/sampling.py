@@ -275,3 +275,39 @@ class Distribution2D:
         self.marg_cdf = marg.cdf
         self.marg_func = marg.func
         self.marg_int = marg.func_int
+
+
+# --- Henyey-Greenstein phase function ---------------------------------------
+
+def _f32(g):
+    """A scalar or per-lane asymmetry g as float32: a scalar becomes a 0-dim
+    CPU tensor, so that g * g is a float32 product as in the reference."""
+    return torch.as_tensor(g, dtype=torch.float32)
+
+
+def sample_hg(w, u, g):
+    """Henyey-Greenstein phase sampling about the V3 direction w (|g| below
+    1e-3 samples the sphere uniformly). Returns V3."""
+    u = vm.from_arr2(u)
+    w = vm.from_arr(w)
+    g = _f32(g)
+    iso = torch.abs(g) < 1e-3
+    den = 1.0 - g + 2.0 * g * u.x
+    sq = (1.0 - g * g) / torch.where(torch.abs(den) < 1e-12, 1.0, den)
+    two_g = 2.0 * g
+    costheta_hg = (1.0 + g * g - sq * sq) / torch.where(
+        torch.abs(two_g) < 1e-12, 1.0, two_g)
+    costheta = torch.where(iso, 1.0 - 2.0 * u.x, costheta_hg)
+    sintheta = torch.sqrt((1.0 - costheta * costheta).clamp_min(0.0))
+    phi = 2.0 * np.pi * u.y
+    v1, v2 = vm.coordinate_system(w)
+    return (v1 * (sintheta * torch.cos(phi)) + v2 * (sintheta * torch.sin(phi))
+            + w * costheta)
+
+
+def hg_pdf(cos_theta, g):
+    """Henyey-Greenstein phase function value."""
+    g = _f32(g)
+    denom = 1.0 + g * g + 2.0 * g * cos_theta
+    return (1.0 / (4.0 * np.pi)) * (1.0 - g * g) / (
+        denom * torch.sqrt(denom.clamp_min(1e-12))).clamp_min(1e-12)

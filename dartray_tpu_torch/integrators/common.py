@@ -1,11 +1,12 @@
 """Shared integrator machinery: MIS direct lighting over wavefronts
 (counterpart of the JAX reference's ``integrators/common.py``).
 
-``shadow_ray``, ``nee_prepare`` (the shade half of next-event estimation)
-and ``emitter_hit_mis`` (MIS-weighted emission gathered by the extension
-ray) serve the path integrator; ``estimate_direct`` (MIS light +
-BSDF sampling toward one light, two SEPARATE traversal launches: an any-hit
-shadow wave and a closest-hit wave) and ``uniform_sample_one_light`` /
+``shadow_ray``, ``nee_prepare`` (the shade half of next-event estimation),
+``nee_one_light`` (the same, traced) and ``emitter_hit_mis`` (MIS-weighted
+emission gathered by the extension ray) serve the path integrator;
+``estimate_direct`` (MIS light + BSDF sampling toward one light, two
+SEPARATE traversal launches: an any-hit shadow wave and a closest-hit wave)
+and ``uniform_sample_one_light`` /
 ``uniform_sample_all_lights`` built on it serve the direct-lighting
 integrator. With an infinite light in the table, a BSDF-sample or extension
 ray that escapes the scene gathers the environment's radiance, MIS-weighted
@@ -138,6 +139,22 @@ def nee_prepare(scene, it, frame, params, wo, u_select, u_light, uc_light,
     scale = torch.where(usable, cos_l * w_l / pdf_nee.clamp_min(1e-20), 0.0)
     contrib = f_l * ls.li * scale
     return sray, usable, contrib
+
+
+def nee_one_light(scene, it, frame, params, wo, u_select, u_light, uc_light,
+                  mask, flags=bx.ALL & ~bx.SPECULAR):
+    """Next-event estimation toward one uniformly chosen light, traced: the
+    light-sampling half of ``estimate_direct`` with the MIS weight of
+    ``nee_prepare`` (light pdf / number of lights against the BSDF pdf).
+    One any-hit traversal; `mask`: the lanes that need a shadow ray (dead
+    lanes get tmax -1). Returns V3."""
+    if scene.lights.n == 0:
+        return vm.v3zeros(it["t"].shape, it["t"].device)
+    sray, usable, contrib = nee_prepare(scene, it, frame, params, wo,
+                                        u_select, u_light, uc_light, mask,
+                                        flags)
+    occluded = st.intersect_p(scene.geometry, sray)
+    return vm.where3(usable & ~occluded, contrib, 0.0)
 
 
 def emitter_hit_mis(scene, cur, hits, it, prev_pdf, prev_specular,

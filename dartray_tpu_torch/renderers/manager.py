@@ -7,12 +7,13 @@ there raises). ``run`` dispatches on the job's renderer: ``sampler`` (the
 wavefront render of ``renderers/sampler.py``, or its ``render_adaptive``
 when the scene asks for the adaptive sampler) or ``aggregatetest`` (random
 rays through the BVH against the exhaustive intersector). The surface
-integrators are ``path``, ``directlighting``, ``whitted`` and
-``ambientocclusion``; an unknown name warns and renders with ``path``, as in
-the reference. The volume integrator is read but never runs: a volume
-raises at parse time (ROADMAP Queue 1 item 8), so a job's radiance is its
-surface integrator's. The other renderers and integrators the reference
-has raise ``NotImplementedError`` naming their ROADMAP item.
+integrators are ``path``, ``directlighting``, ``whitted``,
+``ambientocclusion`` and ``igi`` (its VPLs shot when the job's radiance
+function is built); an unknown name warns and renders with ``path``, as in
+the reference. A scene with a volume composes the surface radiance with the
+volume integrator's over the camera segment (``build_li``: L = T Ls + Lv,
+``emission`` by default or ``single``). The other renderers and integrators
+the reference has raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -34,7 +35,9 @@ from ..core import math as vm
 from ..core import spectrum as spec_mod
 from ..integrators import ao as ao_mod
 from ..integrators import direct as di_mod
+from ..integrators import igi as igi_mod
 from ..integrators import path as pi_mod
+from ..integrators import volume as vi_mod
 from ..integrators import whitted as wh_mod
 from ..scene import paramset as ps_mod
 from ..scene import parser as parser_mod
@@ -44,15 +47,17 @@ from ..scene.api import RenderJob, not_ported
 from . import sampler as rend
 
 # what the reference runs and the port does not yet (ROADMAP Queue 1 item 8)
-_NOT_PORTED_INTEGRATORS = ("igi", "photonmap", "exphotonmap",
+_NOT_PORTED_INTEGRATORS = ("photonmap", "exphotonmap",
                            "irradiancecache", "dipolesubsurface",
                            "diffuseprt", "glossyprt", "useprobes")
 _NOT_PORTED_RENDERERS = ("metropolis", "createprobes", "surfacepoints")
 
 
-def build_surface_li(job: RenderJob, log=print) -> Callable:
+def build_surface_li(job: RenderJob, log=print,
+                     device=device_mod.DEFAULT) -> Callable:
     """The surface integrator of `job` as ``li(scene, rays, diffs, sctx)``;
-    unknown names warn and fall back to path."""
+    unknown names warn and fall back to path. An integrator with a
+    preprocess phase (igi's VPL shooting) runs it here, on `device`."""
     name = job.surf_integrator
     p = job.surf_params
     if name == "ambientocclusion":
@@ -71,6 +76,10 @@ def build_surface_li(job: RenderJob, log=print) -> Callable:
     if name == "whitted":
         ig = wh_mod.WhittedIntegrator(max_depth=p.find_one_int("maxdepth", 5))
         return lambda s, r, d, c: wh_mod.li(ig, s, r, d, c)
+    if name == "igi":
+        ig = igi_integrator(p)
+        vpls = igi_mod.preprocess(ig, job.scene, device=device)
+        return lambda s, r, d, c: igi_mod.li(ig, s, r, d, c, vpls)
     if name in _NOT_PORTED_INTEGRATORS:
         raise not_ported(f"surface integrator {name!r}",
                           "item 8, the other integrators")
@@ -78,6 +87,45 @@ def build_surface_li(job: RenderJob, log=print) -> Callable:
         log(f"warning: unknown surface integrator {name!r}; using path")
     ig = pi_mod.PathIntegrator(max_depth=p.find_one_int("maxdepth", 5))
     return lambda s, r, d, c: pi_mod.li(ig, s, r, d, c)
+
+
+def igi_integrator(p) -> igi_mod.IGIIntegrator:
+    """The IGI integrator a ``SurfaceIntegrator "igi"`` ParamSet asks
+    for."""
+    return igi_mod.IGIIntegrator(
+        n_light_paths=p.find_one_int("nlights", 64),
+        n_light_sets=p.find_one_int("nsets", 4),
+        max_depth=p.find_one_int("maxdepth", 5),
+        g_limit=p.find_one_float("glimit", 10.0))
+
+
+def build_li(job: RenderJob, log=print,
+             device=device_mod.DEFAULT) -> Callable:
+    """The job's radiance ``li(scene, rays, diffs, sctx)``: the surface
+    integrator's, and on a scene with a volume, T * Ls + Lv with (Lv, T)
+    the volume integrator's over the camera segment up to the first
+    surface hit (one more closest-hit traversal of the camera rays; 1e7
+    where they miss). Only that segment is attenuated: the surface
+    integrator's own rays ignore the medium, as in the reference."""
+    surf_li = build_surface_li(job, log=log, device=device)
+    step = job.vol_params.find_one_float("stepsize", 1.0)
+    if job.vol_integrator == "single":
+        ig = vi_mod.SingleScatteringIntegrator(step_size=step)
+        vol_li = lambda s, r, t, c: vi_mod.single_scatter_li(ig, s, r, t, c)
+    else:       # "emission", the default
+        ig = vi_mod.EmissionIntegrator(step_size=step)
+        vol_li = lambda s, r, t, c: vi_mod.emission_li(ig, s, r, t, c)
+
+    def li(scene, rays, diffs, sctx):
+        ls = surf_li(scene, rays, diffs, sctx)
+        if scene.volume is None:
+            return ls
+        hits = st.intersect(scene.geometry, rays)
+        seg_tmax = torch.where(hits.hit, hits.t, 1e7)
+        lv, tr = vol_li(scene, rays, seg_tmax, sctx)
+        return tr * ls + lv
+
+    return li
 
 
 def run(job: RenderJob, progress: Optional[Callable] = None, log=print,
@@ -102,7 +150,7 @@ def run(job: RenderJob, progress: Optional[Callable] = None, log=print,
         return np.zeros((job.height, job.width, 3), np.float32)
     if rname != "sampler":
         log(f"warning: unknown renderer {rname!r}; using sampler")
-    li = build_surface_li(job, log=log)
+    li = build_li(job, log=log, device=dev)
     if job.adaptive is not None:
         mn, mx = job.adaptive
         img, n_ref = rend.render_adaptive(
@@ -166,22 +214,28 @@ def aggregate_compare(geom, rays):
     # near 2^24 lanes
     h_ref = tv.brute_force_intersect(geom.v0, geom.e1, geom.e2, rays,
                                      chunk=max(1, (1 << 24) // rays.n))
-    j = h_ref.prim.clamp_min(0).long()
-    v0, e1, e2 = (vm.to_arr(a)[j] for a in (geom.v0, geom.e1, geom.e2))
-    corners = torch.stack([v0, v0 + e1, v0 + e2])
-    o, d = vm.to_arr(rays.o), vm.to_arr(rays.d)
-    inv = 1.0 / torch.where(d.abs() < 1e-30, torch.where(
-        d < 0, -1e-30, 1e-30), d)
-    t0 = (corners.amin(0) - o) * inv
-    t1 = (corners.amax(0) - o) * inv
-    tn = torch.maximum(torch.minimum(t0, t1).amax(1), rays.tmin)
-    tf = torch.minimum(torch.maximum(t0, t1).amin(1), rays.tmax)
-    inconsistent = h_ref.hit & ~(tn <= tf)
+    inconsistent = misses_own_box(geom, rays, h_ref.prim)
     mism = int(((h_acc.hit != h_ref.hit) & ~inconsistent).sum())
     both = h_acc.hit & h_ref.hit
     terr = (h_acc.t - h_ref.t).abs()[both]
     return (mism, int(inconsistent.sum()),
             float(terr.max()) if terr.numel() else 0.0)
+
+
+def misses_own_box(geom, rays, prim):
+    """(R,) bool: the ray hit triangle `prim` (-1: none) at a point outside
+    the triangle's own bounding box, within the inclusive barycentric
+    tolerance: a hit no box walk need find (``aggregate_compare``)."""
+    j = prim.clamp_min(0).long()
+    v0, e1, e2 = (vm.to_arr(a)[j] for a in (geom.v0, geom.e1, geom.e2))
+    corners = torch.stack([v0, v0 + e1, v0 + e2])
+    o = vm.to_arr(rays.o)
+    inv = tv.inv_dir(vm.to_arr(rays.d))
+    t0 = (corners.amin(0) - o) * inv
+    t1 = (corners.amax(0) - o) * inv
+    tn = torch.maximum(torch.minimum(t0, t1).amax(1), rays.tmin)
+    tf = torch.minimum(torch.maximum(t0, t1).amin(1), rays.tmax)
+    return (prim >= 0) & ~(tn <= tf)
 
 
 def render_pbrt(text_or_path: str, search_paths=None,
@@ -321,18 +375,30 @@ def _override_camera(job: RenderJob, name: str, params, log=print) \
 
 
 def _override_accelerator(job: RenderJob, name: str, log=print) -> RenderJob:
-    """Accelerator override: "grid" and "kdtree" are not ported; any other
-    name is the cluster BVH, which every port scene already has. Moving
-    geometry ignores the override, as in the reference."""
-    if job.scene.geometry.has_motion:
+    """Accelerator override: "grid" and "kdtree" build that alternate over
+    the parsed triangle soup; any other name drops the alternate (the
+    cluster BVH, which every port scene has). Moving geometry ignores the
+    override, as in the reference."""
+    geom = job.scene.geometry
+    if geom.has_motion:
         log(f"note: accelerator override {name!r} ignored for moving "
             f"geometry (grid/kdtree do not lerp vertices by ray time)")
         return job
-    if name in ("grid", "kdtree"):
-        raise not_ported(f"accelerator {name!r}",
-                          "item 10, alternate accelerators")
-    log(f"accelerator override {name!r}: already active")
-    return job
+    want = name if name in ("grid", "kdtree") else ""
+    if want == geom.alt_kind:
+        log(f"accelerator override {name!r}: already active")
+        return job
+    soup = [np.stack([np.asarray(c) for c in v], -1)
+            for v in (geom.v0, geom.e1, geom.e2)]
+    alt = st.build_alt(want, *soup)
+    if want:
+        log(f"accelerator override: rebuilt {want!r} over the parsed "
+            f"triangle soup ({soup[0].shape[0]} tris)")
+    else:
+        log(f"accelerator override {name!r}: cluster BVH")
+    geom = dataclasses.replace(geom, alt=alt, alt_kind=want)
+    return dataclasses.replace(
+        job, scene=dataclasses.replace(job.scene, geometry=geom))
 
 
 def overrides_to_json(ov: dict) -> str:

@@ -16,7 +16,10 @@ import numpy as np
 from .. import lights as lt_mod
 from .. import materials as mat_mod
 from .. import textures as tex_mod
+from .. import volumes as vol_mod
 from ..accel import cluster as cluster_mod
+from ..accel import grid as grid_mod
+from ..accel import kdtree as kd_mod
 from ..core import math as vm
 from ..ops import traverse_cuda as tc
 from . import types as st
@@ -83,11 +86,24 @@ def _cluster(d) -> cluster_mod.ClusterBVH:
         k=int(d["k"]), max_depth=int(d["max_depth"]))
 
 
+def _alt(kind, d):
+    """The reference's Grid / KdTree, array for array."""
+    if kind == "grid":
+        return grid_mod.Grid(
+            **{k: _f32(d[k]) for k in ("lo", "hi", "width", "inv_width",
+                                       "v0", "e1", "e2")},
+            **{k: _i32(d[k]) for k in ("cell_start", "cell_count",
+                                       "tri_ids")},
+            nv=tuple(int(n) for n in d["nv"]), max_cell=int(d["max_cell"]))
+    return kd_mod.KdTree(
+        **{k: _f32(d[k]) for k in ("split_pos", "lo", "hi", "v0", "e1",
+                                   "e2")},
+        meta=_i32(d["meta"]), prim_ids=_i32(d["prim_ids"]),
+        n_nodes=int(d["n_nodes"]), max_leaf=int(d["max_leaf"]))
+
+
 def _geometry(d) -> st.Geometry:
-    if d.get("alt_kind"):
-        raise NotImplementedError(
-            "the grid / kd-tree accelerators are not ported (ROADMAP Queue 1 "
-            "item 10, alternate accelerators)")
+    kind = d.get("alt_kind") or ""
     has_alpha = bool(d.get("has_alpha", False))
     return st.Geometry(
         cl=_cluster(d["cl"]), packed=_packed(d["packed"]),
@@ -99,6 +115,7 @@ def _geometry(d) -> st.Geometry:
         world_bound=_f32(d["world_bound"]),
         alpha_tid=_i32(d["alpha_tid"]) if has_alpha else None,
         alpha_tex=_textures(d["alpha_tex"]) if has_alpha else None,
+        alt=_alt(kind, d["alt"]) if kind else None, alt_kind=kind,
         n_prims=int(d["n_prims"]), n_nodes=int(d["n_nodes"]),
         has_alpha=has_alpha, has_motion=bool(d.get("has_motion", False)),
         shutter=tuple(d.get("shutter", (0.0, 1.0))))
@@ -149,13 +166,20 @@ def _lights(d) -> lt_mod.LightTable:
         env_h=int(d["env_h"]))
 
 
+def _volume(d) -> vol_mod.VolumeData:
+    return vol_mod.VolumeData(
+        kind=_i32(d["kind"]),
+        **{k: _f32(d[k]) for k in ("w2v", "bounds", "sigma_a", "sigma_s",
+                                   "le", "g", "params", "grid")},
+        n=int(d["n"]), grid_shape=tuple(int(n) for n in d["grid_shape"]))
+
+
 def from_reference(tree) -> st.CompiledScene:
     """tree: {"geometry": {...}, "materials": {...} | None, "lights": {...}
-    | None, "volume": None, "textures": {...} | None}, each inner dict keyed
-    by the reference dataclass's field names, with numpy leaves."""
-    if tree.get("volume") is not None:
-        raise NotImplementedError(
-            "participating media are not carried over yet (ROADMAP Queue 1)")
+    | None, "volume": {...} | None, "textures": {...} | None}, each inner
+    dict keyed by the reference dataclass's field names, with numpy
+    leaves."""
+    vol = tree.get("volume")
     mats = tree.get("materials")
     lts = tree.get("lights")
     texs = tree.get("textures")
@@ -163,4 +187,5 @@ def from_reference(tree) -> st.CompiledScene:
         geometry=_geometry(tree["geometry"]),
         materials=None if mats is None else _materials(mats),
         lights=None if lts is None else _lights(lts),
-        volume=None, textures=None if texs is None else _textures(texs))
+        volume=None if vol is None else _volume(vol),
+        textures=None if texs is None else _textures(texs))

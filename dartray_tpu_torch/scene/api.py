@@ -11,8 +11,8 @@ integrator configuration.
 Unknown names warn and fall back exactly as in the reference (matte, the
 perspective camera, the lowdiscrepancy sampler). A kind the reference knows
 and the port does not yet have raises ``NotImplementedError`` naming its
-ROADMAP item: here (volumes, subsurface materials) or in the module that
-would build it (``materials``, ``scene/types``).
+ROADMAP item: here (subsurface materials) or in the module that would build
+it (``materials``, ``renderers/manager``).
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ from .. import lights as lt_mod
 from .. import materials as mat_mod
 from .. import samplers as smp_mod
 from .. import textures as tex_mod
+from .. import volumes as vol_mod
 from ..core import transform as tr
 from ..io import image as io_img
 from ..io import merl
@@ -136,6 +137,7 @@ class PbrtAPI:
         self.builder = build_mod.SceneBuilder()
         self._mat_cache: Dict[str, int] = {}
         # object instancing
+        self.volumes: List[tuple] = []     # (name, ParamSet, object-to-world)
         self.objects: Dict[str, list] = {}
         self.current_object: Optional[str] = None
 
@@ -783,8 +785,7 @@ class PbrtAPI:
 
     # --- volumes ----------------------------------------------------------
     def volume(self, name, params):
-        raise not_ported(f"volume {name!r} (participating media)",
-                          "item 8, volumes")
+        self.volumes.append((name, params, _np4(self.ctm[0])))
 
     # --- worldEnd: assemble -----------------------------------------------
     def world_end(self) -> RenderJob:
@@ -851,12 +852,15 @@ class PbrtAPI:
             if k in filt_p.items:
                 filt_params[k] = filt_p.find_one_float(k)
 
+        if self.volumes:
+            self.builder.volume = vol_mod.build_volume(self.volumes)
+
         accel_name, accel_p = self.opts["accelerator"]
         split = accel_p.find_one_string("splitmethod", "sah")
         self.builder.shutter = (shutter_open, shutter_close)
         accel = "bvh"
         if accel_name in ("kdtree", "grid"):
-            accel = accel_name      # the scene compiler raises for them
+            accel = accel_name
         elif accel_name not in ("bvh", "bruteforce"):
             self.log(f"warning: unknown accelerator {accel_name!r}; "
                      f"using the cluster BVH")

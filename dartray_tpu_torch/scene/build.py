@@ -44,9 +44,6 @@ class SceneBuilder:
               accelerator="bvh") -> st.CompiledScene:
         """Compile to a host (numpy-leaved) CompiledScene; move it with
         ``scene.types.to_device`` (``render`` does)."""
-        if self.volume is not None:
-            raise NotImplementedError(
-                "participating media are not ported (ROADMAP Queue 1 item 8)")
         if not self.mat_rows:
             self.mat_rows.append(mat_mod.matte())
         # area lights: assign light ids per emissive mesh, record tri ranges
@@ -73,7 +70,7 @@ class SceneBuilder:
         lt = lt_mod.build_table(specs, scene_radius=radius, attr=geom.attr)
         mats = mat_mod.build_table(self.mat_rows)
         return st.CompiledScene(geometry=geom, materials=mats, lights=lt,
-                                volume=None, textures=self.textures)
+                                volume=self.volume, textures=self.textures)
 
 
 def cornell_box(light_scale=15.0, sphere_material=None,

@@ -19,12 +19,18 @@ normalised shutter time and the kernel lerps the leaf triangles to it.
 Finish vertices are lerped too; shading attributes (normals, uv, ``ng``,
 ``dpdu``) stay at shutter start, as in the reference.
 
-Not ported yet (raises ``NotImplementedError``): the grid and kd-tree
-accelerators.
+``Accelerator "grid"`` or ``"kdtree"`` gives the geometry an alternate
+accelerator (``alt``, ``alt_kind``): every query then walks it in plain torch
+(``accel/grid.py``, ``accel/kdtree.py``) and launches no kernel. Its walks
+return ids into the unpermuted soup, so a closest hit's attr rows come from
+``attr`` by that id, which the kernel's finish would have fetched by the
+same id; an intersect_pair is the split form, a closest-hit and an any-hit
+walk. Moving geometry keeps the cluster BVH and warns, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any
 
 import numpy as np
@@ -34,6 +40,8 @@ from .. import device as device_mod
 from .. import textures as tex_mod
 from ..accel import bvh as bvh_mod
 from ..accel import cluster as cluster_mod
+from ..accel import grid as grid_mod
+from ..accel import kdtree as kd_mod
 from ..accel.traverse import Hits
 from ..core import math as vm
 from ..ops import traverse_cuda as tc
@@ -68,6 +76,10 @@ class Geometry:
     world_bound: Any           # (2, 3)
     alpha_tid: Any = None      # (F,) int32 alpha texture id (-1 none)
     alpha_tex: Any = None      # the scene's TextureData when has_alpha
+    # the alternate accelerator (Accelerator "grid" / "kdtree"): an
+    # accel.grid.Grid or accel.kdtree.KdTree over the unpermuted soup
+    alt: Any = None
+    alt_kind: str = ""         # "" | "grid" | "kdtree"
     n_prims: int = 0
     n_nodes: int = 0
     has_alpha: bool = False
@@ -85,7 +97,7 @@ class CompiledScene:
     geometry: Geometry
     materials: Any      # materials.MaterialTable or None
     lights: Any         # lights.LightTable or None
-    volume: Any         # not ported: must be None
+    volume: Any         # volumes.VolumeData or None
     textures: Any       # textures.TextureData or None
 
     def to(self, device):
@@ -98,14 +110,12 @@ def compile_geometry(meshes, mat_ids=None, light_ids=None,
     """meshes: list of TriangleMesh (world space). mat_ids/light_ids:
     per-mesh ints. textures: the scene's TextureData, which the geometry
     references when a mesh carries an alpha texture (without a texture table
-    the alpha ids are dropped and the scene is not an alpha one). Returns a
-    host (numpy-leaved) Geometry."""
+    the alpha ids are dropped and the scene is not an alpha one).
+    accelerator: "grid" or "kdtree" adds that alternate (not for moving
+    geometry, which warns and keeps the cluster BVH); any other name is the
+    cluster BVH alone. Returns a host (numpy-leaved) Geometry."""
     if not meshes:
         raise ValueError("empty scene")
-    if accelerator != "bvh":
-        raise NotImplementedError(
-            f"accelerator {accelerator!r}: only the cluster BVH is ported "
-            "(ROADMAP Queue 1 item 10, alternate accelerators)")
     n_meshes = len(meshes)
     mat_ids = mat_ids if mat_ids is not None else [0] * n_meshes
     light_ids = light_ids if light_ids is not None else [-1] * n_meshes
@@ -153,6 +163,11 @@ def compile_geometry(meshes, mat_ids=None, light_ids=None,
     else:
         cb = cluster_mod.build(v0, e1, e2, split_method=split_method)
     wb = np.stack([np.asarray(cb.node_lo[0]), np.asarray(cb.node_hi[0])])
+    if has_motion and accelerator in ("grid", "kdtree"):
+        warnings.warn(f"Accelerator {accelerator!r} does not support "
+                      f"moving geometry; using the cluster BVH")
+        accelerator = "bvh"
+    alt = build_alt(accelerator, v0, e1, e2)
     packed, perm = tc.pack(cb.node_lo, cb.node_hi, cb.node_child,
                            cb.node_axis, cb.tri_v0, cb.tri_e1, cb.tri_e2, cb.tri_id,
                            deltas=((cb.tri_dv0, cb.tri_de1, cb.tri_de2)
@@ -183,8 +198,22 @@ def compile_geometry(meshes, mat_ids=None, light_ids=None,
         world_bound=wb.astype(np.float32),
         alpha_tid=alpha_tid if has_alpha else None,
         alpha_tex=textures if has_alpha else None,
+        alt=alt, alt_kind=accelerator if alt is not None else "",
         n_prims=int(v0.shape[0]), n_nodes=cb.n_nodes, has_alpha=has_alpha,
         has_motion=has_motion, shutter=tuple(shutter))
+
+
+def build_alt(accelerator, v0, e1, e2):
+    """The alternate accelerator `accelerator` names over the (F, 3) soup:
+    a Grid for "grid", a KdTree for "kdtree", else None."""
+    if accelerator == "grid":
+        return grid_mod.build(v0, e1, e2)
+    if accelerator == "kdtree":
+        return kd_mod.build(v0, e1, e2)
+    return None
+
+
+_ALT_WALKS = {"grid": grid_mod, "kdtree": kd_mod}
 
 
 def _v3_of(a):
@@ -316,8 +345,12 @@ def _shutter_time01(geom: Geometry, rays):
 
 
 def _closest(geom: Geometry, rays, sort: bool) -> Hits:
-    """One closest-hit launch over the wave, finished with its attr rows."""
+    """One closest-hit launch over the wave, finished with its attr rows;
+    with an alternate accelerator, its walk and one gather of the rows."""
     _query(rays)
+    if geom.alt_kind:
+        h = _ALT_WALKS[geom.alt_kind].intersect(geom.alt, rays)
+        return h._replace(rows=attr_rows(geom, h.prim.clamp_min(0)))
     t, prim, b1, b2, rows = tc.intersect_rays(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
         rays.o, rays.d, rays.tmin, rays.tmax, any_hit=False, sort=sort,
@@ -380,10 +413,11 @@ def intersect_pair(geom: Geometry, ext_rays, shadow_rays):
     traversal launch (the kernel's mixed mode): both sets start at the same
     bounce hit points, so they share the coherence sort and the launch. An
     alpha scene takes ``intersect`` and ``intersect_p`` instead: its
-    continuation loops need the split form.
+    continuation loops need the split form, and so does a scene with an
+    alternate accelerator, whose walks have no mixed mode.
 
     Returns (Hits for ext_rays, occluded bool for shadow_rays)."""
-    if geom.has_alpha:
+    if geom.has_alpha or geom.alt_kind:
         return intersect(geom, ext_rays), intersect_p(geom, shadow_rays)
     _query(ext_rays, shadow_rays)
     t, prim, b1, b2, occ, rows = tc.intersect_rays_pair(
@@ -402,6 +436,8 @@ def intersect_p(geom: Geometry, rays, sort: bool = True):
     _query(rays)
     if geom.has_alpha:
         return intersect(geom, rays, sort=sort).prim >= 0
+    if geom.alt_kind:
+        return _ALT_WALKS[geom.alt_kind].intersect_p(geom.alt, rays)
     _, prim, _, _ = tc.intersect_rays(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
         rays.o, rays.d, rays.tmin, rays.tmax, any_hit=True, sort=sort,

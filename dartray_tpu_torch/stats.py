@@ -2,12 +2,16 @@
 counters and wall-clock timings per phase. The render entry points fill a
 ``RenderStats`` when they are given one; every count is exact host-side
 accounting of the work issued (waves, camera rays, traversal queries).
+``TorchOps`` counts the torch operations the host issues, for the walks whose
+cost is host-bound.
 """
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
 from typing import Dict
+
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 class RenderStats:
@@ -47,3 +51,17 @@ class RenderStats:
     def as_dict(self) -> dict:
         return {"counters": dict(self.counters),
                 "timings": dict(self.timings)}
+
+
+class TorchOps(TorchDispatchMode):
+    """While active (``with TorchOps() as ops:``), ``ops.n`` counts the
+    torch operations dispatched, on any device: what the host issues, one
+    kernel launch or CPU loop each at most."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))

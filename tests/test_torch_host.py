@@ -105,15 +105,18 @@ def _checker_textures(mod):
 
 
 def test_from_reference_refuses_what_is_not_ported():
-    """The grid accelerator and participating media raise; a plastic row
-    (ported since the material system) and an alpha-masked floor (ported
-    since the alpha cut-outs) are carried leaf by leaf."""
+    """Nothing the reference compiles is refused any more: the grid
+    accelerator and participating media (ported since the alternate
+    accelerators and the volumes), a plastic row (since the material system)
+    and an alpha-masked floor (since the alpha cut-outs) are carried leaf by
+    leaf."""
     from dartray_tpu import textures as ref_tex
+    from dartray_tpu.scene import parser as ref_parser
     ref = th.np_tree(ref_sb.cornell_box(
-        sphere_material=None).build())
-    ref["geometry"]["alt_kind"] = "grid"
-    with pytest.raises(NotImplementedError):
-        adapt.from_reference(ref)
+        sphere_material=None).build(accelerator="grid"))
+    scene = adapt.from_reference(ref)
+    assert scene.geometry.alt_kind == "grid"
+    _assert_same_leaves(scene, ref)
     rb = ref_sb.cornell_box()
     rb.textures = _checker_textures(ref_tex)
     rb.meshes[0].alpha_tid = 2
@@ -121,10 +124,13 @@ def test_from_reference_refuses_what_is_not_ported():
     scene = adapt.from_reference(ref)
     assert scene.geometry.has_alpha and ref["geometry"]["has_alpha"]
     _assert_same_leaves(scene, ref)
-    ref = th.np_tree(ref_sb.cornell_box().build())
-    ref["volume"] = {"kind": np.zeros(1, np.int32)}
-    with pytest.raises(NotImplementedError, match="media"):
-        adapt.from_reference(ref)
+    ref = th.np_tree(ref_parser.parse(
+        'Camera "perspective"\nWorldBegin\nVolume "exponential" "float b" '
+        '[2]\nVolume "volumegrid" "integer nx" [2] "float density" [1 3]\n'
+        'Shape "sphere"\nWorldEnd\n', log=lambda *a, **k: None).scene)
+    scene = adapt.from_reference(ref)
+    assert scene.volume.kind.tolist() == [1, 2]
+    _assert_same_leaves(scene, ref)
     rb = ref_sb.cornell_box()
     rb.mat_rows[-1] = ref_mat.plastic()
     ref = th.np_tree(rb.build())
@@ -134,8 +140,6 @@ def test_from_reference_refuses_what_is_not_ported():
 @pytest.mark.parametrize("name,call", [
     ("subsurface_row", lambda: mat_mod.build_table(
         [dict(mat_mod.plastic(), _sss=((1, 1, 1), (0, 0, 0), 1.3))])),
-    ("accel_grid", lambda: st.compile_geometry(
-        [mesh_mod.sphere(nu=8, nv=4)], accelerator="grid")),
 ])
 def test_left_out_branch_raises_by_name(name, call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -144,13 +148,24 @@ def test_left_out_branch_raises_by_name(name, call):
 
 @pytest.mark.parametrize("name", ["sampler_random", "sampler_halton",
                                   "filter_gaussian", "filter_wide_box",
-                                  "spectrum_sampled"])
+                                  "spectrum_sampled", "accel_grid",
+                                  "accel_kdtree"])
 def test_branch_ported_since_builds_the_references(name):
-    """Branches that raised before the samplers, filters and the spectrum
-    mode were ported now build what the reference builds."""
+    """Branches that raised before the samplers, filters, the spectrum mode
+    and the alternate accelerators were ported now build what the
+    reference builds."""
     from dartray_tpu import film as ref_film, samplers as ref_smp
     from dartray_tpu.core import spectrum as ref_spec
-    if name.startswith("sampler_"):
+    from dartray_tpu.scene import mesh as ref_mesh, types as ref_st
+    if name.startswith("accel_"):
+        kind = name.split("_")[1]
+        got = st.compile_geometry([mesh_mod.sphere(nu=8, nv=4)],
+                                  accelerator=kind)
+        want = ref_st.compile_geometry([ref_mesh.sphere(nu=8, nv=4)],
+                                       accelerator=kind)
+        assert got.alt_kind == want.alt_kind == kind
+        _assert_same_leaves(got.alt, th.np_tree(want.alt), min_leaves=8)
+    elif name.startswith("sampler_"):
         kind = name.split("_")[1]
         got, want = samplers.make_sampler(kind, 6), ref_smp.make_sampler(
             kind, 6)

@@ -371,13 +371,9 @@ def test_unknown_names_warn_and_fall_back_as_the_reference():
 
 
 NOT_PORTED = {
-    "igi-env.pbrt": ("file", "item 8"),
-    "smoke.pbrt": ("file", "item 8"),
     "subsurface": (_scene('Material "kdsubsurface"\n' + QUAD), "item 8"),
     "subsurface_named": (_scene('MakeNamedMaterial "s" "string type" '
                                 '"subsurface"\n'), "item 8"),
-    "kdtree_statement": ('Accelerator "kdtree"\n' + _scene(QUAD),
-                         "item 10"),
 }
 
 
@@ -397,9 +393,10 @@ def test_known_but_unported_kinds_raise_naming_their_item(case):
 
 
 # kinds that raised before the material system, the alpha cut-outs, the
-# remaining lights, the cameras and the samplers were ported: each file now
-# compiles to the reference's scene, leaf by leaf (the light maps resolved
-# from scenes/, a map that does not load falls back as in the reference)
+# remaining lights, the cameras, the samplers, the alternate accelerators,
+# the volumes and the igi integrator were ported: each file now compiles to
+# the reference's scene, leaf by leaf (the light maps resolved from scenes/,
+# a map that does not load falls back as in the reference)
 PORTED_KINDS = {
     "orthographic": _scene(QUAD).replace('"perspective" "float fov" [40]',
                                          '"orthographic"'),
@@ -423,6 +420,10 @@ PORTED_KINDS = {
                    '[5 5 5]\n' + QUAD),
     "goniometric": ('Rotate 30 1 0 0\nLightSource "goniometric" "string '
                     'mapname" ["envmap.pfm"] "rgb I" [3 3 3]\n' + QUAD),
+    "kdtree_statement": 'Accelerator "kdtree"\n' + _scene(QUAD),
+    "grid_statement": 'Accelerator "grid"\n' + _scene(QUAD),
+    "igi-env.pbrt": _read("igi-env.pbrt"),
+    "smoke.pbrt": _read("smoke.pbrt"),
 }
 PORTED_JOB_HOLDS = {
     "orthographic": lambda j: j.camera.kind == 1 and j.camera.animated is None,
@@ -430,6 +431,15 @@ PORTED_JOB_HOLDS = {
     and j.camera.animated.actually_animated,
     "adaptive": lambda j: j.adaptive == (4, 32) and j.sampler.spp == 32,
     "stratified": lambda j: j.sampler.kind == 1 and j.sampler.spp == 4,
+    "kdtree_statement": lambda j: j.scene.geometry.alt_kind == "kdtree"
+    and j.scene.geometry.alt.n_nodes > 1,
+    "grid_statement": lambda j: j.scene.geometry.alt_kind == "grid"
+    and j.scene.geometry.alt.tri_ids.size >= 2,
+    "igi-env.pbrt": lambda j: j.surf_integrator == "igi"
+    and j.scene.lights.env_light_index == 0 and j.scene.volume is None,
+    "smoke.pbrt": lambda j: j.vol_integrator == "single"
+    and j.scene.volume.kind.tolist() == [2]
+    and j.scene.volume.grid.shape == (4, 4, 4),
 }
 PORTED_KIND_HOLDS = {
     "alpha": lambda s: s.geometry.has_alpha,
@@ -461,13 +471,20 @@ def test_kinds_ported_since_compile_equal(case):
 
 
 def test_kdtree_override_and_sampled_spectrum_raise():
-    """The kd-tree override still raises naming its item; the environment
-    camera override and the sampled spectrum, which raised before the
-    cameras and the spectrum mode were ported, now build: the camera over
-    the parsed transform and shutter, and an unknown mode raises."""
+    """The kd-tree override, the environment camera override and the
+    sampled spectrum, which raised before the alternate accelerators, the
+    cameras and the spectrum mode were ported, now build: the kd-tree over
+    the parsed triangle soup (the reference's override's tree, array for
+    array), the camera over the parsed transform and shutter; an unknown
+    mode raises."""
     job = parser.parse(_read("cornell.pbrt"), log=QUIET, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        manager.apply_overrides(job, {"accelerator": "kdtree"}, log=QUIET)
+    kd = manager.apply_overrides(job, {"accelerator": "kdtree"}, log=QUIET)
+    ref = ref_manager.apply_overrides(
+        ref_parser.parse(_read("cornell.pbrt"), log=QUIET),
+        {"accelerator": "kdtree"}, log=QUIET)
+    assert kd.scene.geometry.alt_kind == "kdtree"
+    assert job.scene.geometry.alt is None
+    _assert_same_leaves(kd.scene.geometry, th.np_tree(ref.scene.geometry))
     env = manager.apply_overrides(job, {"camera": "environment"}, log=QUIET)
     assert env.camera.kind == 2 and np.array_equal(env.camera.cam2world.m,
                                                    job.camera.cam2world.m)

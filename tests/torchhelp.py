@@ -182,6 +182,21 @@ def eager_reference(mp):
     mp.setattr(jax.lax, "fori_loop", fori_loop)
 
 
+def reference_cluster_walk(mp):
+    """Through the MonkeyPatch `mp`, after ``eager_reference``: the
+    reference traverses with its own CPU walk over the cluster BVH instead
+    of its kernel in interpret mode, each of its two walks compiled once
+    (``jax.jit``; an un-jitted call compiles its while loop again, 0.8 s a
+    query). Same hits as its kernel's but where a ray grazes a shared
+    edge."""
+    import jax
+    from dartray_tpu.accel import cluster as ref_cluster
+    from dartray_tpu.scene import types as ref_st
+    mp.setattr(ref_st, "FORCE_PALLAS_INTERPRET", False)
+    mp.setattr(ref_cluster, "intersect", jax.jit(ref_cluster.intersect))
+    mp.setattr(ref_cluster, "intersect_p", jax.jit(ref_cluster.intersect_p))
+
+
 def hold_rays_independent(walk, n, seed):
     """The raw (t, prim) of a ray must not depend on the lanes beside it.
 

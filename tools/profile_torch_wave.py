@@ -8,9 +8,11 @@
 Builds the bench scene (with `--moving` its big sphere translates by
 (0.6, 0, 0) over the shutter, so every launch is the motion kernel's), or
 with ``--pbrt`` parses FILE (files it names are looked up beside it and in
-``scenes/``) and takes its scene, camera, sampler, resolution and surface
-integrator, pixel filter (``--spectrum sampled`` parses it in the sampled
-spectrum mode), warms up, then runs `--waves` waves of
+``scenes/``) and takes its scene, camera, sampler, resolution, surface and
+volume integrators (``manager.build_li``; an igi integrator shoots its VPLs
+before the warm-up), accelerator, pixel filter (``--spectrum sampled``
+parses it in the sampled spectrum mode), warms up, then runs `--waves`
+waves of
 renderers.sampler.render_wave of the chosen integrator (default: the path
 integrator; ``ao`` takes ``--ao-samples`` probes, default 64) under
 torch.profiler with the port's stages
@@ -47,7 +49,10 @@ from dartray_tpu_torch.core import spectrum  # noqa: E402
 from dartray_tpu_torch.core import transform as tr  # noqa: E402
 from dartray_tpu_torch.integrators import ao, common, direct  # noqa: E402
 from dartray_tpu_torch.integrators import path as pi, whitted  # noqa: E402
-from dartray_tpu_torch import lights  # noqa: E402
+from dartray_tpu_torch import lights, volumes  # noqa: E402
+from dartray_tpu_torch.accel import grid, kdtree  # noqa: E402
+from dartray_tpu_torch.integrators import igi  # noqa: E402
+from dartray_tpu_torch.integrators import volume as vi  # noqa: E402
 from dartray_tpu_torch.ops import traverse_cuda as tc  # noqa: E402
 from dartray_tpu_torch.renderers import manager  # noqa: E402
 from dartray_tpu_torch.renderers import sampler as rend  # noqa: E402
@@ -68,6 +73,10 @@ STAGES = [
     (tc, "finish_hits_rows"), (st, "_alpha_cut"), (lights, "env_le"),
     (lights, "env_pdf"), (lights, "_env_sample"), (film_mod, "add_samples"),
     (film_mod, "add_samples_functional"), (torch.autograd, "grad"),
+    (grid, "intersect"), (grid, "intersect_p"), (kdtree, "intersect"),
+    (kdtree, "intersect_p"), (volumes, "sigma_t"), (volumes, "sigma_s"),
+    (volumes, "lve"), (volumes, "phase"), (vi, "transmittance"),
+    (vi, "emission_li"), (vi, "single_scatter_li"), (igi, "li"),
 ]
 
 
@@ -139,7 +148,7 @@ def main():
                 [os.path.dirname(os.path.abspath(a.pbrt)), SCENES]),
                 log=lambda *_: None, device=dev)
         scene, cam, smp = st.to_device(job.scene, dev), job.camera, job.sampler
-        li = manager.build_surface_li(job)
+        li = manager.build_li(job, log=lambda *_: None, device=dev)
         width, height = job.width, job.height
         filt = (job.filter_name, job.filter_params)
         a.integrator = job.surf_integrator
