@@ -139,6 +139,18 @@ and the script exits non-zero:
                igi's defaults: 4 waves of 2 closest + 321 any launches, wave
                ms in turns; (c) a window, 1 wave, card vs CPU, and the VPL
                sets shot on each
+  cache_path   the photon map, irradiance cache and dipole integrators:
+               (a) the four variants of scenes/caches.pbrt against
+               tools/cache_golden.npz, launches exact; the photon maps and
+               the irradiance cache against the reference's, the surface
+               points and their irradiance card vs CPU; (b) the bench
+               scene at 512x512 through each at its defaults (photonmap:
+               44 closest + 6 any a wave; irradiancecache: 4 closest + 1
+               any; dipolesubsurface with the displaced sphere in skin1:
+               2 closest + 1 any), preprocess seconds and sizes, rays/s
+               and wave ms in turns beside main_path's, the host torch
+               operations of one gather at two densities (equal); (c) a
+               window, card vs CPU, over the card's preprocess
   grad_small   the gradient of the Cornell render's mean w.r.t. materials.kd
                and lights.intensity (32x32, 4 spp, depth 3): card against
                CPU (plain traversal) within 2e-3 of the largest element,
@@ -186,14 +198,18 @@ from dartray_tpu_torch.core import math as vm
 from dartray_tpu_torch.core import spectrum as spec
 from dartray_tpu_torch.core import transform as tr
 from dartray_tpu_torch.integrators import ao as ao_mod
+from dartray_tpu_torch.integrators import dipole as dp_mod
 from dartray_tpu_torch.integrators import direct as di
 from dartray_tpu_torch.integrators import igi as igi_mod
+from dartray_tpu_torch.integrators import irradiance_cache as ic_mod
 from dartray_tpu_torch.integrators import path as pi
+from dartray_tpu_torch.integrators import photonmap as pm_mod
 from dartray_tpu_torch.integrators import whitted as wh
 from dartray_tpu_torch.io import image as io_img
 from dartray_tpu_torch.ops import traverse_cuda as tc
 from dartray_tpu_torch.renderers import manager
 from dartray_tpu_torch.renderers import sampler as rend
+from dartray_tpu_torch.renderers import surface_points as sp_mod
 from dartray_tpu_torch.scene import build as sb
 from dartray_tpu_torch.scene import paramset
 from dartray_tpu_torch.scene import parser
@@ -1290,13 +1306,15 @@ def materials_bench_pbrt(path):
     return [len(band) for band in bands]
 
 
-def window_render(job, where, x0, y0, waves=WINDOW_WAVES):
+def window_render(job, where, x0, y0, waves=WINDOW_WAVES, li=None):
     """The first `waves` waves of `job` over the WINDOW x WINDOW pixels at
     (x0, y0) on `where`, into a full-size film under the job's filter (the
     same samples as the whole render's first waves); returns the window's
-    pixels."""
+    pixels. `li`: the radiance function (default: the job's, built on
+    `where`)."""
     scene = st.to_device(job.scene, where)
-    li = manager.build_li(job, log=QUIET, device=where)
+    if li is None:
+        li = manager.build_li(job, log=QUIET, device=where)
     px, py = rend.pixel_grid(WINDOW, WINDOW, x0=x0, y0=y0, device=where)
     film = film_mod.make_film(job.width, job.height,
                               filter_name=job.filter_name,
@@ -1898,6 +1916,7 @@ def sampling_path_phase(dev, main_rays_per_s):
 
 
 import make_accel_golden as accel_golden  # noqa: E402
+import make_cache_golden as cache_golden  # noqa: E402
 import make_volume_golden as volume_golden  # noqa: E402
 
 ACCEL_WAVES = 2             # (b): path waves of the bench scene a walk
@@ -2307,6 +2326,353 @@ def igi_path_phase(dev, main_rays_per_s):
     say("igi_path", seconds=time.time() - t_phase, **out)
 
 
+CACHE_WAVES = 2            # (b): waves of the bench scene an integrator
+CACHE_WINDOW_WAVES = 1
+# a photon map wave at the defaults: 6 depths of (1 closest + the sampled
+# light's closest and any-hit), and the 32 final-gather rays at the first
+PM_WAVE_LAUNCHES = {"traverse6:closest": 2 * 6 + 32, "traverse6:any": 6}
+# an irradiance cache wave: the camera, the sampled light, and the 16
+# fallback directions of every lane batched into LANE_BUDGET launches
+IC_WAVE_LAUNCHES = {"traverse6:closest": 2 + -(-16 * WIDTH * HEIGHT
+                                              // ic_mod.LANE_BUDGET),
+                    "traverse6:any": 1}
+DP_WAVE_LAUNCHES = {"traverse6:closest": 2, "traverse6:any": 1}
+# (a): launches of render_pbrt of each variant of scenes/caches.pbrt
+# (24 x 24, 2 spp): the preprocess's, then the waves'
+CACHE_FILE_LAUNCHES = {
+    "photonmap": {"traverse6:closest": 5 + 16 * 2, "traverse6:any": 6 * 2},
+    "exphotonmap": {"traverse6:closest": 5 + 12 * 2,
+                    "traverse6:any": 6 * 2},
+    "irradiancecache": {"traverse6:closest": 2 + 3 * 2,
+                        "traverse6:any": 2},
+    "dipole": {"traverse6:closest": 32 + 2 * 2, "traverse6:any": 4 + 2},
+}
+BENCH_GRAY = 'Material "matte" "rgb Kd" [0.6 0.6 0.6]'   # the sphere's
+# (c)'s window of the dipole: the floor before the displaced sphere and its
+# foot (the sphere's own samples are NaN, zeroed by the film: known
+# behaviour z)
+DIPOLE_WINDOW_POINT = (-0.4, 0.0, -1.1)
+CACHE_LINES = {
+    "photonmap": 'SurfaceIntegrator "photonmap"',
+    "irradiancecache": 'SurfaceIntegrator "irradiancecache"',
+    "dipolesubsurface": 'SurfaceIntegrator "dipolesubsurface"',
+}
+
+
+class Recorded:
+    """While active, the return values of ``module.name`` calls."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.values = module, name, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def rec(*a, **k):
+            self.values.append(self.real(*a, **k))
+            return self.values[-1]
+        setattr(self.module, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def points_agreement(a, b):
+    """Surface points of two runs: (share of slots where both runs kept
+    the same material's point, share of those whose p and n agree to
+    rtol 1e-5 / atol 1e-6, points)."""
+    n = min(len(a.p), len(b.p))
+    same = a.mat_id[:n] == b.mat_id[:n]
+    ok = (np.isclose(a.p[:n], b.p[:n], rtol=1e-5, atol=1e-6).all(1)
+          & np.isclose(a.n[:n], b.n[:n], rtol=1e-5, atol=1e-6).all(1))
+    return (float(same.sum()) / max(len(a.p), len(b.p), 1),
+            float(ok[same].mean()) if same.any() else 1.0, n)
+
+
+def li_wave(job, li, dev, s):
+    """One wave of `job` with the radiance function `li` at sample index
+    `s` (``profiled_wave`` without building the job's radiance again)."""
+    scene = st.to_device(job.scene, dev)
+    px, py = rend.pixel_grid(job.width, job.height, device=dev)
+    film = film_mod.make_film(job.width, job.height, device=dev)
+
+    def wave():
+        with torch.no_grad():
+            rend.render_wave(
+                scene, job.camera, job.sampler, film, px, py,
+                torch.full(px.shape, s, dtype=torch.int32, device=dev),
+                li_fn=li, width=job.width, height=job.height,
+                spp=job.sampler.spp, device=dev)
+    return wave
+
+
+def gather_ops(fn):
+    """Host torch operations of one call of `fn`."""
+    with stats_mod.TorchOps() as ops:
+        fn()
+    torch.cuda.synchronize()
+    return ops.n
+
+
+def cache_golden_part(dev):
+    """(a) of cache_path: each variant of scenes/caches.pbrt through
+    render_pbrt against the reference's image, launches exact; the photon
+    maps and the irradiance cache against the reference's; the dipole's
+    surface points and their irradiance against the CPU's."""
+    golden = np.load(cache_golden.GOLDEN)
+    resolver = resources.Resolver([SCENES_DIR])
+    out = {}
+    for name in cache_golden.VARIANTS:
+        text = cache_golden.variant_text(name)
+        tc.reset_launches()
+        t0 = time.time()
+        img = manager.render_pbrt(text, search_paths=[SCENES_DIR],
+                                  log=QUIET, device=dev)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = counted_launches()
+        require(launches == CACHE_FILE_LAUNCHES[name],
+                f"caches {name}: kernel launches {launches}, expected "
+                f"{CACHE_FILE_LAUNCHES[name]}")
+        close, rel_mean = compare_images(f"caches {name} vs the reference",
+                                         golden[name], img)
+        require(close >= 0.999, f"caches {name}: {close} of pixels close")
+        out[name] = {"seconds": secs, "launches": launches,
+                     "pixels_close": close, "rel_mean": rel_mean,
+                     "img_mean": float(img.mean())}
+    job = parser.parse(cache_golden.variant_text("photonmap"),
+                       resolver=resolver, log=QUIET, device=dev)
+    maps = cache_golden.map_arrays(pm_mod.shoot_photons(
+        manager.photonmap_integrator(job.surf_params), job.scene,
+        device=dev))
+    for name in cache_golden.MAPS:
+        slots, close, n, bad = cache_golden.agreement(
+            maps, golden, f"pm_{name}_", ("p", "wi", "alpha"),
+            **cache_golden.PHOTON_TOL)
+        require(slots >= 0.999 and close >= 0.995,
+                f"caches photon map {name}: slots {slots}, values {close}")
+        out[f"photons_{name}"] = {
+            "slots_agree": slots, "values_close": close, "photons": n,
+            "not_close": [(j, float(max(np.abs(
+                maps[f"pm_{name}_{f}"][i] - golden[f"pm_{name}_{f}"][j]).max()
+                for f in ("p", "wi", "alpha")))) for i, j in bad[:8]]}
+    job = parser.parse(cache_golden.variant_text("irradiancecache"),
+                       resolver=resolver, log=QUIET, device=dev)
+    cache = cache_golden.cache_arrays(ic_mod.build_cache(
+        manager.irradiance_cache_integrator(job.surf_params), job.scene,
+        job.camera, job.width, job.height, device=dev))
+    slots, close, n, bad = cache_golden.agreement(
+        cache, golden, "ic_", ("p", "n", "E", "dmean"))
+    require(slots >= 0.999 and close >= 0.995,
+            f"caches irradiance cache: slots {slots}, values {close}")
+    out["cache_samples"] = {"slots_agree": slots, "values_close": close,
+                            "samples": n, "not_close": bad[:8]}
+    job = parser.parse(cache_golden.variant_text("dipole"),
+                       resolver=resolver, log=QUIET, device=dev)
+    ig = manager.dipole_integrator(job.surf_params)
+    pts = {w: sp_mod.render(job.scene, min_sample_dist=ig.min_sample_dist,
+                            device=w) for w in (dev, "cpu")}
+    slots, close, n = points_agreement(pts[dev], pts["cpu"])
+    require(slots >= 0.999 and close >= 0.995,
+            f"caches surface points card vs CPU: slots {slots}, "
+            f"values {close}")
+    e = {w: dp_mod.prepare(job.scene, pts["cpu"], device=w)
+         .E_times_area.cpu().numpy() for w in (dev, "cpu")}
+    e_close = float(np.isclose(e[dev], e["cpu"], rtol=1e-5,
+                               atol=1e-6).all(1).mean())
+    require(e_close >= 0.995, f"caches surface irradiance: {e_close} close")
+    out["surface_points"] = {"slots_agree": slots, "values_close": close,
+                             "points": n, "irradiance_close": e_close}
+    return out
+
+
+def cache_path_phase(dev, main_rays_per_s):
+    """The photon map, irradiance cache and dipole integrators on the card,
+    through the v6 kernel. (a) ``cache_golden_part``. (b) The bench scene
+    at 512 x 512 through each integrator at its defaults (photonmap: 20k +
+    100k photon paths, maxdist 0.1, a final gather of 32; irradiancecache:
+    nsamples 4096; dipolesubsurface with the displaced sphere in skin1,
+    minsampledistance 0.25), its preprocess through ``build_li``: the
+    preprocess seconds and sizes, CACHE_WAVES waves of exactly
+    {PM,IC,DP}_WAVE_LAUNCHES and no other kernel, rays/s beside
+    main_path's, one wave's ms in turns with main_path's (main, x, x,
+    main); the host torch operations of a density estimate over the
+    indirect map and of an interpolation over the cache on 4,096 camera
+    hits, and again over every 8th photon / sample: equal. (c) A WINDOW x
+    WINDOW window about the displaced sphere, card against CPU, both with
+    the card's preprocess."""
+    t_phase = time.time()
+    out = {"golden": cache_golden_part(dev)}
+    os.makedirs(PBRT_DIR, exist_ok=True)
+    resolver = resources.Resolver([PBRT_DIR, SCENES_DIR])
+    main_wave = li_wave(bench_job(dev), manager.build_li(
+        bench_job(dev), log=QUIET, device=dev), dev, 1)
+    recorded = {"photonmap": (pm_mod, "shoot_photons"),
+                "irradiancecache": (ic_mod, "build_cache"),
+                "dipolesubsurface": (dp_mod, "prepare")}
+    wants = {"photonmap": PM_WAVE_LAUNCHES,
+             "irradiancecache": IC_WAVE_LAUNCHES,
+             "dipolesubsurface": DP_WAVE_LAUNCHES}
+    for name, line in CACHE_LINES.items():
+        t_int = time.time()
+        path = os.path.join(PBRT_DIR, f"{name}_bench.pbrt")
+        swap = {PATH_LINE: line}
+        if name == "dipolesubsurface":
+            swap[BENCH_GRAY] = 'Material "subsurface" "string name" ["skin1"]'
+        text = bench_text_with(path, swap)
+        job = parser.parse(text, resolver=resolver, log=QUIET, device=dev)
+        require(job.surf_integrator == name, f"{name} bench: not its job")
+        scene = st.to_device(job.scene, dev)
+        t0 = time.time()
+        with Recorded(*recorded[name]) as rec:
+            li = manager.build_li(job, log=QUIET, device=dev)
+        torch.cuda.synchronize()
+        info = {"preprocess_s": time.time() - t0}
+        data = rec.values[0]
+        if name == "photonmap":
+            info["photons"] = {k: m.n for k, m in zip(cache_golden.MAPS,
+                                                      data)}
+        elif name == "irradiancecache":
+            info["cache_samples"] = data.count
+        else:
+            info["surface_points"] = data.n
+            info["sss_materials"] = sorted(job.sss)
+        _, img, winfo, _ = drive_waves(f"{name}_path", scene, dev, li,
+                                       CACHE_WAVES, wants[name])
+        lanes = lanes_a_wave(wants[name]) * CACHE_WAVES
+        turns = in_turns({"main": main_wave,
+                          name: li_wave(job, li, dev, 1)},
+                         ("main", name, name, "main"), repeats=1)
+        info.update(winfo, rays_per_s=lanes / winfo["seconds"],
+                    main_path_rays_per_s=main_rays_per_s,
+                    rays_per_s_over_main_path=lanes / winfo["seconds"]
+                    / main_rays_per_s, wave_ms_in_turns=turns,
+                    wave_ms_over_main=sum(turns[name]) / sum(turns["main"]))
+        if name in ("photonmap", "irradiancecache"):
+            info["gather_torch_ops"] = gather_ops_two_densities(
+                name, job, scene, data, dev)
+        else:
+            info["mo_card_vs_cpu"] = mo_card_vs_cpu(job, scene, data, dev)
+        cpu_job = parser.parse(text, resolver=resolver, log=QUIET,
+                               device="cpu")
+        info["window"] = card_vs_cpu_window_li(
+            name, job, cpu_job, li, cache_li(name, cpu_job,
+                                             st.to_device(data, "cpu")), dev,
+            DIPOLE_WINDOW_POINT if name == "dipolesubsurface"
+            else SPHERE_POINT)
+        info["seconds"] = time.time() - t_int
+        out[name] = info
+    say("cache_path", seconds=time.time() - t_phase, **out)
+
+
+def cache_li(name, job, data):
+    """The radiance of `job`'s cache integrator over the preprocess `data`
+    it already has (the manager's composition without its preprocess)."""
+    p = job.surf_params
+    if name == "photonmap":
+        ig = manager.photonmap_integrator(p)
+        return lambda s, r, d, c: pm_mod.li(ig, s, r, d, c, data)
+    if name == "irradiancecache":
+        ig = manager.irradiance_cache_integrator(p)
+        return lambda s, r, d, c: ic_mod.li(ig, s, r, d, c, data)
+    ig = manager.dipole_integrator(p)
+    sps, sa, mask = manager.dipole_medium(job, device="cpu")
+    return lambda s, r, d, c: dp_mod.li(ig, s, r, d, c, data, sps, sa, mask)
+
+
+def camera_hits(scene, dev, n=4096):
+    """Every (W*H / n)-th camera ray of ``camera_wave`` and its first hit:
+    (rays, hits, interaction)."""
+    cam, smp, px, py, _ = camera_wave(dev)
+    sel = torch.arange(0, px.shape[0], max(1, px.shape[0] // n),
+                       device=dev)
+    cs = samplers.camera_samples(smp, px[sel], py[sel],
+                                 torch.zeros_like(px[sel]))
+    rays, _, _ = cameras.generate_rays(cam, cs, WIDTH, HEIGHT)
+    hits = st.intersect(scene.geometry, rays)
+    return rays, hits, st.interaction(scene.geometry, rays, hits)
+
+
+def mo_card_vs_cpu(job, scene, ip, dev):
+    """Mo of the job's medium at 4,096 camera hits over the card's
+    irradiance points tiled to whole blocks of 1,024 (so that it is
+    finite), on the card and on the CPU: share within rtol 1e-4."""
+    _, hits, it = camera_hits(scene, dev)
+    sps, sa, _ = manager.dipole_medium(job, device=dev)
+    n = -(-ip.n // 1024) * 1024
+    k = torch.arange(n, device=dev) % ip.n
+    q = vm.to_arr(it["p"])[hits.hit]
+    got = {}
+    for w in (dev, "cpu"):
+        tiled = dp_mod.IrradiancePoints(p=ip.p[k].to(w),
+                                        E_times_area=ip.E_times_area[k].to(w),
+                                        n=n)
+        got[w] = dp_mod.mo(tiled, q.to(w), sps.to(w), sa.to(w),
+                           dp_mod.DipoleSubsurfaceIntegrator().eta).cpu()
+    ok = torch.isclose(got[dev], got["cpu"], rtol=1e-4, atol=0.0).all(1)
+    share = float(ok.float().mean())
+    require(bool(torch.isfinite(got[dev]).all()) and share >= 0.995,
+            f"dipole Mo card vs CPU: {share} close")
+    return {"lanes": int(q.shape[0]), "points": n, "close": share,
+            "mean": float(got[dev].mean())}
+
+
+def card_vs_cpu_window_li(what, job, cpu_job, li, cpu_li, dev, point):
+    """(c) with given radiance functions on each side, about `point`."""
+    x0, y0 = window_origin(cpu_job.camera, point)
+    t0 = time.time()
+    card = window_render(job, dev, x0, y0, CACHE_WINDOW_WAVES, li=li)
+    card_s = time.time() - t0
+    t0 = time.time()
+    cpu = window_render(cpu_job, "cpu", x0, y0, CACHE_WINDOW_WAVES,
+                        li=cpu_li)
+    cpu_s = time.time() - t0
+    close, rel_mean = compare_images(f"{what} window, card vs CPU", cpu, card)
+    return {"x0": x0, "y0": y0, "waves": CACHE_WINDOW_WAVES,
+            "card_s": card_s, "cpu_s": cpu_s, "pixels_close": close,
+            "rel_mean": rel_mean, "img_mean": float(card.mean())}
+
+
+def gather_ops_two_densities(name, job, scene, data, dev):
+    """Host torch operations of one gather on 4,096 camera hits over the
+    whole preprocess and over every 8th point of it: they must be equal."""
+    rays, hits, it = camera_hits(scene, dev)
+    from dartray_tpu_torch import bsdf as bx
+    from dartray_tpu_torch import materials as mat_mod
+    frame = bx.make_frame(it["ns"], it["dpdu"], it["ng"])
+    params = mat_mod.eval_params(scene.materials, it["mat_id"],
+                                 scene.textures, it)
+    ns = vm.face_forward(it["ns"], it["wo"])
+    if name == "photonmap":
+        ig = manager.photonmap_integrator(job.surf_params)
+        full = data[2]
+        k = torch.arange(0, full.n, 8, device=dev)
+        sparse = pm_mod.PhotonMap(
+            p=vm.V3(*(c[k] for c in full.p)),
+            wi=vm.V3(*(c[k] for c in full.wi)),
+            alpha=vm.V3(*(c[k] for c in full.alpha)), cell=full.cell[k],
+            cell_size=full.cell_size, n=int(k.shape[0]))
+        run = lambda m: pm_mod.density_radiance(  # noqa: E731
+            m, it["p"], frame, params, it["wo"], ig.max_dist)
+        points = (full.n, sparse.n)
+    else:
+        ig = manager.irradiance_cache_integrator(job.surf_params)
+        full = data
+        k = torch.arange(0, full.count, 8, device=dev)
+        sparse = ic_mod.IrradianceCache(
+            p=full.p[k], n=full.n[k], E=full.E[k], dmean=full.dmean[k],
+            cell=full.cell[k], cell_size=full.cell_size,
+            count=int(k.shape[0]))
+        run = lambda c: ic_mod.interpolate(c, ig, it["p"], ns)  # noqa: E731
+        points = (full.count, sparse.count)
+    run(full)
+    ops = (gather_ops(lambda: run(full)), gather_ops(lambda: run(sparse)))
+    require(ops[0] == ops[1], f"{name}: host torch operations of a gather "
+            f"{ops} differ between two densities")
+    return {"lanes": int(rays.n), "points": points, "ops": ops}
+
+
 def bench_job(dev, host=None):
     """The main path's render as a RenderJob: the bench scene (or `host`),
     ``camera_wave``'s camera and sampler, the path integrator at its
@@ -2544,6 +2910,9 @@ def main():
     accel_path_phase(dev, scene, shapes[1])
     volume_path_phase(dev, main_rays_per_s)
     igi_path_phase(dev, main_rays_per_s)
+    # the photon map, irradiance cache and dipole integrators (their
+    # launches are printed on cache_path's line)
+    cache_path_phase(dev, main_rays_per_s)
     # the differentiable render: its launches are printed on grad_path's
     # line, not counted into the kernels line (main_path's are)
     grad_small_phase(dev)

@@ -8,11 +8,13 @@ each parameter slot can carry a texture id (-1 = the constant row value).
 Measured BRDF tables live in one pool beside the rows.
 
 Ported: matte, plastic, mirror, glass, metal, shinymetal, substrate,
-translucent, uber, mix and measured, every texture slot, and bump maps. An
+translucent, uber, mix, measured, subsurface and kdsubsurface, every texture
+slot, and bump maps. An
 opacity texture id is kept in its slot and, as in the reference, never read:
 a row renders with its constant opacity, which ``uber`` bakes into its
-transmission. Not ported: subsurface rows (ROADMAP Queue 1 item 8), which
-``build_table`` refuses.
+transmission. A subsurface row is a plastic row with its medium under
+``_sss``, side-channel data the table skips (the dipole integrator reads it
+from the job).
 
 Conductor spectra: the RGB-projected copper eta / k are the default of both
 metal and shinymetal.
@@ -164,7 +166,7 @@ def mix_materials(m1: dict, m2: dict, amount=(0.5,) * 3):
     a = np.asarray(amount, np.float64)
     out = {}
     for key in m1:
-        if key.startswith("_"):   # measured side-channel data
+        if key.startswith("_"):   # measured / subsurface side-channel data
             out[key] = m1[key]
             continue
         v1 = np.asarray(m1[key], np.float64)
@@ -193,10 +195,6 @@ def measured(data: np.ndarray, key: str = "", **tex):
 def build_table(rows: List[dict]) -> MaterialTable:
     if not rows:
         rows = [matte()]
-    if any(r.get("_sss") is not None for r in rows):
-        raise NotImplementedError(
-            "subsurface materials are not ported (ROADMAP Queue 1 item 8, "
-            "subsurface scattering)")
 
     def col(k, dt=np.float32):
         return np.asarray([r[k] for r in rows], dt)

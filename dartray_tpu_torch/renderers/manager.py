@@ -10,7 +10,12 @@ rays through the BVH against the exhaustive intersector). The surface
 integrators are ``path``, ``directlighting``, ``whitted``,
 ``ambientocclusion`` and ``igi`` (its VPLs shot when the job's radiance
 function is built); an unknown name warns and renders with ``path``, as in
-the reference. A scene with a volume composes the surface radiance with the
+the reference. The cache-and-gather integrators run their preprocess when
+the job's radiance function is built, on the job's device: ``photonmap`` /
+``exphotonmap`` shoot their photon maps, ``irradiancecache`` primes its
+cache and ``dipolesubsurface`` spreads surface points and their irradiance.
+The ``surfacepoints`` renderer writes its points to a file and returns a
+black image. A scene with a volume composes the surface radiance with the
 volume integrator's over the camera segment (``build_li``: L = T Ls + Lv,
 ``emission`` by default or ``single``). The other renderers and integrators
 the reference has raise ``NotImplementedError`` naming their ROADMAP item.
@@ -34,9 +39,12 @@ from ..accel import traverse as tv
 from ..core import math as vm
 from ..core import spectrum as spec_mod
 from ..integrators import ao as ao_mod
+from ..integrators import dipole as dp_mod
 from ..integrators import direct as di_mod
 from ..integrators import igi as igi_mod
+from ..integrators import irradiance_cache as ic_mod
 from ..integrators import path as pi_mod
+from ..integrators import photonmap as pm_mod
 from ..integrators import volume as vi_mod
 from ..integrators import whitted as wh_mod
 from ..scene import paramset as ps_mod
@@ -45,19 +53,19 @@ from ..scene import resources
 from ..scene import types as st
 from ..scene.api import RenderJob, not_ported
 from . import sampler as rend
+from . import surface_points as sp_mod
 
 # what the reference runs and the port does not yet (ROADMAP Queue 1 item 8)
-_NOT_PORTED_INTEGRATORS = ("photonmap", "exphotonmap",
-                           "irradiancecache", "dipolesubsurface",
-                           "diffuseprt", "glossyprt", "useprobes")
-_NOT_PORTED_RENDERERS = ("metropolis", "createprobes", "surfacepoints")
+_NOT_PORTED_INTEGRATORS = ("diffuseprt", "glossyprt", "useprobes")
+_NOT_PORTED_RENDERERS = ("metropolis", "createprobes")
 
 
 def build_surface_li(job: RenderJob, log=print,
                      device=device_mod.DEFAULT) -> Callable:
     """The surface integrator of `job` as ``li(scene, rays, diffs, sctx)``;
     unknown names warn and fall back to path. An integrator with a
-    preprocess phase (igi's VPL shooting) runs it here, on `device`."""
+    preprocess phase (igi's VPLs, the photon maps, the irradiance cache,
+    the dipole's surface points) runs it here, on `device`."""
     name = job.surf_integrator
     p = job.surf_params
     if name == "ambientocclusion":
@@ -80,6 +88,24 @@ def build_surface_li(job: RenderJob, log=print,
         ig = igi_integrator(p)
         vpls = igi_mod.preprocess(ig, job.scene, device=device)
         return lambda s, r, d, c: igi_mod.li(ig, s, r, d, c, vpls)
+    if name in ("photonmap", "exphotonmap"):
+        ig = photonmap_integrator(p)
+        maps = pm_mod.shoot_photons(ig, job.scene, device=device)
+        return lambda s, r, d, c: pm_mod.li(ig, s, r, d, c, maps)
+    if name == "irradiancecache":
+        ig = irradiance_cache_integrator(p)
+        cache = ic_mod.build_cache(ig, job.scene, job.camera, job.width,
+                                   job.height, device=device)
+        return lambda s, r, d, c: ic_mod.li(ig, s, r, d, c, cache)
+    if name == "dipolesubsurface":
+        ig = dipole_integrator(p)
+        sp = sp_mod.render(job.scene, min_sample_dist=ig.min_sample_dist,
+                           device=device)
+        ip = dp_mod.prepare(job.scene, sp, device=device)
+        sps, sa, sss_mask = dipole_medium(job, log=log, device=device)
+        return lambda s, r, d, c: dp_mod.li(ig, s, r, d, c, ip,
+                                            sigma_prime_s=sps, sigma_a=sa,
+                                            sss_mask=sss_mask)
     if name in _NOT_PORTED_INTEGRATORS:
         raise not_ported(f"surface integrator {name!r}",
                           "item 8, the other integrators")
@@ -97,6 +123,55 @@ def igi_integrator(p) -> igi_mod.IGIIntegrator:
         n_light_sets=p.find_one_int("nsets", 4),
         max_depth=p.find_one_int("maxdepth", 5),
         g_limit=p.find_one_float("glimit", 10.0))
+
+
+def photonmap_integrator(p) -> pm_mod.PhotonMapIntegrator:
+    """The photon map integrator a ``SurfaceIntegrator "photonmap"`` (or
+    ``"exphotonmap"``) ParamSet asks for; ``nused`` is read and never used,
+    the depths are not read."""
+    return pm_mod.PhotonMapIntegrator(
+        n_caustic=p.find_one_int("causticphotons", 20_000),
+        n_indirect=p.find_one_int("indirectphotons", 100_000),
+        n_lookup=p.find_one_int("nused", 50),
+        max_dist=p.find_one_float("maxdist", 0.1),
+        final_gather=p.find_one_bool("finalgather", True),
+        gather_samples=p.find_one_int("finalgathersamples", 32))
+
+
+def irradiance_cache_integrator(p) -> ic_mod.IrradianceCacheIntegrator:
+    """The irradiance cache integrator a ``SurfaceIntegrator
+    "irradiancecache"`` ParamSet asks for."""
+    return ic_mod.IrradianceCacheIntegrator(
+        min_weight=p.find_one_float("minweight", 0.5),
+        max_angle_deg=p.find_one_float("maxanglediff", 10.0),
+        n_samples=p.find_one_int("nsamples", 4096),
+        max_depth=p.find_one_int("maxdepth", 5))
+
+
+def dipole_integrator(p) -> dp_mod.DipoleSubsurfaceIntegrator:
+    """The dipole integrator a ``SurfaceIntegrator "dipolesubsurface"``
+    ParamSet asks for (``maxerror`` is read and never used)."""
+    return dp_mod.DipoleSubsurfaceIntegrator(
+        max_error=p.find_one_float("maxerror", 0.05),
+        min_sample_dist=p.find_one_float("minsampledistance", 0.25))
+
+
+def dipole_medium(job: RenderJob, log=print, device=device_mod.DEFAULT):
+    """(sigma'_s, sigma_a, sss_mask) of the job's first subsurface medium,
+    the mask true on every subsurface material id; (None, None, None) when
+    the job has none (the dipole then takes skin1 on every surface)."""
+    if not job.sss:
+        return None, None, None
+    sps, sa, _eta = next(iter(job.sss.values()))
+    if len(job.sss) > 1:
+        log("note: multiple subsurface media; dipole uses the first")
+    mask = np.zeros((job.scene.materials.n,), bool)
+    for mid in job.sss:
+        mask[mid] = True
+    dev = device_mod.resolve(device)
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa
+                                     device=dev)
+    return as_t(sps), as_t(sa), torch.from_numpy(mask).to(dev)
 
 
 def build_li(job: RenderJob, log=print,
@@ -143,6 +218,15 @@ def run(job: RenderJob, progress: Optional[Callable] = None, log=print,
     rname = job.renderer
     if rname in _NOT_PORTED_RENDERERS:
         raise not_ported(f"renderer {rname!r}", "item 8")
+    if rname == "surfacepoints":
+        sp = sp_mod.render(
+            job.scene,
+            min_sample_dist=rp.find_one_float("minsampledistance", 0.25),
+            device=dev)
+        fname = rp.find_one_string("filename", "surfacepoints.npz")
+        sp_mod.save(fname, sp)
+        log(f"surfacepoints: wrote {fname} ({sp.p.shape[0]} points)")
+        return np.zeros((job.height, job.width, 3), np.float32)
     scene = st.to_device(job.scene, dev)
     if rname == "aggregatetest":
         _aggregate_test(scene, n_iters=rp.find_one_int("niters", 100_000),

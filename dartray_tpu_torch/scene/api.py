@@ -11,8 +11,12 @@ integrator configuration.
 Unknown names warn and fall back exactly as in the reference (matte, the
 perspective camera, the lowdiscrepancy sampler). A kind the reference knows
 and the port does not yet have raises ``NotImplementedError`` naming its
-ROADMAP item: here (subsurface materials) or in the module that would build
-it (``materials``, ``renderers/manager``).
+ROADMAP item, in the module that would build it (``renderers/manager``).
+
+A ``subsurface`` or ``kdsubsurface`` material is a plastic coat (kd 0,
+ks 1) whose medium, (sigma'_s * scale, sigma_a * scale, index), travels
+beside the material table in ``RenderJob.sss`` by material id, for the
+``dipolesubsurface`` integrator.
 """
 from __future__ import annotations
 
@@ -39,10 +43,6 @@ START_TRANSFORM_BITS = 1
 END_TRANSFORM_BITS = 2
 ALL_TRANSFORMS_BITS = 3
 
-# kinds the reference builds and the port does not yet, by ROADMAP Queue 1
-# item
-_NOT_PORTED_MATERIALS = dict.fromkeys(("subsurface", "kdsubsurface"),
-                                      "item 8, subsurface scattering")
 _SAMPLERS = ("lowdiscrepancy", "02sequence", "stratified", "random",
              "halton", "bestcandidate")
 
@@ -92,6 +92,9 @@ class RenderJob:
     renderer: str
     renderer_params: ps.ParamSet
     crop: tuple = (0.0, 1.0, 0.0, 1.0)
+    # subsurface media by material id: {mat_id: (sigma_prime_s (3,),
+    # sigma_a (3,), eta)}, for the dipolesubsurface integrator
+    sss: dict = dataclasses.field(default_factory=dict)
     # the adaptive sampler's (minsamples, maxsamples), or None
     adaptive: tuple = None
     # progressive delivery mode: "full" | "twopass" | "iterative". Every
@@ -136,6 +139,7 @@ class PbrtAPI:
         self.transform_stack: List[tuple] = []
         self.builder = build_mod.SceneBuilder()
         self._mat_cache: Dict[str, int] = {}
+        self.sss_map: Dict[int, tuple] = {}   # mat_id -> (sps, sa, eta)
         # object instancing
         self.volumes: List[tuple] = []     # (name, ParamSet, object-to-world)
         self.objects: Dict[str, list] = {}
@@ -424,9 +428,6 @@ class PbrtAPI:
 
     def _make_material(self, name, geom_params, mat_params=None) -> dict:
         """Material factory -> a ``materials`` row."""
-        if name in _NOT_PORTED_MATERIALS:
-            raise not_ported(f"material {name!r}",
-                              _NOT_PORTED_MATERIALS[name])
         tp = ps.TextureParams(geom_params, mat_params or ps.ParamSet(),
                               self.gs.float_textures,
                               self.gs.spectrum_textures)
@@ -515,6 +516,33 @@ class PbrtAPI:
                 return mat_mod.mix_materials(m1, m2, amt)
             self.log("warning: mix material missing named materials")
             return mat_mod.matte()
+        if name in ("subsurface", "kdsubsurface"):
+            # a glossy dielectric coat; the diffusion term is the
+            # dipolesubsurface integrator's, from the row's medium
+            from ..integrators import dipole as dp
+            eta = f1("index", 1.3)
+            scale = geom_params.find_one_float("scale", 1.0)
+            if name == "subsurface":
+                preset = geom_params.find_one_string("name", "")
+                if preset:
+                    sps, sa = dp.media_params(preset)
+                else:
+                    sps = np.asarray(geom_params.find_one_spectrum(
+                        "sigma_prime_s", (2.55, 3.21, 3.77)), np.float32)
+                    sa = np.asarray(geom_params.find_one_spectrum(
+                        "sigma_a", (0.0011, 0.0024, 0.014)), np.float32)
+            else:   # from a diffuse colour and a mean free path
+                kd = np.asarray(geom_params.find_one_spectrum(
+                    "Kd", (0.5, 0.5, 0.64)), np.float32)
+                mfp = geom_params.find_one_float("meanfreepath", 1.0)
+                sps = np.clip(kd, 1e-3, 0.999) / mfp
+                sa = np.clip(1.0 - kd, 1e-3, 1.0) / mfp
+            row = mat_mod.plastic(kd=(0.0,) * 3, ks=(1.0,) * 3,
+                                  roughness=f1("roughness", 0.05),
+                                  tex_ids=tex_ids)
+            row["_sss"] = (tuple(float(x) for x in sps * scale),
+                           tuple(float(x) for x in sa * scale), float(eta))
+            return row
         if name == "measured":
             # an unloadable file is a warning and a matte material (known
             # behaviour k): the scene file's semantics
@@ -662,7 +690,12 @@ class PbrtAPI:
     def _material_id(self, row: dict) -> int:
         key = repr(sorted((k, str(v)) for k, v in row.items()))
         if key not in self._mat_cache:
-            self._mat_cache[key] = self.builder.add_material(dict(row))
+            row2 = dict(row)
+            media = row2.pop("_sss", None)
+            mat_id = self.builder.add_material(row2)
+            if media is not None:
+                self.sss_map[mat_id] = media
+            self._mat_cache[key] = mat_id
         return self._mat_cache[key]
 
     def _make_shape(self, name, p: ps.ParamSet):
@@ -877,7 +910,7 @@ class PbrtAPI:
                          surf_integrator=si_name, surf_params=si_p,
                          vol_integrator=vi_name, vol_params=vi_p,
                          renderer=r_name, renderer_params=r_p, crop=crop,
-                         adaptive=adaptive)
+                         sss=dict(self.sss_map), adaptive=adaptive)
 
 
 def _coord_sys(d):

@@ -137,15 +137,6 @@ def test_from_reference_refuses_what_is_not_ported():
     _assert_same_leaves(adapt.from_reference(ref), ref)
 
 
-@pytest.mark.parametrize("name,call", [
-    ("subsurface_row", lambda: mat_mod.build_table(
-        [dict(mat_mod.plastic(), _sss=((1, 1, 1), (0, 0, 0), 1.3))])),
-])
-def test_left_out_branch_raises_by_name(name, call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call()
-
-
 @pytest.mark.parametrize("name", ["sampler_random", "sampler_halton",
                                   "filter_gaussian", "filter_wide_box",
                                   "spectrum_sampled", "accel_grid",
@@ -239,6 +230,9 @@ PORTED_BRANCHES = {
                                        spec_fresnel=m.FR_CONDUCTOR)],
     "bump": lambda m: [m.matte(tex_ids={m.TEX_BUMP: 0})],
     "opacity_texture": lambda m: [m.matte(tex_ids={m.TEX_OPACITY: 0})],
+    "subsurface_row": lambda m: [m.matte(), dict(
+        m.plastic(kd=(0.0,) * 3, ks=(1.0,) * 3, roughness=0.05),
+        _sss=((1.5, 1.6, 1.7), (0.1, 0.2, 0.3), 1.3))],
 }
 PORTED_SINCE_LIGHTS = ("goniometric_light", "infinite_light", "alpha")
 

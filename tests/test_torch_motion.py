@@ -6,7 +6,14 @@ Host tables are compared bit for bit. Traversal: hit masks equal to the
 reference's CPU traversal AND to its Pallas kernel in interpret mode, finished
 t within rtol 1e-4 (the three walks lerp with the same two f32 operations but
 may pick another triangle at a shared edge), prim equal on > 0.99 of lanes.
+The reference's traversals of the main ray set come from
+``tools/render_golden.npz`` (``tools/make_render_golden.py``; the ``slow``
+case runs them again).
 """
+import os
+import sys
+import types
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -25,16 +32,14 @@ from dartray_tpu_torch.scene import types as st
 
 import torchhelp as th
 
+sys.path.insert(0, os.path.join(th.ROOT, "tools"))
+import make_render_golden as golden  # noqa: E402
+
 torch.set_num_threads(1)
 
-SHIFT = np.asarray([2.0, 0, 0], np.float32)
-N = 256
-
-
-def _moving_sphere(mod):
-    m = mod.sphere(radius=0.5, nu=24, nv=12)
-    m.verts_end = m.verts + SHIFT
-    return m
+SHIFT = golden.MOTION_SHIFT
+N = golden.MOTION_N
+_moving_sphere = golden.moving_sphere
 
 
 @pytest.fixture(scope="module")
@@ -43,14 +48,7 @@ def world():
     at the lerped sphere from a ring of origins, with random times."""
     rhost = ref_st.compile_geometry([_moving_sphere(ref_mesh)], [0], [-1])
     host = st.compile_geometry([_moving_sphere(mesh_mod)], [0], [-1])
-    rng = np.random.RandomState(11)
-    ts = rng.rand(N).astype(np.float32)
-    ang = rng.rand(N) * 2 * np.pi
-    o = np.stack([2.0 * ts + 3.0 * np.cos(ang), 3.0 * np.sin(ang),
-                  -3.0 * np.ones(N)], -1).astype(np.float32)
-    c = np.stack([2.0 * ts, np.zeros(N), np.zeros(N)], -1)
-    d = (c - o).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d, ts = golden.motion_rays()
     return dict(rhost=rhost, host=host, rgeom=ref_st.to_device(rhost),
                 geom=st.to_device(host, "cpu"), o=o, d=d, ts=ts)
 
@@ -126,33 +124,46 @@ def _check_hits(h, rh):
                                rtol=1e-4)
 
 
-def test_moving_sphere_matches_reference(world, monkeypatch):
+@pytest.fixture(scope="module")
+def ref_golden():
+    return np.load(golden.GOLDEN)
+
+
+def _golden_hits(g, name):
+    return types.SimpleNamespace(t=g[f"motion_{name}_t"],
+                                 prim=g[f"motion_{name}_prim"])
+
+
+def test_moving_sphere_matches_reference(world, ref_golden):
     """``intersect``, ``intersect_p`` and ``intersect_pair`` (the mixed
     launch with the concatenated time plane) against the reference's CPU
-    traversal and its interpreted Pallas kernel."""
-    rays, rrays = _rays(world), _ref_rays(world)
+    traversal and its interpreted Pallas kernel (golden)."""
+    rays = _rays(world)
     h = st.intersect(world["geom"], rays)
     h_pair, occ_pair = st.intersect_pair(world["geom"], rays, rays)
     occ = st.intersect_p(world["geom"], rays)
     assert h.hit.all()                      # all aimed at the lerped centre
-    rh = ref_st.intersect(world["rgeom"], rrays)
-    rocc = ref_st.intersect_p(world["rgeom"], rrays)
-    monkeypatch.setattr(ref_st, "FORCE_PALLAS_INTERPRET", True)
-    rh_k = ref_st.intersect(world["rgeom"], rrays)
-    rh_pair, rocc_k = ref_st.intersect_pair(world["rgeom"], rrays, rrays)
     for mine in (h, h_pair):
-        for theirs in (rh, rh_k, rh_pair):
-            _check_hits(mine, theirs)
+        for theirs in ("cpu", "kernel", "pair"):
+            _check_hits(mine, _golden_hits(ref_golden, theirs))
     for o_ in (occ, occ_pair):
-        assert (o_.numpy() == np.asarray(rocc)).all()
-        assert (o_.numpy() == np.asarray(rocc_k)).all()
+        assert (o_.numpy() == ref_golden["motion_cpu_occ"]).all()
+        assert (o_.numpy() == ref_golden["motion_kernel_occ"]).all()
     # the hit point of a moving scene comes from the ray
     it = st.interaction(world["geom"], rays, h)
     p = th.n3(it["p"])
     np.testing.assert_allclose(
         p, world["o"] + h.t.numpy()[:, None] * world["d"], atol=1e-4)
-    rit = ref_st.interaction(world["rgeom"], rrays, rh)
-    np.testing.assert_allclose(p, th.n3(rit["p"]), atol=1e-4)
+    np.testing.assert_allclose(p, ref_golden["motion_p"], atol=1e-4)
+
+
+@pytest.mark.slow
+def test_motion_golden_is_the_references(ref_golden):
+    """The reference, run again, traverses the ray set as the golden
+    holds."""
+    got = golden.reference_motion()
+    for k, v in got.items():
+        assert np.array_equal(v, ref_golden[k]), k
 
 
 def test_rays_at_the_start_position_with_the_end_time_miss(world):

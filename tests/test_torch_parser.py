@@ -371,9 +371,8 @@ def test_unknown_names_warn_and_fall_back_as_the_reference():
 
 
 NOT_PORTED = {
-    "subsurface": (_scene('Material "kdsubsurface"\n' + QUAD), "item 8"),
-    "subsurface_named": (_scene('MakeNamedMaterial "s" "string type" '
-                                '"subsurface"\n'), "item 8"),
+    name: ('SurfaceIntegrator "%s"\n' % name + _scene(QUAD), "item 8")
+    for name in ("diffuseprt", "glossyprt", "useprobes")
 }
 
 
@@ -394,9 +393,10 @@ def test_known_but_unported_kinds_raise_naming_their_item(case):
 
 # kinds that raised before the material system, the alpha cut-outs, the
 # remaining lights, the cameras, the samplers, the alternate accelerators,
-# the volumes and the igi integrator were ported: each file now compiles to
-# the reference's scene, leaf by leaf (the light maps resolved from scenes/,
-# a map that does not load falls back as in the reference)
+# the volumes, the igi integrator and the subsurface materials were ported:
+# each file now compiles to the reference's scene, leaf by leaf (the light
+# maps resolved from scenes/, a map that does not load falls back as in the
+# reference)
 PORTED_KINDS = {
     "orthographic": _scene(QUAD).replace('"perspective" "float fov" [40]',
                                          '"orthographic"'),
@@ -424,6 +424,13 @@ PORTED_KINDS = {
     "grid_statement": 'Accelerator "grid"\n' + _scene(QUAD),
     "igi-env.pbrt": _read("igi-env.pbrt"),
     "smoke.pbrt": _read("smoke.pbrt"),
+    "subsurface": _scene(
+        'Material "kdsubsurface" "rgb Kd" [0.7 0.5 0.3]\n' + QUAD
+        + 'Material "subsurface" "string name" ["ketchup"] "float scale" '
+        '[3]\nShape "sphere" "float radius" [0.5]\n'),
+    "subsurface_named": _scene(
+        'MakeNamedMaterial "s" "string type" "subsurface" "rgb sigma_a" '
+        '[0.1 0.2 0.3] "float index" [1.4]\nNamedMaterial "s"\n' + QUAD),
 }
 PORTED_JOB_HOLDS = {
     "orthographic": lambda j: j.camera.kind == 1 and j.camera.animated is None,
@@ -440,6 +447,11 @@ PORTED_JOB_HOLDS = {
     "smoke.pbrt": lambda j: j.vol_integrator == "single"
     and j.scene.volume.kind.tolist() == [2]
     and j.scene.volume.grid.shape == (4, 4, 4),
+    "subsurface": lambda j: sorted(j.sss) == [1, 2]
+    and j.scene.materials.ks[1].tolist() == [1.0, 1.0, 1.0]
+    and not j.scene.materials.kd[1:].any(),
+    "subsurface_named": lambda j: list(j.sss) == [1]
+    and j.sss[1][2] == 1.4,
 }
 PORTED_KIND_HOLDS = {
     "alpha": lambda s: s.geometry.has_alpha,
@@ -459,6 +471,7 @@ def test_kinds_ported_since_compile_equal(case):
         resources.Resolver([SCENES]), ref_res.Resolver([SCENES])))
     if case in PORTED_JOB_HOLDS:
         assert PORTED_JOB_HOLDS[case](port)
+        assert port.sss == ref.sss
         assert port.adaptive == ref.adaptive
         assert (port.sampler.kind, port.sampler.spp) == (
             ref.sampler.kind, ref.sampler.spp)

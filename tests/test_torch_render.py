@@ -4,31 +4,29 @@ the JAX reference and of the port, with the same samples.
 The reference runs un-jitted (no whole-wave XLA compile) with its Pallas
 traversal kernel forced into interpret mode, so both sides go camera wave ->
 merged extension+shadow launches -> last shadow wave over the same packed
-BVH. Tolerance: >= 99 % of pixels within rtol 1e-3 / atol 1e-4 and the image
-mean within 1e-3 relative: a ray through an edge shared by two triangles may
-pick the other one, and a mirror bounce then lands elsewhere.
+BVH. The path-integrator renders of the reference (the Cornell box, static
+and moving, and the benchmark scene) come from ``tools/render_golden.npz``
+(``tools/make_render_golden.py``; the ``slow`` case renders them again);
+the other integrators' are rendered here. Tolerance: >= 99 % of pixels
+within rtol 1e-3 / atol 1e-4 and the image mean within 1e-3 relative: a ray
+through an edge shared by two triangles may pick the other one, and a
+mirror bounce then lands elsewhere.
 """
+import os
 import subprocess
 import sys
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
-from dartray_tpu import cameras as ref_cam
 from dartray_tpu import film as ref_film
 from dartray_tpu import materials as ref_mat
-from dartray_tpu import samplers as ref_samplers
-from dartray_tpu.core import transform as ref_tr
 from dartray_tpu.integrators import ao as ref_ao
 from dartray_tpu.integrators import direct as ref_di
-from dartray_tpu.integrators import path as ref_pi
 from dartray_tpu.integrators import whitted as ref_wh
 from dartray_tpu.renderers import sampler as ref_rend
 from dartray_tpu.scene import build as ref_sb
-from dartray_tpu.scene import mesh as ref_mesh
-from dartray_tpu.scene import types as ref_st
 
 import bench_torch
 from dartray_tpu_torch import cameras, grad, samplers
@@ -45,46 +43,27 @@ from dartray_tpu_torch.scene import types as st
 
 import torchhelp as th
 
+sys.path.insert(0, os.path.join(th.ROOT, "tools"))
+import make_render_golden as golden  # noqa: E402
+
 torch.set_num_threads(1)
 
-W = H = 16
-SPP = 2
-DEPTH = 2
-EYE, LOOK, UP, FOV = [0, 1, -3.2], [0, 1, 0], [0, 1, 0], 40.0
-
-
-def _reference_render(host, eye, look, fov, spp, depth, li=None):
-    """The reference's film after `spp` waves of ``render_wave`` (the path
-    integrator unless `li` is given)."""
-    scene = ref_st.to_device(host)
-    cam = ref_cam.perspective(ref_tr.look_at(eye, look, UP), fov, W, H)
-    smp = ref_samplers.make_sampler("lowdiscrepancy", spp=spp)
-    if li is None:
-        ig = ref_pi.PathIntegrator(max_depth=depth, remat=False)
-        li = lambda s, r, d, c: ref_pi.li(ig, s, r, d, c)
-    film = ref_film.make_film(W, H)
-    px, py = ref_rend.pixel_grid(W, H)
-    for s in range(smp.spp):
-        film = ref_rend.render_wave(
-            scene, cam, smp, film, px, py, jnp.full(px.shape, s, jnp.int32),
-            li_fn=li, width=W, height=H, spp=smp.spp)
-    return film
+W, H, SPP, DEPTH = golden.W, golden.H, golden.SPP, golden.DEPTH
+EYE, LOOK, UP, FOV = golden.EYE, golden.LOOK, golden.UP, golden.FOV
+_reference_render = golden.reference_render
 
 
 @pytest.fixture(scope="module")
-def interpret_kernel(request):
-    """The reference's traversal kernel runs in interpret mode."""
-    mp = pytest.MonkeyPatch()
-    request.addfinalizer(mp.undo)
-    mp.setattr(ref_st, "FORCE_PALLAS_INTERPRET", True)
+def ref_golden():
+    return np.load(golden.GOLDEN)
 
 
 @pytest.fixture(scope="module")
-def reference(interpret_kernel):
-    """(image, film pixels, host scene) of the reference."""
-    host = ref_sb.cornell_box().build()
-    film = _reference_render(host, EYE, LOOK, FOV, SPP, DEPTH)
-    return np.asarray(ref_film.to_rgb(film)), np.asarray(film.pixels), host
+def reference(ref_golden):
+    """(image, film pixels, host scene) of the reference: its render of the
+    Cornell box from the golden, its host scene built here."""
+    return (ref_golden["cornell_img"], ref_golden["cornell_pixels"],
+            ref_sb.cornell_box().build())
 
 
 def _port_li(depth=DEPTH):
@@ -134,16 +113,8 @@ def test_render_wave_on_the_reference_scene(reference):
     assert sum(tc.LAUNCHES.values()) == 0
 
 
-SPHERE = 6          # the matte sphere among the meshes of cornell_box()
-SHIFT = np.asarray([0.5, 0, 0], np.float32)
-
-
-def _moving_cornell(mod, shift):
-    """The Cornell box with its matte sphere translating by `shift` over the
-    cameras' default shutter [0, 1] (`mod`: either package's scene.build)."""
-    b = mod.cornell_box()
-    b.meshes[SPHERE].verts_end = b.meshes[SPHERE].verts + shift
-    return b.build()
+SHIFT = golden.SHIFT
+_moving_cornell = golden.moving_cornell
 
 
 def _port_render(host, spp, depth):
@@ -153,17 +124,15 @@ def _port_render(host, spp, depth):
     return rend.render(host, cam, smp, _port_li(depth), W, H, device="cpu")
 
 
-def test_render_moving_scene_matches_reference(interpret_kernel):
+def test_render_moving_scene_matches_reference(ref_golden):
     """Moving geometry end to end: camera rays draw their time from the
     shutter, every traversal (camera wave, merged launches, last shadow
     wave) runs the motion mode, shadow rays carry their surface ray's time.
-    Reference: its v6 kernel with ``motion=True``, interpreted."""
-    film = _reference_render(_moving_cornell(ref_sb, SHIFT), EYE, LOOK, FOV,
-                             1, 3)
+    Reference: its v6 kernel with ``motion=True``, interpreted (golden)."""
     host = _moving_cornell(sb, SHIFT)
     assert host.geometry.has_motion
     img = _port_render(host, 1, 3)
-    _check_image(img, np.asarray(ref_film.to_rgb(film)))
+    _check_image(img, ref_golden["moving_img"])
     still = _port_render(sb.cornell_box().build(), 1, 3)
     assert not np.allclose(img, still, rtol=1e-3, atol=1e-4)
 
@@ -229,54 +198,30 @@ def test_render_other_integrators_match_reference(name):
     _check_image(img, np.asarray(ref_film.to_rgb(film)))
 
 
-BENCH_TRIS = 2000
+BENCH_TRIS = golden.BENCH_TRIS
 
 
-def _reference_bench_scene(n_tris):
-    """The benchmark scene family, built by the reference's own modules as
-    its benchmark script builds it (displaced matte sphere, glass sphere,
-    matte floor, diffuse area light)."""
-    b = ref_sb.SceneBuilder()
-    gray = b.add_material(ref_mat.matte(kd=(0.6, 0.6, 0.6)))
-    floor_m = b.add_material(ref_mat.matte(kd=(0.4, 0.4, 0.45)))
-    glass_m = b.add_material(ref_mat.glass())
-    dark = b.add_material(ref_mat.matte(kd=(0.0, 0.0, 0.0)))
-    nu = int(np.sqrt(n_tris / 2 * (2.0)))
-    nv = max(nu // 2, 8)
-    m = ref_mesh.sphere(radius=1.0, nu=nu, nv=nv)
-    v = m.verts.astype(np.float64)
-    disp = (0.08 * np.sin(7 * v[:, 0]) * np.cos(5 * v[:, 1])
-            + 0.05 * np.sin(11 * v[:, 2] + 3 * v[:, 0]))
-    n = v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), 1e-9)
-    m.verts = (v + n * disp[:, None]).astype(np.float32)
-    m.normals = None
-    b.add_mesh(m.transformed(np.asarray(
-        ref_tr.translate([-0.4, 1.05, 0.2]).m)), gray)
-    b.add_mesh(ref_mesh.sphere(radius=0.5, nu=64, nv=32).transformed(
-        np.asarray(ref_tr.translate([1.2, 0.5, -0.6]).m)), glass_m)
-    b.add_mesh(ref_mesh.make_mesh(
-        [[-6, 0, -6], [6, 0, -6], [6, 0, 6], [-6, 0, 6]],
-        [[0, 1, 2], [0, 2, 3]]), floor_m)
-    b.add_mesh(ref_mesh.make_mesh(
-        [[-1, 4, -1], [1, 4, -1], [1, 4, 1], [-1, 4, 1]],
-        [[0, 1, 2], [0, 2, 3]]), dark, area_light_L=(12.0,) * 3)
-    return b.build()
-
-
-def test_render_bench_scene_matches_reference(interpret_kernel):
+def test_render_bench_scene_matches_reference(ref_golden):
     """The benchmark scene (glass, matte, area light; a smaller displaced
     sphere) at the benchmark's camera, path depth 4 (into the glass, out of
     it, a diffuse hit behind it and its light sample): the port's own
-    ``bench_scene`` and ``render`` against the reference."""
-    eye, look, fov, depth = [0, 2.2, -5.0], [0, 0.9, 0], 42.0, 4
-    film = _reference_render(_reference_bench_scene(BENCH_TRIS), eye, look,
-                             fov, 1, depth)
+    ``bench_scene`` and ``render`` against the reference's render of its
+    own build of the scene (golden)."""
+    eye, look, fov, depth = golden.BENCH_VIEW
     cam = cameras.perspective(tr.look_at(eye, look, UP), fov, W, H,
                               device="cpu")
     smp = samplers.make_sampler("lowdiscrepancy", spp=1)
     img = rend.render(sb.bench_scene(BENCH_TRIS).build(), cam, smp,
                       _port_li(depth), W, H, device="cpu")
-    _check_image(img, np.asarray(ref_film.to_rgb(film)))
+    _check_image(img, ref_golden["bench_img"])
+
+
+@pytest.mark.slow
+def test_render_golden_is_the_references(ref_golden):
+    """The reference, run again, renders the golden's images and film."""
+    got, _ = golden.make()
+    for k in ("cornell_img", "cornell_pixels", "moving_img", "bench_img"):
+        assert np.array_equal(got[k], ref_golden[k]), k
 
 
 _IMPORT_ALL = r"""

@@ -157,6 +157,37 @@ def ref_box_scene():
     return b.build()
 
 
+def count_launches(mp):
+    """Through the MonkeyPatch `mp`: a Counter of the port's traversal
+    launches by kind ("closest", "any", "mixed"), counted where
+    ``traverse6`` is called (its plain version on the CPU counts in
+    ``LAUNCHES`` nothing)."""
+    import collections
+    from dartray_tpu_torch.ops import traverse_cuda as tc
+    counts = collections.Counter()
+    real = tc.traverse6
+
+    def counted(bvh, o, d, tmin, tmax, *, any_hit=False, anyf=None,
+                time=None):
+        counts["mixed" if anyf is not None else
+               "any" if any_hit else "closest"] += 1
+        return real(bvh, o, d, tmin, tmax, any_hit=any_hit, anyf=anyf,
+                    time=time)
+
+    mp.setattr(tc, "traverse6", counted)
+    return counts
+
+
+def check_golden_image(img, want, share=0.999):
+    """A port render against the reference's: finite, the same shape, at
+    least `share` of pixels within rtol 1e-3 / atol 1e-4, and the mean
+    within 1e-3 relative."""
+    assert img.shape == want.shape and np.isfinite(img).all()
+    close = np.isclose(img, want, rtol=1e-3, atol=1e-4).all(-1)
+    assert close.mean() >= share, (close.mean(), np.abs(img - want).max())
+    assert abs(img.mean() - want.mean()) <= 1e-3 * want.mean()
+
+
 def eager_reference(mp):
     """Put the reference into the mode the whole-wave tests compare against,
     through the MonkeyPatch `mp`: its Pallas traversal kernels in interpret

@@ -9,8 +9,9 @@ Builds the bench scene (with `--moving` its big sphere translates by
 (0.6, 0, 0) over the shutter, so every launch is the motion kernel's), or
 with ``--pbrt`` parses FILE (files it names are looked up beside it and in
 ``scenes/``) and takes its scene, camera, sampler, resolution, surface and
-volume integrators (``manager.build_li``; an igi integrator shoots its VPLs
-before the warm-up), accelerator, pixel filter (``--spectrum sampled``
+volume integrators (``manager.build_li``; igi, the photon map, the
+irradiance cache and the dipole run their preprocess before the warm-up),
+accelerator, pixel filter (``--spectrum sampled``
 parses it in the sampled spectrum mode), warms up, then runs `--waves`
 waves of
 renderers.sampler.render_wave of the chosen integrator (default: the path
@@ -52,6 +53,9 @@ from dartray_tpu_torch.integrators import path as pi, whitted  # noqa: E402
 from dartray_tpu_torch import lights, volumes  # noqa: E402
 from dartray_tpu_torch.accel import grid, kdtree  # noqa: E402
 from dartray_tpu_torch.integrators import igi  # noqa: E402
+from dartray_tpu_torch.integrators import dipole  # noqa: E402
+from dartray_tpu_torch.integrators import irradiance_cache  # noqa: E402
+from dartray_tpu_torch.integrators import photonmap  # noqa: E402
 from dartray_tpu_torch.integrators import volume as vi  # noqa: E402
 from dartray_tpu_torch.ops import traverse_cuda as tc  # noqa: E402
 from dartray_tpu_torch.renderers import manager  # noqa: E402
@@ -77,6 +81,8 @@ STAGES = [
     (kdtree, "intersect_p"), (volumes, "sigma_t"), (volumes, "sigma_s"),
     (volumes, "lve"), (volumes, "phase"), (vi, "transmittance"),
     (vi, "emission_li"), (vi, "single_scatter_li"), (igi, "li"),
+    (photonmap, "density_radiance"), (irradiance_cache, "interpolate"),
+    (irradiance_cache, "hemisphere_E"), (dipole, "mo"),
 ]
 
 
