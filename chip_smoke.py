@@ -151,6 +151,25 @@ and the script exits non-zero:
                and wave ms in turns beside main_path's, the host torch
                operations of one gather at two densities (equal); (c) a
                window, card vs CPU, over the card's preprocess
+  prt_path     precomputed radiance transfer and the SH probes: (a) c_in and
+               the diffuseprt, glossyprt, createprobes and useprobes
+               variants of scenes/prt.pbrt against tools/prt_golden.npz,
+               launches exact; (b) the bench scene at 512x512 through
+               diffuseprt and glossyprt at their defaults (1 closest + 512
+               any launches a wave: 4,096 directions batched 8 sample
+               indices a launch), createprobes through path (64 probes x
+               512) and useprobes over its file, wave ms in turns beside
+               main_path's; (c) a window of each PRT integrator at 128
+               directions, card vs CPU
+  mlt_path     bidirectional paths and the Metropolis renderer: (a) path_l
+               at depth 4 on fixed primary samples and the two Metropolis
+               variants of scenes/prt.pbrt against the golden, chains that
+               part from the CPU run counted; (b) the bench scene at
+               512x512 through Renderer "metropolis" at depth 7, 8,192
+               chains, 32 steps of 21 closest + 56 any launches: ms a
+               step, mutations/s, b, acceptance, the direct pass; (c)
+               path_l at depth 7 on 1,024 lanes of the bench scene, card
+               vs CPU
   grad_small   the gradient of the Cornell render's mean w.r.t. materials.kd
                and lights.intensity (32x32, 4 spp, depth 3): card against
                CPU (plain traversal) within 2e-3 of the largest element,
@@ -198,16 +217,19 @@ from dartray_tpu_torch.core import math as vm
 from dartray_tpu_torch.core import spectrum as spec
 from dartray_tpu_torch.core import transform as tr
 from dartray_tpu_torch.integrators import ao as ao_mod
+from dartray_tpu_torch.integrators import bdpt
 from dartray_tpu_torch.integrators import dipole as dp_mod
 from dartray_tpu_torch.integrators import direct as di
 from dartray_tpu_torch.integrators import igi as igi_mod
 from dartray_tpu_torch.integrators import irradiance_cache as ic_mod
 from dartray_tpu_torch.integrators import path as pi
 from dartray_tpu_torch.integrators import photonmap as pm_mod
+from dartray_tpu_torch.integrators import prt as prt_mod
 from dartray_tpu_torch.integrators import whitted as wh
 from dartray_tpu_torch.io import image as io_img
 from dartray_tpu_torch.ops import traverse_cuda as tc
 from dartray_tpu_torch.renderers import manager
+from dartray_tpu_torch.renderers import metropolis as mlt_mod
 from dartray_tpu_torch.renderers import sampler as rend
 from dartray_tpu_torch.renderers import surface_points as sp_mod
 from dartray_tpu_torch.scene import build as sb
@@ -2707,6 +2729,372 @@ def window_origin(camera, p):
             int(np.clip(round(y) - WINDOW // 2, 0, HEIGHT - WINDOW)))
 
 
+import make_prt_golden as prt_golden  # noqa: E402
+
+# (b) of prt_path: the PRT integrators at their defaults (lmax 4, 4,096
+# directions): a wave is the camera's closest-hit launch and one any-hit
+# launch a chunk of LANE_BUDGET // (W H) sample indices
+PRT_SAMPLES = 4096
+PRT_WAVE_LAUNCHES = {
+    "traverse6:closest": 1,
+    "traverse6:any": -(-PRT_SAMPLES // (prt_mod.LANE_BUDGET
+                                        // (WIDTH * HEIGHT)))}
+PRT_WINDOW_SAMPLES = 128   # (c): the window's nsamples (CPU side ~ 5 s)
+USEPROBES_WAVES = 2
+# createprobes at its defaults through the bench's path integrator: 64
+# probes in chunks of 4, a path wave (depth 5) a chunk
+PROBE_LAUNCHES = {"traverse6:closest": 16, "traverse6:mixed": 16 * MAX_DEPTH,
+                  "traverse6:any": 16}
+# (a): launches of render_pbrt of each variant of scenes/prt.pbrt (16 x 16,
+# 2 waves): the preprocess's, then a wave's camera closest-hit launch and
+# its transfer's one any-hit launch; createprobes: 16 chunks of a path wave
+# at depth 2
+PRT_FILE_LAUNCHES = {
+    "diffuseprt": {"traverse6:closest": 3, "traverse6:any": 2},
+    "glossyprt": {"traverse6:closest": 3, "traverse6:any": 2},
+    "createprobes": {"traverse6:closest": 16, "traverse6:mixed": 32,
+                     "traverse6:any": 16},
+    "useprobes": {"traverse6:closest": 2},
+}
+MLT_DEPTH = 7
+# a chain step's radiance at depth D: D closest-hit launches for each of
+# the eye and the light subpath, and for each eye vertex's direct estimate
+# one closest (its BSDF ray) and one any-hit (its shadow ray); D^2 any-hit
+# launches for the connections
+MLT_STEP_LAUNCHES = {"traverse6:closest": 3 * MLT_DEPTH,
+                     "traverse6:any": MLT_DEPTH + MLT_DEPTH ** 2}
+MLT_CHAINS = 8192
+MLT_SPP = 1                # 512 x 512 / 8,192 chains = 32 steps
+MLT_WINDOW_LANES = 1024    # (c): path_l card vs CPU on the bench scene
+PARTED = 1e-3              # a chain whose final state moved this far
+
+
+def once_ms(wave):
+    """Host-clock ms of one call of `wave`, ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    wave()
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3
+
+
+def turns_once(waves, order):
+    """``once_ms`` of each wave of `waves`, in the turns `order`."""
+    turns = {k: [] for k in waves}
+    for k in order:
+        turns[k].append(once_ms(waves[k]))
+    return turns
+
+
+def coeffs_close(got, want):
+    """Share of SH coefficients within rtol 1e-4 (atol 1e-6 of the
+    largest)."""
+    return float(np.isclose(got, want, rtol=1e-4,
+                            atol=1e-6 * np.abs(want).max()).mean())
+
+
+def prt_golden_part(dev):
+    """(a) of prt_path: c_in at the defaults and each variant of
+    scenes/prt.pbrt through render_pbrt against tools/prt_golden.npz,
+    launches exact, in PBRT_DIR as the working directory (createprobes
+    writes probes.npz there, useprobes reads it)."""
+    golden = np.load(prt_golden.GOLDEN)
+    job = parser.parse(prt_golden.variant_text("diffuseprt"),
+                       resolver=resources.Resolver([SCENES_DIR]), log=QUIET,
+                       device=dev)
+    c_in = prt_mod.project_incident_radiance(
+        job.scene, manager.scene_center(job.scene), 4, PRT_SAMPLES,
+        device=dev).cpu().numpy()
+    close = coeffs_close(c_in, golden["c_in"])
+    require(close == 1.0, f"prt c_in: {close} of coefficients close")
+    out = {"c_in_close": close}
+    os.makedirs(PBRT_DIR, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(PBRT_DIR)
+    try:
+        for name in prt_golden.VARIANTS[:4]:
+            tc.reset_launches()
+            t0 = time.time()
+            img = manager.render_pbrt(prt_golden.variant_text(name),
+                                      search_paths=[SCENES_DIR], log=QUIET,
+                                      device=dev)
+            torch.cuda.synchronize()
+            info = {"seconds": time.time() - t0,
+                    "launches": counted_launches()}
+            require(info["launches"] == PRT_FILE_LAUNCHES[name],
+                    f"prt {name}: kernel launches {info['launches']}, "
+                    f"expected {PRT_FILE_LAUNCHES[name]}")
+            if name == "createprobes":
+                z = np.load("probes.npz")
+                info["coeffs_close"] = coeffs_close(z["coeffs"],
+                                                    golden["probes_coeffs"])
+                require(info["coeffs_close"] == 1.0,
+                        f"prt probes: {info['coeffs_close']} close")
+            else:
+                close, rel_mean = compare_images(
+                    f"prt {name} vs the reference", golden[name], img)
+                require(close >= 0.999, f"prt {name}: {close} of pixels "
+                        "close")
+                info.update(pixels_close=close, rel_mean=rel_mean,
+                            img_mean=float(img.mean()))
+            out[name] = info
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def prt_path_phase(dev, main_rays_per_s):
+    """Precomputed radiance transfer and the SH probes on the card, through
+    the v6 kernel. (a) ``prt_golden_part``. (b) The bench scene at 512 x
+    512: diffuseprt and glossyprt at their defaults (one closest-hit launch
+    of 4,096 directions to project c_in, then a wave of PRT_WAVE_LAUNCHES:
+    the transfer's sample indices batched 8 a launch), createprobes through
+    the bench's path integrator at its defaults (64 probes x 512 directions:
+    PROBE_LAUNCHES) and useprobes over its file (USEPROBES_WAVES waves of 1
+    closest-hit launch): preprocess seconds, launches, lanes launched a
+    second, one wave's ms in turns with main_path's (main, x, main). (c) A
+    WINDOW x WINDOW window about the displaced sphere of diffuseprt and
+    glossyprt at PRT_WINDOW_SAMPLES directions, 1 wave, card against CPU."""
+    t_phase = time.time()
+    out = {"golden": prt_golden_part(dev)}
+    resolver = resources.Resolver([PBRT_DIR, SCENES_DIR])
+    main_wave = profiled_wave(bench_job(dev), dev, 1)
+    base = bench_text_with(os.path.join(PBRT_DIR, "prt_base.pbrt"), {})
+
+    def variant(name, line):
+        """The bench text with PATH_LINE swapped for `line`, written to
+        _build/pbrt/<name>_bench.pbrt."""
+        require(base.count(PATH_LINE) == 1, "bench text lacks PATH_LINE")
+        text = base.replace(PATH_LINE, line)
+        with open(os.path.join(PBRT_DIR, f"{name}_bench.pbrt"), "w") as f:
+            f.write(text)
+        return text
+
+    for name in ("diffuseprt", "glossyprt"):
+        t_int = time.time()
+        text = variant(name, f'SurfaceIntegrator "{name}"')
+        job = parser.parse(text, resolver=resolver, log=QUIET, device=dev)
+        require(job.surf_integrator == name, f"{name} bench: not its job")
+        scene = st.to_device(job.scene, dev)
+        tc.reset_launches()
+        t0 = time.time()
+        li = manager.build_li(job, log=QUIET, device=dev)
+        torch.cuda.synchronize()
+        info = {"preprocess_s": time.time() - t0,
+                "preprocess_launches": counted_launches()}
+        require(info["preprocess_launches"] == {"traverse6:closest": 1},
+                f"{name} bench: preprocess launches "
+                f"{info['preprocess_launches']}")
+        # the wave in turns: main, this wave, main
+        before = once_ms(main_wave)
+        _, img, winfo, _ = drive_waves(f"{name}_path", scene, dev, li, 1,
+                                       PRT_WAVE_LAUNCHES)
+        turns = {"main": [before, once_ms(main_wave)],
+                 name: [winfo["seconds"] * 1e3]}
+        require(img.mean() > 0, f"{name} bench: image black")
+        lanes = WIDTH * HEIGHT * (1 + PRT_SAMPLES)
+        info.update(winfo, lanes_a_wave=lanes,
+                    lanes_per_s=lanes / winfo["seconds"],
+                    main_path_rays_per_s=main_rays_per_s,
+                    wave_ms_in_turns=turns,
+                    wave_ms_over_main=turns[name][0]
+                    / statistics.mean(turns["main"]))
+        wline = (f'SurfaceIntegrator "{name}" "integer nsamples" '
+                 f'[{PRT_WINDOW_SAMPLES}]')
+        wparams = paramset.ParamSet()
+        wparams.add("integer nsamples", [PRT_WINDOW_SAMPLES])
+        info["window"] = card_vs_cpu_window(
+            name, dataclasses.replace(job, surf_params=wparams),
+            base.replace(PATH_LINE, wline), resolver, 1, SPHERE_POINT, dev)
+        info["total_s"] = time.time() - t_int
+        out[name] = info
+    t_int = time.time()
+    probe_file = os.path.join(PBRT_DIR, "bench_probes.npz")
+    text = variant("createprobes", PATH_LINE + '\nRenderer "createprobes" '
+                   f'"string filename" ["{probe_file}"]')
+    job = parser.parse(text, resolver=resolver, log=QUIET, device=dev)
+    tc.reset_launches()
+    t0 = time.time()
+    img = manager.run(job, log=QUIET, device=dev)
+    torch.cuda.synchronize()
+    probes_info = {"seconds": time.time() - t0,
+                   "launches": counted_launches()}
+    require(probes_info["launches"] == PROBE_LAUNCHES,
+            f"createprobes bench: launches {probes_info['launches']}")
+    z = np.load(probe_file)
+    require(z["coeffs"].shape == (64, 25, 3) and np.isfinite(z["coeffs"]).all()
+            and not img.any(), "createprobes bench: probes not finite")
+    probes_info["coeffs_abs_mean"] = float(np.abs(z["coeffs"]).mean())
+    text = variant("useprobes", 'SurfaceIntegrator "useprobes" "string '
+                   f'filename" ["{probe_file}"]')
+    job = parser.parse(text, resolver=resolver, log=QUIET, device=dev)
+    li = manager.build_li(job, log=QUIET, device=dev)
+    _, img, winfo, _ = drive_waves("useprobes_path", st.to_device(job.scene,
+                                                                  dev),
+                                   dev, li, USEPROBES_WAVES,
+                                   {"traverse6:closest": 1})
+    require(img.mean() > 0, "useprobes bench: image black")
+    turns = turns_once({"main": main_wave, "useprobes": li_wave(job, li, dev,
+                                                                1)},
+                       ("main", "useprobes", "useprobes", "main"))
+    out["createprobes"] = probes_info
+    out["useprobes"] = {**winfo, "wave_ms_in_turns": turns,
+                        "wave_ms_over_main": sum(turns["useprobes"])
+                        / sum(turns["main"]),
+                        "total_s": time.time() - t_int}
+    say("prt_path", seconds=time.time() - t_phase, **out)
+
+
+class Spied:
+    """While active, ``module.name`` runs with the keyword arguments
+    `extra` added; the calls' keyword arguments are kept."""
+
+    def __init__(self, module, name, **extra):
+        self.module, self.name, self.extra, self.calls = (module, name,
+                                                          extra, [])
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def spy(*a, **k):
+            k.update(self.extra)
+            self.calls.append(k)
+            return self.real(*a, **k)
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def mlt_variant(name, where):
+    """render_pbrt of the MLT variant `name` of scenes/prt.pbrt on `where`:
+    (image, the chains' final states)."""
+    with Recorded(mlt_mod, "mlt_step") as rec:
+        img = manager.render_pbrt(prt_golden.variant_text(name),
+                                  search_paths=[SCENES_DIR], log=QUIET,
+                                  device=where)
+    return img, rec.values[-1][0][0].cpu().numpy()
+
+
+def path_l_on(job, where, u, depth):
+    """``_radiance_for`` with ``bdpt.path_l`` at `depth` of the primary
+    samples u (numpy) over `job`'s scene on `where`, as (R, 3) numpy."""
+    camera = dataclasses.replace(job.camera,
+                                 device=torch.device(where)) \
+        if str(where) == "cpu" else job.camera
+    L, _ = mlt_mod._radiance_for(
+        st.to_device(job.scene, where), camera, job.width, job.height,
+        lambda s, r, d, c: bdpt.path_l(s, r, d, c, max_depth=depth),
+        torch.from_numpy(u).to(where))
+    return vm.to_arr(L).cpu().numpy()
+
+
+def lanes_close(what, got, want):
+    close = float(np.isclose(got, want, rtol=1e-3, atol=1e-4).all(1).mean())
+    require(np.isfinite(got).all() and close >= 0.999,
+            f"{what}: {close} of lanes close")
+    return close
+
+
+def mlt_path_phase(dev):
+    """Bidirectional paths and the Metropolis renderer on the card, through
+    the v6 kernel. (a) ``bdpt.path_l`` at depth 4 on the golden's 4,096
+    primary-sample vectors over scenes/prt.pbrt against
+    tools/prt_golden.npz (>= 0.999 of lanes close); the two Metropolis
+    variants through render_pbrt against the golden images (>= 0.99 of
+    pixels close, the mean within 1e-3), and the chains whose final state
+    parts from the CPU run's (by more than PARTED in a dimension). (b) The
+    bench scene at 512 x 512 through the front door: Renderer "metropolis"
+    at maxdepth MLT_DEPTH, 8,192 chains, 4,096 bootstrap samples,
+    samplesperpixel MLT_SPP (32 steps): MLT_STEP_LAUNCHES a step, ms a
+    step, mutations a second, b, the acceptance rate, the direct pass's
+    seconds, a finite image. (c) path_l at MLT_DEPTH on MLT_WINDOW_LANES
+    vectors over the bench scene, card against CPU."""
+    t_phase = time.time()
+    golden = np.load(prt_golden.GOLDEN)
+    job = parser.parse(prt_golden.variant_text("mlt"),
+                       resolver=resources.Resolver([SCENES_DIR]), log=QUIET,
+                       device=dev)
+    tc.reset_launches()
+    got = path_l_on(job, dev, prt_golden.path_l_u(), prt_golden.PATH_L_DEPTH)
+    d = prt_golden.PATH_L_DEPTH
+    launches = counted_launches()
+    require(launches == {"traverse6:closest": 3 * d,
+                         "traverse6:any": d + d * d},
+            f"path_l launches {launches}")
+    out = {"path_l": {"launches": launches, "lanes_close": lanes_close(
+        "path_l vs the reference", got, golden["path_l"])}}
+    for name in ("mlt", "mlt_nodirect"):
+        t0 = time.time()
+        img, u_card = mlt_variant(name, dev)
+        secs = time.time() - t0
+        close, rel_mean = compare_images(f"{name} vs the reference",
+                                         golden[name], img)
+        _, u_cpu = mlt_variant(name, "cpu")
+        parted = int((np.abs(u_card - u_cpu) > PARTED).any(1).sum())
+        out[name] = {"seconds": secs, "pixels_close": close,
+                     "rel_mean": rel_mean, "img_mean": float(img.mean()),
+                     "chains_parted_from_cpu": parted,
+                     "chains": int(u_card.shape[0])}
+    os.makedirs(PBRT_DIR, exist_ok=True)
+    text = bench_text_with(
+        os.path.join(PBRT_DIR, "metropolis_bench.pbrt"),
+        {PATH_LINE: PATH_LINE + '\nRenderer "metropolis" "integer '
+         f'samplesperpixel" [{MLT_SPP}] "integer maxdepth" [{MLT_DEPTH}]'})
+    resolver = resources.Resolver([PBRT_DIR, SCENES_DIR])
+    job = parser.parse(text, resolver=resolver, log=QUIET, device=dev)
+    steps = []
+    real_step = mlt_mod.mlt_step
+
+    def counted_step(*a, **k):
+        tc.reset_launches()
+        r = real_step(*a, **k)
+        torch.cuda.synchronize()
+        steps.append(counted_launches())
+        return r
+
+    stats = {}
+    mlt_mod.mlt_step = counted_step
+    try:
+        with Spied(mlt_mod, "render", stats=stats) as spied:
+            t0 = time.time()
+            img = manager.run(job, log=QUIET, device=dev)
+            secs = time.time() - t0
+    finally:
+        mlt_mod.mlt_step = real_step
+    kw = spied.calls[0]
+    require(kw["max_depth"] == MLT_DEPTH and kw["n_bootstrap"] == 4096
+            and stats["chains"] == MLT_CHAINS
+            and stats["steps"] == WIDTH * HEIGHT * MLT_SPP // MLT_CHAINS,
+            f"metropolis bench: {kw}, {stats}")
+    require(all(s == MLT_STEP_LAUNCHES for s in steps),
+            f"metropolis bench: launches a step {steps[:2]}")
+    require(img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(img).all()
+            and img.mean() > 0, "metropolis bench: image not finite")
+    n_mut = stats["steps"] * stats["chains"]
+    out["bench"] = {
+        "seconds": secs, "steps": stats["steps"], "chains": stats["chains"],
+        "launches_a_step": steps[0], "ms_a_step":
+        stats["chains_s"] / stats["steps"] * 1e3,
+        "mutations_per_s": n_mut / stats["chains_s"], "b": stats["b"],
+        "acceptance": stats["accepted"] / n_mut,
+        "bootstrap_s": stats["bootstrap_s"], "direct_s": stats["direct_s"],
+        "img_mean": float(img.mean())}
+    u = prt_golden.path_l_u(MLT_WINDOW_LANES, MLT_DEPTH)
+    t0 = time.time()
+    card = path_l_on(job, dev, u, MLT_DEPTH)
+    card_s = time.time() - t0
+    t0 = time.time()
+    cpu = path_l_on(job, "cpu", u, MLT_DEPTH)
+    out["path_l_card_vs_cpu"] = {
+        "lanes": MLT_WINDOW_LANES, "card_s": card_s,
+        "cpu_s": time.time() - t0,
+        "lanes_close": lanes_close("path_l card vs CPU", card, cpu),
+        "nonzero": float((np.abs(cpu) > 0).any(1).mean())}
+    say("mlt_path", seconds=time.time() - t_phase, **out)
+
+
 SMALL_GRAD_PATHS = ["materials.kd", "lights.intensity"]
 GRAD_CPU_REL = 2e-3        # card vs CPU gradient: share of the largest |g|
 GRAD_SPPS = (2, 8)         # the full-width gradient's two sample counts
@@ -2913,6 +3301,10 @@ def main():
     # the photon map, irradiance cache and dipole integrators (their
     # launches are printed on cache_path's line)
     cache_path_phase(dev, main_rays_per_s)
+    # precomputed radiance transfer, the probes, bidirectional paths and the
+    # Metropolis renderer (their launches are printed on their own lines)
+    prt_path_phase(dev, main_rays_per_s)
+    mlt_path_phase(dev)
     # the differentiable render: its launches are printed on grad_path's
     # line, not counted into the kernels line (main_path's are)
     grad_small_phase(dev)

@@ -521,3 +521,21 @@ def sample_f(p: BSDFParams, frame: Frame, wo_w: V3, u2, uc,
 
 def slot_count(p: BSDFParams, flags: int = ALL):
     return sum(a.to(torch.int32) for a in _slot_active(p, flags))
+
+
+def cat_lanes(xs):
+    """Lane-major values of one kind (tensors, V3s, Frames or BSDFParams)
+    joined along their lanes, in order: one evaluation then serves them
+    all. A measured BRDF's pool is shared by every lane, not joined."""
+    x0 = xs[0]
+    if x0 is None:
+        return None
+    if isinstance(x0, BSDFParams):
+        fields = {k: cat_lanes([getattr(x, k) for x in xs])
+                  for k in x0._fields if k != "meas"}
+        meas = None if x0.meas is None else (
+            torch.cat([x.meas[0] for x in xs]), x0.meas[1])
+        return BSDFParams(meas=meas, **fields)
+    if isinstance(x0, (V3, Frame)):
+        return type(x0)(*(cat_lanes(list(c)) for c in zip(*xs)))
+    return torch.cat(xs)

@@ -53,10 +53,14 @@ class PathIntegrator:
 def li(ig: PathIntegrator, scene: st.CompiledScene, rays, diffs, sctx,
        skip_direct: bool = False):
     """Wavefront path tracer, single-BSDF-sample MIS formulation. Returns
-    the V3 radiance of every camera ray."""
-    if skip_direct:
-        raise NotImplementedError(
-            "skip_direct serves the Metropolis renderer (ROADMAP Queue 1 item 8)")
+    the V3 radiance of every camera ray.
+
+    skip_direct leaves out the camera vertex's direct light: the emission
+    the camera ray sees, the first vertex's next-event estimate (bounce 0
+    then traces its extension ray alone, closest hit) and the emission its
+    extension ray finds unless that bounce was specular. The Metropolis
+    renderer's chains measure what is left; its separate direct pass adds
+    the rest."""
     geom = scene.geometry
     lt = scene.lights
     r = rays.n
@@ -70,7 +74,7 @@ def li(ig: PathIntegrator, scene: st.CompiledScene, rays, diffs, sctx,
                               sctx["s_idx"])
     sd = lambda d: smp_mod.sample_1d(sampler, px, py, s_idx, d)
     sd2 = lambda d: smp_mod.sample_2d(sampler, px, py, s_idx, d)
-    do_nee = lt is not None and lt.n > 0
+    has_lights = lt is not None and lt.n > 0
     # nothing reads the uv footprint unless the scene has textures
     diffs0 = diffs if scene.textures is not None else None
 
@@ -87,11 +91,18 @@ def li(ig: PathIntegrator, scene: st.CompiledScene, rays, diffs, sctx,
         if lt is not None:
             le_w = common.emitter_hit_mis(scene, cur, hits, it, prev_pdf,
                                           specular_bounce, bounce == 0)
-            L = L + vm.where3(active, throughput * le_w, 0.0)
+            if skip_direct and bounce == 0:
+                gate = torch.zeros_like(active)
+            elif skip_direct and bounce == 1:
+                gate = active & specular_bounce
+            else:
+                gate = active
+            L = L + vm.where3(gate, throughput * le_w, 0.0)
         params = mat_mod.eval_params(scene.materials, it["mat_id"],
                                      scene.textures, it)
         wo = it["wo"]
         # NEE shade half: one light, shadow ray built but not yet traced
+        do_nee = has_lights and not (skip_direct and bounce == 0)
         if do_nee:
             sray, usable, contrib = common.nee_prepare(
                 scene, it, frame, params, wo, sd(dim), sd2(dim + 1),

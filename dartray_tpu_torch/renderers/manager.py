@@ -14,11 +14,15 @@ the reference. The cache-and-gather integrators run their preprocess when
 the job's radiance function is built, on the job's device: ``photonmap`` /
 ``exphotonmap`` shoot their photon maps, ``irradiancecache`` primes its
 cache and ``dipolesubsurface`` spreads surface points and their irradiance.
-The ``surfacepoints`` renderer writes its points to a file and returns a
-black image. A scene with a volume composes the surface radiance with the
+The precomputed-transfer integrators ``diffuseprt`` / ``glossyprt``
+project the incident radiance at the world bound's centre, and
+``useprobes`` loads its probe file (relative to the working directory,
+``lmax`` from the file). The ``surfacepoints`` and ``createprobes``
+renderers write their points or probes to a file and return a black image;
+``metropolis`` runs the MLT renderer (always bidirectional, 8,192 chains,
+seed 0). A scene with a volume composes the surface radiance with the
 volume integrator's over the camera segment (``build_li``: L = T Ls + Lv,
-``emission`` by default or ``single``). The other renderers and integrators
-the reference has raise ``NotImplementedError`` naming their ROADMAP item.
+``emission`` by default or ``single``).
 """
 from __future__ import annotations
 
@@ -45,19 +49,18 @@ from ..integrators import igi as igi_mod
 from ..integrators import irradiance_cache as ic_mod
 from ..integrators import path as pi_mod
 from ..integrators import photonmap as pm_mod
+from ..integrators import prt as prt_mod
 from ..integrators import volume as vi_mod
 from ..integrators import whitted as wh_mod
 from ..scene import paramset as ps_mod
 from ..scene import parser as parser_mod
 from ..scene import resources
 from ..scene import types as st
-from ..scene.api import RenderJob, not_ported
+from ..scene.api import RenderJob
+from . import metropolis as mlt_mod
+from . import probes as probes_mod
 from . import sampler as rend
 from . import surface_points as sp_mod
-
-# what the reference runs and the port does not yet (ROADMAP Queue 1 item 8)
-_NOT_PORTED_INTEGRATORS = ("diffuseprt", "glossyprt", "useprobes")
-_NOT_PORTED_RENDERERS = ("metropolis", "createprobes")
 
 
 def build_surface_li(job: RenderJob, log=print,
@@ -65,7 +68,8 @@ def build_surface_li(job: RenderJob, log=print,
     """The surface integrator of `job` as ``li(scene, rays, diffs, sctx)``;
     unknown names warn and fall back to path. An integrator with a
     preprocess phase (igi's VPLs, the photon maps, the irradiance cache,
-    the dipole's surface points) runs it here, on `device`."""
+    the dipole's surface points, the PRT integrators' incident radiance)
+    runs it here, on `device`."""
     name = job.surf_integrator
     p = job.surf_params
     if name == "ambientocclusion":
@@ -106,13 +110,65 @@ def build_surface_li(job: RenderJob, log=print,
         return lambda s, r, d, c: dp_mod.li(ig, s, r, d, c, ip,
                                             sigma_prime_s=sps, sigma_a=sa,
                                             sss_mask=sss_mask)
-    if name in _NOT_PORTED_INTEGRATORS:
-        raise not_ported(f"surface integrator {name!r}",
-                          "item 8, the other integrators")
+    if name in ("diffuseprt", "glossyprt"):
+        ig = prt_integrator(name, p)
+        c_in = prt_mod.project_incident_radiance(
+            job.scene, scene_center(job.scene), ig.lmax, ig.n_samples,
+            device=device)
+        li = prt_mod.diffuse_li if name == "diffuseprt" else prt_mod.glossy_li
+        return lambda s, r, d, c: li(ig, s, r, d, c, c_in)
+    if name == "useprobes":
+        probes = probes_mod.load(p.find_one_string("filename", "probes.npz"),
+                                 device=device)
+        # T = (lmax + 1)^2 coefficients a probe: lmax comes from the file
+        ig = prt_mod.UseProbesIntegrator(
+            lmax=int(np.sqrt(probes.coeffs.shape[1])) - 1)
+        return lambda s, r, d, c: prt_mod.probes_li(ig, s, r, d, c, probes)
     if name != "path":
         log(f"warning: unknown surface integrator {name!r}; using path")
     ig = pi_mod.PathIntegrator(max_depth=p.find_one_int("maxdepth", 5))
     return lambda s, r, d, c: pi_mod.li(ig, s, r, d, c)
+
+
+def prt_integrator(name, p):
+    """The ``diffuseprt`` or ``glossyprt`` integrator a ParamSet asks
+    for."""
+    cls = (prt_mod.DiffusePRTIntegrator if name == "diffuseprt"
+           else prt_mod.GlossyPRTIntegrator)
+    return cls(lmax=p.find_one_int("lmax", 4),
+               n_samples=p.find_one_int("nsamples", 4096))
+
+
+def scene_center(scene):
+    """The centre of the scene's world bound (host float32 (3,))."""
+    wb = scene.geometry.world_bound
+    wb = wb.cpu().numpy() if torch.is_tensor(wb) else np.asarray(wb)
+    return 0.5 * (wb[0] + wb[1])
+
+
+def metropolis_options(rp) -> dict:
+    """The keyword arguments of ``metropolis.render`` a ``Renderer
+    "metropolis"`` ParamSet gives: no chain count, seed or
+    ``bidirectional`` (the defaults: 8,192 chains, seed 0,
+    bidirectional)."""
+    return dict(
+        spp=rp.find_one_int("samplesperpixel", 100),
+        n_bootstrap=rp.find_one_int("bootstrapsamples", 4096),
+        large_step_prob=rp.find_one_float("largestepprobability", 0.25),
+        max_depth=rp.find_one_int("maxdepth", 7),
+        max_consecutive_rejects=rp.find_one_int("maxconsecutiverejects",
+                                                512),
+        do_direct_separately=rp.find_one_bool("dodirectseparately", True))
+
+
+def createprobes_options(rp) -> tuple:
+    """What a ``Renderer "createprobes"`` ParamSet gives: the keyword
+    arguments of ``probes.render`` (lmax, n_samples; the 4 x 4 x 4 grid
+    over the world bound, seed 11, chunks of 4 always) and the file
+    name."""
+    return dict(lmax=rp.find_one_int("lmax", 4),
+                n_samples=rp.find_one_int("indirectsamples", 512)), \
+        rp.find_one_string("filename", "probes.npz")
 
 
 def igi_integrator(p) -> igi_mod.IGIIntegrator:
@@ -216,8 +272,17 @@ def run(job: RenderJob, progress: Optional[Callable] = None, log=print,
     dev = device_mod.resolve(device)
     rp = job.renderer_params
     rname = job.renderer
-    if rname in _NOT_PORTED_RENDERERS:
-        raise not_ported(f"renderer {rname!r}", "item 8")
+    if rname == "metropolis":
+        return mlt_mod.render(job.scene, job.camera, job.width, job.height,
+                              progress=progress, device=dev,
+                              **metropolis_options(rp))
+    if rname == "createprobes":
+        opts, fname = createprobes_options(rp)
+        pr = probes_mod.render(job.scene, build_li(job, log=log, device=dev),
+                               device=dev, **opts)
+        probes_mod.save(fname, pr)
+        log(f"createprobes: wrote {fname}")
+        return np.zeros((job.height, job.width, 3), np.float32)
     if rname == "surfacepoints":
         sp = sp_mod.render(
             job.scene,

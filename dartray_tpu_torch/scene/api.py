@@ -9,9 +9,7 @@ the port's own ``SceneBuilder`` plus the camera, sampler, film and
 integrator configuration.
 
 Unknown names warn and fall back exactly as in the reference (matte, the
-perspective camera, the lowdiscrepancy sampler). A kind the reference knows
-and the port does not yet have raises ``NotImplementedError`` naming its
-ROADMAP item, in the module that would build it (``renderers/manager``).
+perspective camera, the lowdiscrepancy sampler).
 
 A ``subsurface`` or ``kdsubsurface`` material is a plastic coat (kd 0,
 ks 1) whose medium, (sigma'_s * scale, sigma_a * scale, index), travels
@@ -45,12 +43,6 @@ ALL_TRANSFORMS_BITS = 3
 
 _SAMPLERS = ("lowdiscrepancy", "02sequence", "stratified", "random",
              "halton", "bestcandidate")
-
-
-def not_ported(what, item):
-    """The error of a kind the reference has and the port does not yet."""
-    return NotImplementedError(f"{what} is not ported (ROADMAP Queue 1 "
-                               f"{item})")
 
 
 def _np4(t: tr.Transform) -> np.ndarray:

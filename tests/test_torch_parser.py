@@ -8,6 +8,7 @@ bit (``torchhelp.same_bits``, leaf by leaf); the spectral conversions to
 rtol 1e-6. Nothing here renders.
 """
 import bz2
+import dataclasses
 import collections
 import gzip
 import io
@@ -370,25 +371,94 @@ def test_unknown_names_warn_and_fall_back_as_the_reference():
     assert port.sampler.spp == int(ref.sampler.spp)
 
 
-NOT_PORTED = {
-    name: ('SurfaceIntegrator "%s"\n' % name + _scene(QUAD), "item 8")
-    for name in ("diffuseprt", "glossyprt", "useprobes")
+# the precomputed-transfer integrators and the createprobes and metropolis
+# renderers, with every option they read set away from its default
+PRT_MLT_KINDS = {
+    "diffuseprt": 'SurfaceIntegrator "diffuseprt" "integer lmax" [2] '
+                  '"integer nsamples" [8]\n',
+    "glossyprt": 'SurfaceIntegrator "glossyprt" "integer lmax" [3] '
+                 '"integer nsamples" [4]\n',
+    "useprobes": 'SurfaceIntegrator "useprobes" "string filename" '
+                 '["p.npz"]\n',
+    "createprobes": 'Renderer "createprobes" "integer lmax" [1] '
+                    '"integer indirectsamples" [2] "string filename" '
+                    '["q.npz"]\n',
+    "metropolis": 'Renderer "metropolis" "integer samplesperpixel" [3] '
+                  '"integer bootstrapsamples" [16] "float '
+                  'largestepprobability" [0.5] "integer maxdepth" [2] '
+                  '"integer maxconsecutiverejects" [9] "bool '
+                  'dodirectseparately" ["false"]\n',
 }
 
 
-@pytest.mark.parametrize("case", sorted(NOT_PORTED))
-def test_known_but_unported_kinds_raise_naming_their_item(case):
-    """A kind the reference builds and the port does not yet raises
-    NotImplementedError naming its ROADMAP Queue 1 item, when the scene is
-    parsed or, for a surface integrator, when the job builds it; never a
-    stand-in."""
-    text, item = NOT_PORTED[case]
-    if text == "file":
-        text = _read(case)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        job = parser.parse(text, resolver=resources.Resolver([SCENES]),
-                           log=QUIET, device="cpu")
-        manager.build_surface_li(job, log=QUIET)
+@pytest.mark.parametrize("case", sorted(PRT_MLT_KINDS))
+def test_prt_and_metropolis_kinds_build_as_the_reference(case, monkeypatch,
+                                                          tmp_path):
+    """Each precomputed-transfer integrator and the createprobes and
+    metropolis renderers parse to the reference's job and build through
+    build_surface_li / run with what the reference's build: the same
+    integrator (and preprocess point, lmax and sample count, or probe
+    grid), the same keyword arguments to probes.render / metropolis.render
+    and the same file name."""
+    from dartray_tpu.integrators import prt as ref_prt
+    from dartray_tpu.renderers import metropolis as ref_mlt
+    from dartray_tpu.renderers import probes as ref_probes
+    from dartray_tpu_torch.integrators import prt
+    from dartray_tpu_torch.renderers import metropolis as mlt
+    from dartray_tpu_torch.renderers import probes
+    monkeypatch.chdir(tmp_path)
+    text = PRT_MLT_KINDS[case] + _scene(QUAD)
+    port = parser.parse(text, log=QUIET, device="cpu")
+    ref = ref_parser.parse(text, log=QUIET)
+    _assert_same_leaves(port.scene, th.np_tree(ref.scene))
+    assert (port.surf_integrator, port.renderer) == (ref.surf_integrator,
+                                                     ref.renderer)
+    if case == "useprobes":
+        coeffs = np.random.RandomState(0).rand(12, 9, 3).astype(np.float32)
+        probes.save("p.npz", prt.SHProbes(coeffs=coeffs, bbox_lo=np.zeros(3),
+                                          bbox_hi=np.ones(3), lmax=2,
+                                          res=(2, 3, 2)))
+    seen = ({}, {})
+    for i, (pm, mm, rm, man) in enumerate(((prt, mlt, probes, manager), (
+            ref_prt, ref_mlt, ref_probes, ref_manager))):
+        rec = seen[i]
+
+        def project(scene, p, lmax, n_samples, rec=rec, **k):
+            rec["project"] = (np.asarray(p).tolist(), lmax, n_samples)
+            return None
+
+        def li_spy(name, rec=rec):
+            return lambda ig, *a: rec.__setitem__(name, ig)
+
+        monkeypatch.setattr(pm, "project_incident_radiance", project)
+        for name in ("diffuse_li", "glossy_li", "probes_li"):
+            monkeypatch.setattr(pm, name, li_spy(name))
+        monkeypatch.setattr(rm, "render", lambda scene, li, rec=rec, **k: (
+            rec.__setitem__("probes", {x: v for x, v in k.items()
+                                       if x != "device"}), "baked")[1])
+        monkeypatch.setattr(rm, "save", lambda f, pr, rec=rec: (
+            rec.__setitem__("file", (f, pr))))
+        monkeypatch.setattr(mm, "render", lambda *a, rec=rec, **k: (
+            rec.__setitem__("mlt", (a[2:], {x: v for x, v in k.items()
+                                            if x not in ("device",
+                                                         "progress")})),
+            np.zeros((8, 8, 3), np.float32))[1])
+    for i, (man, job) in enumerate(((manager, port), (ref_manager, ref))):
+        if port.renderer == "sampler":
+            kw = {"device": "cpu"} if i == 0 else {}
+            man.build_surface_li(job, log=QUIET, **kw)(None, None, None,
+                                                       None)
+        else:
+            kw = {"device": "cpu"} if i == 0 else {}
+            img = man.run(job, log=QUIET, **kw)
+            assert np.asarray(img).shape == (8, 8, 3) and not np.any(img)
+    got, want = seen
+    assert set(got) == set(want) and got, (got, want)
+    for k in got:
+        if k in ("diffuse_li", "glossy_li", "probes_li"):
+            assert dataclasses.asdict(got[k]) == dataclasses.asdict(want[k])
+        else:
+            assert got[k] == want[k], k
 
 
 # kinds that raised before the material system, the alpha cut-outs, the

@@ -242,6 +242,9 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "dartray_tpu" or m.startswith("dartray_tpu."))
 assert len(names) >= 30, names
+for m in ("core.prng", "core.sh", "integrators.prt", "integrators.bdpt",
+          "renderers.probes", "renderers.metropolis"):
+    assert "dartray_tpu_torch." + m in names, m
 assert not bad, bad
 assert "triton" not in sys.modules
 print("imported", len(names))
