@@ -8,8 +8,11 @@ Run from the repository root with no arguments:
 It needs one CUDA device, `nvcc` (the seven traversal kernel libraries are
 built from `dartray_tpu_torch/csrc/*.cu` at first use, all `nvcc` runs started
 together) and no network. It imports only the port and its bench
-(`bench_torch.py`). Phases, each printing one JSON line; any failure raises
-and the script exits non-zero:
+(`bench_torch.py`). Phases, each printing one JSON line with the script's
+wall clock at its end (at_s) and the seconds of its parts by kind (parts_s:
+golden renders, driven waves, waves in turns, card and CPU windows, profiled
+waves, the plain versions' checks and timing); any failure raises and the
+script exits non-zero:
 
   env          device name; name and power limit as nvidia-smi reports them
   build        builds and loads every kernel library; seconds and the
@@ -53,7 +56,7 @@ and the script exits non-zero:
                DEFAULT_KERNEL as it is and then with every kind of wave
                routed to v1, v2, v3 and v4: each image against the v6 image
   direct_path  the direct-lighting integrator at full width: the bench scene,
-               512x512, strategy ALL, depth 5, 64 spp: 18 launches a wave
+               512x512, strategy ALL, depth 5, 16 spp: 18 launches a wave
                (6 levels of closest, any, closest), all of the v6 kernel; the
                path image's mean must exceed this image's
   attic_path   a few waves of the same render for each of v1-v4 set in
@@ -86,7 +89,7 @@ and the script exits non-zero:
                launches a wave (depth 3) and no other kernel; (b) the bench
                scene at full width with its displaced sphere split into 8
                material bands and a checkerboard floor under a planar
-               mapping, written as .pbrt and run through manager.run: 64
+               mapping, written as .pbrt and run through manager.run: 16
                waves of exactly 7 v6 launches and no other kernel, a finite
                image, render seconds and rays/s beside main_path's; (c) a
                32x32 window of (b) about the sphere's pole, where every band
@@ -107,10 +110,10 @@ and the script exits non-zero:
                kernel, the adaptive renderer's refined pixels equal; a
                render stopped after wave 2 and resumed from its checkpoint
                equal to the uninterrupted one bit for bit; (b1) the bench
-               scene through render with stratified 8x8 and mitchell (a 5x5
+               scene through render with stratified 4x4 and mitchell (a 5x5
                footprint on every sample), (b2) its .pbrt text with the
                environment camera, halton, gaussian in the sampled mode
-               through render_pbrt: 64 waves of 7 v6 launches and no other
+               through render_pbrt: 16 waves of 7 v6 launches and no other
                kernel, render seconds, rays/s beside main_path's, device
                kernels a wave; (c) 32x32 windows of (b1) and (b2) at the
                image's corner, first 2 waves, card vs CPU
@@ -122,21 +125,21 @@ and the script exits non-zero:
                the camera wave and of sorted incoherent rays equal to v6's
                (rays hit outside their triangle's own box counted apart), the
                camera query's host torch operations against its DDA steps /
-               nodes, 2 path waves (ms a wave, steps a query, image against
+               nodes, 1 path wave (ms a wave, steps a query, image against
                v6's); (c) a 32x32 window about the displaced sphere, 1 wave,
                card vs CPU
   volume_path  participating media: (a) scenes/smoke.pbrt and both variants
                of scenes/volumes.pbrt against tools/volume_golden.npz, a
                wave's launches the surface integrator's + 1 closest (+ 32
                any under single scattering); (b) the bench scene in a
-               seeded 32^3 volumegrid with single scattering: 8 waves of 40
+               seeded 32^3 volumegrid with single scattering: 4 waves of 40
                launches (2 closest, 5 mixed, 33 any) and no other kernel,
                rays/s and device kernels a wave beside main_path's, wave ms
                in turns; (c) a window, card vs CPU
   igi_path     the IGI integrator: (a) scenes/igi-env.pbrt and its VPL set
                against tools/volume_golden.npz (3 closest launches to shoot,
                then 2 closest + 49 any a wave); (b) the bench scene through
-               igi's defaults: 4 waves of 2 closest + 321 any launches, wave
+               igi's defaults: 2 waves of 2 closest + 321 any launches, wave
                ms in turns; (c) a window, 1 wave, card vs CPU, and the VPL
                sets shot on each
   cache_path   the photon map, irradiance cache and dipole integrators:
@@ -170,6 +173,18 @@ and the script exits non-zero:
                step, mutations/s, b, acceptance, the direct pass; (c)
                path_l at depth 7 on 1,024 lanes of the bench scene, card
                vs CPU
+  mesh_path    band-sharded rendering (parallel/mesh.py): (a) the one-process
+               4 x 2 mesh of tools/mesh_golden.npz's two configurations
+               against the reference's sharded images (rtol 2e-3 / atol
+               2e-4), launches exact, the share of bit-equal pixels; (b) 4
+               ranks spawned on the one card over gloo render the bench scene
+               at 512x512, depth 5: 4 x 1, box, 16 spp equal to render's
+               image bit for bit, each rank launching exactly 16 closest, 80
+               mixed, 16 any and no other kernel; 2 x 2, gaussian, 8 spp
+               within tolerance of render's; spawn and set-up seconds apart
+               from render seconds, rays/s beside main_path's, each rank's
+               backend and device; (c) the NCCL branch is not exercised (one
+               card)
   grad_small   the gradient of the Cornell render's mean w.r.t. materials.kd
                and lights.intensity (32x32, 4 spp, depth 3): card against
                CPU (plain traversal) within 2e-3 of the largest element,
@@ -193,7 +208,10 @@ registers and spill bytes ptxas gave its kernel function), the nvidia-smi
 line again, and as the last line
 {"ok": true, "device": {...}}.
 """
+import collections
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -228,6 +246,7 @@ from dartray_tpu_torch.integrators import prt as prt_mod
 from dartray_tpu_torch.integrators import whitted as wh
 from dartray_tpu_torch.io import image as io_img
 from dartray_tpu_torch.ops import traverse_cuda as tc
+from dartray_tpu_torch.parallel import mesh as pm
 from dartray_tpu_torch.renderers import manager
 from dartray_tpu_torch.renderers import metropolis as mlt_mod
 from dartray_tpu_torch.renderers import sampler as rend
@@ -246,6 +265,10 @@ REFERENCE_IMG_MEAN = bench_torch.REFERENCE_IMG_MEAN
 REFERENCE_GRAD_NORM = bench_torch.REFERENCE_GRAD_NORM
 WIDTH = HEIGHT = 512
 SPP = 64
+DRIVEN_SPP = 16            # waves of the full-width renders after the main
+                           # path (motion, direct lighting, materials, alpha
+                           # and environment, samplers): launches are held a
+                           # wave, so fewer waves keep every gate
 MAX_DEPTH = 5
 SMALL = 32                 # the Cornell renders: SMALL x SMALL pixels,
 SMALL_SPP = 4              # SMALL_SPP samples (one wave each), depth 3
@@ -303,8 +326,38 @@ def require(ok, what):
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+# seconds by kind of part (golden renders, driven waves, waves in turns,
+# card and CPU windows, profiled waves) since the last phase line
+PART_SECONDS = collections.Counter()
+
+
+@contextlib.contextmanager
+def part(kind):
+    t0 = time.time()
+    try:
+        yield
+    finally:
+        PART_SECONDS[kind] += time.time() - t0
+
+
+def timed_part(kind):
+    """Decorator: every call of the function counts as a part `kind`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*a, **k):
+            with part(kind):
+                return fn(*a, **k)
+        return inner
+    return wrap
+
+
 def say(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line for `phase`; at_s: the script's wall time at the end of
+    the phase, so that differences give each phase's seconds; parts_s: the
+    seconds of its parts, by kind."""
+    print(json.dumps({"phase": phase, **kw, "parts_s": dict(PART_SECONDS),
+                      "at_s": time.time() - T_START}), flush=True)
+    PART_SECONDS.clear()
 
 
 def nvidia_smi_line():
@@ -448,13 +501,15 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
                 if v != before[k]}
     require(launched == {f"{kern}:{mode}": 1},
             f"{name}: the wrapper counted {launched}")
-    t_p, p_p, *cnt_p = run_p(stats)
+    with part("plain_checks"):
+        t_p, p_p, *cnt_p = run_p(stats)
     extra = {}
     require(torch.equal(t_k, t_p) and torch.equal(p_k, p_p),
             f"{name}: raw (t, prim) differs from the plain version's")
     if kern in ("traverse5", "traverse7"):
         cnt_k = [fn(*args, **kw, counters=True)[2]]
-        cnt_p = [plain(*args, **kw, counters=True)[2]]
+        with part("plain_checks"):
+            cnt_p = [plain(*args, **kw, counters=True)[2]]
     if cnt_k:
         require(torch.equal(cnt_k[0], cnt_p[0]),
                 f"{name}: counters differ from the plain version's")
@@ -489,9 +544,10 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
     # beside it, the device's time a launch with 20 queued back to back
     ms_queued = time_ms(lambda: [run_k() for _ in range(20)], repeats=3,
                         warmup=1) / 20
-    # the packet walks' plain versions take seconds: fewer repeats
-    plain_ms = time_ms(run_p, warmup=0, repeats=5 if kern.startswith(
-        "traverse6") else (1 if kern in ATTIC else 3))
+    # the packet walks' plain versions take seconds: one run
+    with part("plain_timing"):
+        plain_ms = time_ms(run_p, warmup=0, repeats=3 if kern.startswith(
+            "traverse6") else 1)
     # the floor: every ray plane read once, (t, prim) written once. What the
     # walk fetches from the tables through L1/L2 depends on the rays and is
     # NOT in the bound; table_bytes (their whole size) is printed beside it
@@ -747,6 +803,7 @@ def alt_kernels_phase(dev, v6_img):
     say("alt_kernels", **out)
 
 
+@timed_part("driven_waves")
 def drive_waves(phase, scene, dev, li, waves, want, snapshot_at=None):
     """`waves` waves of the integrator `li` over `scene` through
     render_wave, every count set to 0 just before and read just after;
@@ -796,36 +853,46 @@ def drive_waves(phase, scene, dev, li, waves, want, snapshot_at=None):
     return launches, img, info, snap
 
 
-def drive_path(phase, scene, dev, kern, camera_kern=None, waves=None):
+def drive_path(phase, scene, dev, kern, camera_kern=None, waves=None,
+               snapshot_at=None):
     """`waves` waves (default: all 64) of the path integrator over `scene`;
     requires 7 launches of `kern` per wave and of no other kernel, or, with
-    `camera_kern`, 1 closest-hit launch of that and the other 6 of `kern`."""
+    `camera_kern`, 1 closest-hit launch of that and the other 6 of `kern`.
+    snapshot_at: also put the image after that many waves in info["snap"]."""
     ig = pi.PathIntegrator(max_depth=MAX_DEPTH)
-    launches, img, info, _ = drive_waves(
+    launches, img, info, snap = drive_waves(
         phase, scene, dev, lambda s, r, d, c: pi.li(ig, s, r, d, c),
         waves or SPP, {f"{camera_kern or kern}:closest": 1,
-                       f"{kern}:mixed": MAX_DEPTH, f"{kern}:any": 1})
+                       f"{kern}:mixed": MAX_DEPTH, f"{kern}:any": 1},
+        snapshot_at=snapshot_at)
     # as the reference's benchmark counts them: two rays a lane and level
     info["rays_per_s"] = (WIDTH * HEIGHT * 2 * (MAX_DEPTH + 1) * info["waves"]
                           / info["seconds"])
+    if snapshot_at is not None:
+        info["snap"] = snap
     return launches, img, info
 
 
 def main_path_phase(scene, dev):
-    launches, img, info = drive_path("main_path", scene, dev, "traverse6")
+    """Returns the launches, the image, the image after DRIVEN_SPP waves
+    and rays/s."""
+    launches, img, info = drive_path("main_path", scene, dev, "traverse6",
+                                     snapshot_at=DRIVEN_SPP)
+    snap = info.pop("snap")
     say("main_path", reference_img_mean=REFERENCE_IMG_MEAN, **info)
     require(abs(info["img_mean"] - REFERENCE_IMG_MEAN)
             <= 0.01 * REFERENCE_IMG_MEAN,
             f"main path: image mean {info['img_mean']} is not within 1 % of "
             f"{REFERENCE_IMG_MEAN}")
-    return launches, img, info["rays_per_s"]
+    return launches, img, snap, info["rays_per_s"]
 
 
 def motion_path_phase(moving, dev, static_img):
-    """This slice's path at full width: the moving bench scene. No reference
-    mean is stated: the JAX package has none for this scene."""
+    """This slice's path at full width: the moving bench scene, DRIVEN_SPP
+    waves, against the static scene's image after as many waves. No
+    reference mean is stated: the JAX package has none for this scene."""
     launches, img, info = drive_path("motion_path", moving, dev,
-                                     "traverse6_motion")
+                                     "traverse6_motion", waves=DRIVEN_SPP)
     differs = float((~np.isclose(img, static_img, rtol=1e-3, atol=1e-4)
                      .all(-1)).mean())
     say("motion_path", static_img_mean=float(static_img.mean()),
@@ -979,7 +1046,7 @@ def direct_path_phase(scene, dev, path_img):
     states no mean for this image; what is held is its own relation, that
     the path image (indirect light added) is brighter."""
     launches, img, info, first = drive_waves(
-        "direct_path", scene, dev, direct_li(), SPP,
+        "direct_path", scene, dev, direct_li(), DRIVEN_SPP,
         {"traverse6:closest": 2 * (MAX_DEPTH + 1),
          "traverse6:any": MAX_DEPTH + 1}, snapshot_at=ATTIC_WAVES)
     say("direct_path", path_img_mean=float(path_img.mean()), **info)
@@ -1075,15 +1142,15 @@ def trianglemesh(m, faces):
     return shape
 
 
-def bench_scene_pbrt(path):
+def bench_scene_pbrt(path, spp=SPP):
     """Write ``sb.bench_scene()`` as a .pbrt file: the camera of
-    ``camera_wave``, 512x512, lowdiscrepancy 64 spp, path depth 5, and every
+    ``camera_wave``, 512x512, lowdiscrepancy `spp`, path depth 5, and every
     mesh, in the SceneBuilder's order, as a world-space trianglemesh with its
     material (and area light) in an attribute block."""
     b = sb.bench_scene()
     out = [f'Film "image" "integer xresolution" [{WIDTH}] '
            f'"integer yresolution" [{HEIGHT}]',
-           f'Sampler "lowdiscrepancy" "integer pixelsamples" [{SPP}]',
+           f'Sampler "lowdiscrepancy" "integer pixelsamples" [{spp}]',
            f'SurfaceIntegrator "path" "integer maxdepth" [{MAX_DEPTH}]',
            "LookAt 0 2.2 -5  0 0.9 0  0 1 0",
            'Camera "perspective" "float fov" [42]', "WorldBegin"]
@@ -1114,9 +1181,9 @@ def same_leaves(a, b, path=""):
     return [] if a == b else [path]
 
 
-def path_launches(waves):
-    """The v6 launches of `waves` path waves at depth MAX_DEPTH."""
-    return {"traverse6:closest": waves, "traverse6:mixed": MAX_DEPTH * waves,
+def path_launches(waves, depth=MAX_DEPTH):
+    """The v6 launches of `waves` path waves at `depth`."""
+    return {"traverse6:closest": waves, "traverse6:mixed": depth * waves,
             "traverse6:any": waves}
 
 
@@ -1303,7 +1370,7 @@ def materials_bench_pbrt(path):
     b = sb.bench_scene()
     out = [f'Film "image" "integer xresolution" [{WIDTH}] '
            f'"integer yresolution" [{HEIGHT}]',
-           f'Sampler "lowdiscrepancy" "integer pixelsamples" [{SPP}]',
+           f'Sampler "lowdiscrepancy" "integer pixelsamples" [{DRIVEN_SPP}]',
            f'SurfaceIntegrator "path" "integer maxdepth" [{MAX_DEPTH}]',
            "LookAt 0 2.2 -5  0 0.9 0  0 1 0",
            'Camera "perspective" "float fov" [42]', "WorldBegin",
@@ -1334,6 +1401,11 @@ def window_render(job, where, x0, y0, waves=WINDOW_WAVES, li=None):
     same samples as the whole render's first waves); returns the window's
     pixels. `li`: the radiance function (default: the job's, built on
     `where`)."""
+    with part(f"window_{'cpu' if str(where) == 'cpu' else 'card'}"):
+        return _window_render(job, where, x0, y0, waves, li)
+
+
+def _window_render(job, where, x0, y0, waves, li):
     scene = st.to_device(job.scene, where)
     if li is None:
         li = manager.build_li(job, log=QUIET, device=where)
@@ -1368,10 +1440,10 @@ def materials_path_phase(dev, main_rays_per_s):
     ``render_pbrt`` of scenes/materials.pbrt against the JAX reference's
     render of it (tools/materials_golden.npz) by ``compare_images``: 5 v6
     launches a wave (depth 3) and no other kernel. (b) The bench scene at
-    full width (103,956 triangles, 512x512, 64 spp, depth 5) with its
-    displaced sphere split into 8 material bands, a checkerboard floor under
-    a planar mapping, through ``manager.run``: 7 v6 launches a wave, 448 in
-    all, and no other kernel, a finite image; render seconds and rays/s
+    full width (103,956 triangles, 512x512, DRIVEN_SPP spp, depth 5) with
+    its displaced sphere split into 8 material bands, a checkerboard floor
+    under a planar mapping, through ``manager.run``: 7 v6 launches a wave
+    and no other kernel, a finite image; render seconds and rays/s
     beside main_path's. (c) A WINDOW x WINDOW window of (b) about the
     sphere's pole, where all 8 bands meet (every band's material is hit),
     the first WINDOW_WAVES waves on the card against the same waves on the
@@ -1420,20 +1492,20 @@ def materials_path_phase(dev, main_rays_per_s):
     torch.cuda.synchronize()
     render_s = time.time() - t0
     launches = counted_launches()
-    require(launches == path_launches(SPP),
+    require(launches == path_launches(DRIVEN_SPP),
             f"materials bench: kernel launches {launches}")
     require(int(tc.overflow_flag(dev).item()) == 0,
             "materials bench: stack overflow in the kernel")
     require(img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(img).all()
             and img.mean() > 0, "materials bench: image not finite")
-    rays = WIDTH * HEIGHT * 2 * (MAX_DEPTH + 1) * SPP
+    rays = WIDTH * HEIGHT * 2 * (MAX_DEPTH + 1) * DRIVEN_SPP
     out["bench"] = {
         "file_bytes": os.path.getsize(path), "write_s": write_s,
         "parse_s": parse_s, "render_s": render_s,
         "stats_timings": stats.timings, "rays_per_s": rays / render_s,
         "main_path_rays_per_s": main_rays_per_s,
-        "launches": launches, "launches_per_wave": {
-            k: v / SPP for k, v in launches.items()},
+        "waves": DRIVEN_SPP, "launches": launches, "launches_per_wave": {
+            k: v / DRIVEN_SPP for k, v in launches.items()},
         "img_mean": float(img.mean()), "band_tris": band_tris,
         "tris": job.scene.geometry.n_prims, "materials": mats.n,
         "textures": job.scene.textures.n,
@@ -1502,7 +1574,7 @@ def alpha_env_bench_pbrt(path):
     floor under a 16 x 16 checkerboard alpha mask (its trianglemesh gains
     uv coordinates and the mask), so that half its cells are cut. Every
     other line is the writer's, byte for byte."""
-    b = bench_scene_pbrt(path)
+    b = bench_scene_pbrt(path, DRIVEN_SPP)
     floor = b.meshes[2]
     require(floor.n_faces == 2 and b.mesh_area_light[2] is None,
             "alpha bench: the bench scene's third mesh is not the floor")
@@ -1618,7 +1690,7 @@ def alpha_env_path_phase(dev, main_rays_per_s):
     parse_s = time.time() - t0
     g, lt = job.scene.geometry, job.scene.lights
     require(g.n_prims == 103956 and g.has_alpha and lt.env_light_index >= 0
-            and job.sampler.spp == SPP,
+            and job.sampler.spp == DRIVEN_SPP,
             "alpha bench: the scene did not compile as written")
     stats = stats_mod.RenderStats()
     tc.reset_overflow(dev)
@@ -1628,7 +1700,7 @@ def alpha_env_path_phase(dev, main_rays_per_s):
     torch.cuda.synchronize()
     render_s = time.time() - t0
     launches = counted_launches()
-    want = {k: v * SPP for k, v in ALPHA_WAVE_LAUNCHES.items()}
+    want = {k: v * DRIVEN_SPP for k, v in ALPHA_WAVE_LAUNCHES.items()}
     require(launches == want, f"alpha bench: kernel launches {launches}, "
             f"expected {want}")
     require(int(tc.overflow_flag(dev).item()) == 0,
@@ -1637,16 +1709,18 @@ def alpha_env_path_phase(dev, main_rays_per_s):
             and img.mean() > 0, "alpha bench: image not finite")
     lanes = WIDTH * HEIGHT
     queries = stats.counters["rays/traversal_queries"]
-    require(queries == lanes * ALPHA_WAVE_QUERIES * SPP,
+    require(queries == lanes * ALPHA_WAVE_QUERIES * DRIVEN_SPP,
             f"alpha bench: {queries} traversal queries counted")
-    rays = lanes * 2 * (MAX_DEPTH + 1) * SPP
+    rays = lanes * 2 * (MAX_DEPTH + 1) * DRIVEN_SPP
     out["bench"] = {
         "file_bytes": os.path.getsize(path), "parse_s": parse_s,
-        "waves": SPP, "render_s": render_s, "rays_per_s": rays / render_s,
+        "waves": DRIVEN_SPP, "render_s": render_s,
+        "rays_per_s": rays / render_s,
         "main_path_rays_per_s": main_rays_per_s,
         "rays_per_s_over_main_path": rays / render_s / main_rays_per_s,
         "stats_timings": stats.timings, "launches": launches,
-        "launches_per_wave": {k: v / SPP for k, v in launches.items()},
+        "launches_per_wave": {k: v / DRIVEN_SPP
+                              for k, v in launches.items()},
         "rays/traversal_queries": queries, "img_mean": float(img.mean()),
         "tris": g.n_prims, "env_map": list(lt.env_map.shape),
         "peak_mem_bytes": torch.cuda.max_memory_allocated()}
@@ -1680,18 +1754,22 @@ SAMPLING_DEPTH = 3            # scenes/sampling.pbrt's path depth
 SAMPLING_WAVES = {"v4": 32, "v5": 8}      # the others: 4 waves
 
 
+@timed_part("profiled_waves")
 def device_kernels_a_wave(wave):
     """Device kernels one call of `wave` runs, from a torch.profiler trace
     (an entry with device time and no host time lies on the card's
-    timeline)."""
+    timeline). The trace records the card's activity alone: host operator
+    events add nothing to the count, and building them took 41 s of
+    sampling_path and 68 s of volume_path on an H100's host."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wave()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.cpu_time_total == 0 and e.self_device_time_total > 0)
+    n = sum(e.count for e in prof.key_averages()
+            if e.cpu_time_total == 0 and e.self_device_time_total > 0)
+    require(n > 0, "device_kernels_a_wave: the trace holds no device kernel")
+    return n
 
 
 def profiled_wave(job, dev, s):
@@ -1714,7 +1792,7 @@ def profiled_wave(job, dev, s):
     return wave
 
 
-def wave_ms(wave, waves=4):
+def wave_ms(wave, waves=2):
     """Host-clock ms a call of `wave` takes, after one warm-up call, over
     `waves` calls ended by a synchronize."""
     wave()
@@ -1728,13 +1806,14 @@ def wave_ms(wave, waves=4):
 
 def sampling_bench_b2(path):
     """The bench scene's .pbrt text with the environment camera (from the
-    bench camera's eye), halton at SPP and the gaussian filter."""
-    bench_scene_pbrt(path)
+    bench camera's eye), halton at DRIVEN_SPP and the gaussian filter."""
+    bench_scene_pbrt(path, DRIVEN_SPP)
     with open(path) as f:
         text = f.read()
     for old, new in (
-            (f'Sampler "lowdiscrepancy" "integer pixelsamples" [{SPP}]',
-             f'Sampler "halton" "integer pixelsamples" [{SPP}]\n'
+            (f'Sampler "lowdiscrepancy" "integer pixelsamples" '
+             f'[{DRIVEN_SPP}]',
+             f'Sampler "halton" "integer pixelsamples" [{DRIVEN_SPP}]\n'
              'PixelFilter "gaussian"'),
             ('Camera "perspective" "float fov" [42]',
              'Camera "environment"')):
@@ -1754,7 +1833,7 @@ def sampling_path_phase(dev, main_rays_per_s):
     no other kernel, the adaptive renderer's refinement waves included, its
     refined pixels equal to the reference's; V1 stopped after wave 2 and
     resumed from its checkpoint equals the uninterrupted render bit for
-    bit. (b1) The bench scene through ``render`` with stratified 8x8 and
+    bit. (b1) The bench scene through ``render`` with stratified 4x4 and
     mitchell, (b2) its .pbrt text with the environment camera, halton and
     gaussian in the sampled mode through ``render_pbrt``: every lane live,
     7 v6 launches a wave and no other kernel, a finite image; render
@@ -1763,7 +1842,8 @@ def sampling_path_phase(dev, main_rays_per_s):
     (main, b1, b2, b2, b1, main). (c) A WINDOW x WINDOW window of each at
     the image's lower left corner (footprints cross the edge), first
     WINDOW_WAVES waves, card against CPU by ``compare_images``. The spectrum mode is "rgb" again
-    after each sampled render."""
+    after each sampled render. Returns the main path's device kernels a
+    wave."""
     os.makedirs(PBRT_DIR, exist_ok=True)
     golden = np.load(sampling_golden.GOLDEN)
     out = {}
@@ -1836,7 +1916,7 @@ def sampling_path_phase(dev, main_rays_per_s):
     # the main path's wave, for the device kernels a wave
     main_job = bench_job(dev)
     main_kernels = device_kernels_a_wave(profiled_wave(main_job, dev, 1))
-    rays = WIDTH * HEIGHT * 2 * (MAX_DEPTH + 1) * SPP
+    rays = WIDTH * HEIGHT * 2 * (MAX_DEPTH + 1) * DRIVEN_SPP
 
     def drive(what, run):
         tc.reset_overflow(dev)
@@ -1846,7 +1926,7 @@ def sampling_path_phase(dev, main_rays_per_s):
         torch.cuda.synchronize()
         wall_s = time.time() - t0
         launches = counted_launches()
-        want = {k: v * SPP for k, v in path_launches(1).items()}
+        want = path_launches(DRIVEN_SPP)
         require(launches == want, f"{what}: kernel launches {launches}, "
                 f"expected {want}")
         require(int(tc.overflow_flag(dev).item()) == 0,
@@ -1854,13 +1934,14 @@ def sampling_path_phase(dev, main_rays_per_s):
         require(img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(img).all()
                 and img.mean() > 0, f"{what}: image not finite")
         render_s = sum(stats.timings.values())
-        return img, {"waves": SPP, "wall_s": wall_s, "render_s": render_s,
+        return img, {"waves": DRIVEN_SPP, "wall_s": wall_s,
+                     "render_s": render_s,
                      "rays_per_s": rays / render_s,
                      "main_path_rays_per_s": main_rays_per_s,
                      "rays_per_s_over_main_path":
                          rays / render_s / main_rays_per_s,
                      "launches": launches,
-                     "launches_per_wave": {k: v / SPP
+                     "launches_per_wave": {k: v / DRIVEN_SPP
                                            for k, v in launches.items()},
                      "img_mean": float(img.mean()),
                      "peak_mem_bytes": torch.cuda.max_memory_allocated()}
@@ -1878,11 +1959,11 @@ def sampling_path_phase(dev, main_rays_per_s):
             "x0": 0, "y0": y0, "waves": WINDOW_WAVES, "card_s": card_s,
             "pixels_close": close, "rel_mean": rel_mean,
             "img_mean": float(card.mean())}
-    # (b1) the bench scene through render: stratified 8x8, mitchell
+    # (b1) the bench scene through render: stratified 4x4, mitchell
     b1 = dataclasses.replace(
-        main_job, sampler=samplers.make_sampler("stratified", SPP),
+        main_job, sampler=samplers.make_sampler("stratified", DRIVEN_SPP),
         filter_name="mitchell")
-    require(b1.sampler.nx == b1.sampler.ny == 8, "b1: not 8x8 strata")
+    require(b1.sampler.nx == b1.sampler.ny == 4, "b1: not 4x4 strata")
     ig = pi.PathIntegrator(max_depth=MAX_DEPTH)
     li = lambda s_, r, d, c: pi.li(ig, s_, r, d, c)
 
@@ -1935,13 +2016,14 @@ def sampling_path_phase(dev, main_rays_per_s):
     finally:
         spec.set_mode("rgb")
     say("sampling_path", **out)
+    return main_kernels
 
 
 import make_accel_golden as accel_golden  # noqa: E402
 import make_cache_golden as cache_golden  # noqa: E402
 import make_volume_golden as volume_golden  # noqa: E402
 
-ACCEL_WAVES = 2             # (b): path waves of the bench scene a walk
+ACCEL_WAVES = 1             # (b): path waves of the bench scene a walk
 ACCEL_WINDOW_WAVES = 1      # (c): its window's waves on each side
 # (c)'s window: centred on the displaced sphere's centre
 SPHERE_POINT = (-0.4, 1.05, 0.2)
@@ -2073,7 +2155,7 @@ def accel_path_phase(dev, scene, inc):
     say("accel_path", seconds=time.time() - t_phase, **out)
 
 
-VOLUME_WAVES = 8
+VOLUME_WAVES = 4
 VOLUME_RES = 32             # (b)'s density grid: VOLUME_RES^3 from a seed
 VOLUME_SEED = 21
 # (b)'s volumegrid region: it encloses both spheres
@@ -2082,7 +2164,7 @@ VOLUME_BOUNDS = ((-1.7, -0.05, -1.3), (1.8, 2.3, 1.5))
 # closest + one shadow ray a step of single scattering's 32
 VOLUME_WAVE_LAUNCHES = {"traverse6:closest": 2, "traverse6:mixed": MAX_DEPTH,
                         "traverse6:any": 33}
-IGI_WAVES = 4
+IGI_WAVES = 2
 # igi's defaults: 64 paths x depth 5 VPLs a set, one any-hit launch each,
 # beside the camera closest and uniform_sample_one_light's closest + any
 IGI_WAVE_LAUNCHES = {"traverse6:closest": 2, "traverse6:any": 1 + 64 * 5}
@@ -2145,13 +2227,21 @@ def volume_bench_text(path):
                                   '"single"'}, vol)
 
 
-def in_turns(waves, order, repeats=4):
-    """Host-clock ms of each wave of `waves` (name -> wave function), taken
-    in the turns `order`, so that ratios are read under the same host
-    conditions."""
+def once_ms(wave):
+    """Host-clock ms of one call of `wave`, ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    wave()
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3
+
+
+@timed_part("waves_in_turns")
+def turns_once(waves, order):
+    """``once_ms`` of each wave of `waves`, in the turns `order`."""
     turns = {k: [] for k in waves}
     for k in order:
-        turns[k].append(wave_ms(waves[k], repeats))
+        turns[k].append(once_ms(waves[k]))
     return turns
 
 
@@ -2172,7 +2262,7 @@ def card_vs_cpu_window(what, job, text, resolver, waves, point, dev):
             "img_mean": float(card.mean())}
 
 
-def volume_path_phase(dev, main_rays_per_s):
+def volume_path_phase(dev, main_rays_per_s, main_kernels):
     """Participating media on the card, through the v6 kernel. (a)
     ``render_pbrt`` of scenes/smoke.pbrt and both variants of
     scenes/volumes.pbrt against tools/volume_golden.npz: a wave's launches
@@ -2183,7 +2273,9 @@ def volume_path_phase(dev, main_rays_per_s):
     VOLUME_WAVE_LAUNCHES and no other kernel, a finite image; rays/s
     (lanes launched) and device kernels a wave beside main_path's, and the
     two waves' host-clock ms in turns (main, volume, volume, main). (c) A
-    WINDOW x WINDOW window about the displaced sphere, card against CPU."""
+    WINDOW x WINDOW window about the displaced sphere, card against CPU.
+    main_kernels: the main path's device kernels a wave (sampling_path's
+    count)."""
     t_phase = time.time()
     golden = np.load(volume_golden.GOLDEN)
     out = {}
@@ -2234,7 +2326,7 @@ def volume_path_phase(dev, main_rays_per_s):
     main_job = bench_job(dev)
     waves = {"main": profiled_wave(main_job, dev, 1),
              "volume": profiled_wave(job, dev, 1)}
-    turns = in_turns(waves, ("main", "volume", "volume", "main"))
+    turns = turns_once(waves, ("main", "volume", "volume", "main"))
     out["bench"] = {
         "parse_s": parse_s, "file_bytes": os.path.getsize(path), **info,
         "rays_per_s": lanes / info["seconds"],
@@ -2242,8 +2334,7 @@ def volume_path_phase(dev, main_rays_per_s):
         "rays_per_s_over_main_path": lanes / info["seconds"]
         / main_rays_per_s,
         "device_kernels_a_wave": device_kernels_a_wave(waves["volume"]),
-        "main_path_device_kernels_a_wave": device_kernels_a_wave(
-            waves["main"]),
+        "main_path_device_kernels_a_wave": main_kernels,
         "wave_ms_in_turns": turns,
         "wave_ms_over_main": sum(turns["volume"]) / sum(turns["main"])}
     out["window"] = card_vs_cpu_window("volume", job, text, resolver,
@@ -2280,7 +2371,7 @@ def igi_path_phase(dev, main_rays_per_s):
     (b) The bench scene through igi at its defaults (64 paths, 4 sets, depth
     5): IGI_WAVES waves of exactly IGI_WAVE_LAUNCHES and no other kernel;
     rays/s beside main_path's, wave ms in turns (main, igi, igi, main, one
-    wave each after a warm-up). (c) A WINDOW x WINDOW window about the
+    wave each, warm from the driven waves). (c) A WINDOW x WINDOW window about the
     displaced sphere, IGI_WINDOW_WAVES waves, card against CPU, each with
     the VPLs it shot (their agreement printed)."""
     t_phase = time.time()
@@ -2327,7 +2418,7 @@ def igi_path_phase(dev, main_rays_per_s):
     lanes = lanes_a_wave(IGI_WAVE_LAUNCHES) * IGI_WAVES
     waves = {"main": profiled_wave(bench_job(dev), dev, 1),
              "igi": profiled_wave(job, dev, 1)}
-    turns = in_turns(waves, ("main", "igi", "igi", "main"), repeats=1)
+    turns = turns_once(waves, ("main", "igi", "igi", "main"))
     out["bench"] = {
         "preprocess_s": preprocess_s, **info,
         "rays_per_s": lanes / info["seconds"],
@@ -2437,6 +2528,7 @@ def gather_ops(fn):
     return ops.n
 
 
+@timed_part("golden")
 def cache_golden_part(dev):
     """(a) of cache_path: each variant of scenes/caches.pbrt through
     render_pbrt against the reference's image, launches exact; the photon
@@ -2563,9 +2655,9 @@ def cache_path_phase(dev, main_rays_per_s):
         _, img, winfo, _ = drive_waves(f"{name}_path", scene, dev, li,
                                        CACHE_WAVES, wants[name])
         lanes = lanes_a_wave(wants[name]) * CACHE_WAVES
-        turns = in_turns({"main": main_wave,
-                          name: li_wave(job, li, dev, 1)},
-                         ("main", name, name, "main"), repeats=1)
+        turns = turns_once({"main": main_wave,
+                            name: li_wave(job, li, dev, 1)},
+                           ("main", name, name, "main"))
         info.update(winfo, rays_per_s=lanes / winfo["seconds"],
                     main_path_rays_per_s=main_rays_per_s,
                     rays_per_s_over_main_path=lanes / winfo["seconds"]
@@ -2769,23 +2861,6 @@ MLT_WINDOW_LANES = 1024    # (c): path_l card vs CPU on the bench scene
 PARTED = 1e-3              # a chain whose final state moved this far
 
 
-def once_ms(wave):
-    """Host-clock ms of one call of `wave`, ended by a synchronize."""
-    torch.cuda.synchronize()
-    t0 = time.time()
-    wave()
-    torch.cuda.synchronize()
-    return (time.time() - t0) * 1e3
-
-
-def turns_once(waves, order):
-    """``once_ms`` of each wave of `waves`, in the turns `order`."""
-    turns = {k: [] for k in waves}
-    for k in order:
-        turns[k].append(once_ms(waves[k]))
-    return turns
-
-
 def coeffs_close(got, want):
     """Share of SH coefficients within rtol 1e-4 (atol 1e-6 of the
     largest)."""
@@ -2793,6 +2868,7 @@ def coeffs_close(got, want):
                             atol=1e-6 * np.abs(want).max()).mean())
 
 
+@timed_part("golden")
 def prt_golden_part(dev):
     """(a) of prt_path: c_in at the defaults and each variant of
     scenes/prt.pbrt through render_pbrt against tools/prt_golden.npz,
@@ -3095,6 +3171,170 @@ def mlt_path_phase(dev):
     say("mlt_path", seconds=time.time() - t_phase, **out)
 
 
+import make_mesh_golden as mesh_golden  # noqa: E402
+
+# (b) of mesh_path: ranks sharing the card over gloo, at full width
+MESH_RUNS = (((4, 1), "box", 16), ((2, 2), "gaussian", 8))
+MESH_RANKS = 4
+MESH_TOL = dict(rtol=2e-3, atol=2e-4)    # tests/test_sharding.py's
+MESH_DIR = os.path.join(tc.BUILD_DIR, "mesh")
+
+
+def mesh_rank(rank, world, t_spawn, out_dir):
+    """One rank of mesh_path (b), spawned by the parent: joins a gloo
+    process group on the shared card (rendezvous through a file in
+    `out_dir`), builds the bench scene, and renders MESH_RUNS through
+    ``render_sharded``, every count set to 0 just before each render and
+    read just after. Writes its images (rank<r>_<i>.npy) and a JSON record
+    (rank<r>.json): backend, device, seconds from the parent's spawn call
+    to ready, render seconds, launches and overflow a run."""
+    import torch.distributed as dist
+    from dartray_tpu_torch.parallel import mesh as pm
+    require(pm.init_distributed(f"file://{os.path.join(out_dir, 'rdzv')}",
+                                world, rank),
+            "mesh rank: no process group")
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        host = sb.bench_scene().build()
+        cam, _, _, _, _ = camera_wave(dev)
+        ig = pi.PathIntegrator(max_depth=MAX_DEPTH)
+        li = lambda s, r, d, c: pi.li(ig, s, r, d, c)  # noqa: E731
+        meshes = [pm.make_device_mesh(*shape) for shape, _, _ in MESH_RUNS]
+        dist.barrier()
+        rec = {"rank": rank, "backend": dist.get_backend(),
+               "device": f"{dev} {torch.cuda.get_device_name(dev)}",
+               "ready_s": time.time() - t_spawn, "runs": []}
+        for i, ((shape, filt, spp), m) in enumerate(zip(MESH_RUNS, meshes)):
+            smp = samplers.make_sampler("lowdiscrepancy", spp=spp)
+            dist.barrier()
+            torch.cuda.synchronize()
+            tc.reset_overflow(dev)
+            tc.reset_launches()
+            t0 = time.time()
+            img = pm.render_sharded(host, cam, smp, li, WIDTH, HEIGHT, m,
+                                    filter_name=filt, device=dev)
+            torch.cuda.synchronize()
+            rec["runs"].append({"render_s": time.time() - t0,
+                                "cell": list(m.coordinate()),
+                                "launches": counted_launches(),
+                                "overflow": int(tc.overflow_flag(dev).item())})
+            np.save(os.path.join(out_dir, f"rank{rank}_{i}.npy"), img)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def bit_equal_share(a, b):
+    return float((a == b).all(-1).mean())
+
+
+def mesh_path_phase(host, dev, main_rays_per_s):
+    """Band-sharded rendering (``parallel/mesh.py``) on the card. (a) The
+    one-process 4 x 2 mesh of tools/mesh_golden.npz's two configurations
+    against the reference's sharded images, within MESH_TOL, with the
+    share of pixels that are bit-equal. (b) MESH_RANKS ranks spawned on the
+    one card over gloo render the bench scene at 512 x 512, depth 5: 4 x 1
+    with the box filter at 16 spp must equal ``render``'s image bit for bit,
+    each rank launching exactly 16 camera-wave waves' worth (1 closest, 5
+    mixed, 1 any a wave) and no other kernel; 2 x 2 with the gaussian
+    filter at 8 spp must be within MESH_TOL of ``render``'s. Spawn and
+    set-up seconds apart from render seconds, rays/s as bench.py counts
+    them beside main_path's, the backend and device of each rank, the
+    host's CPU count. (c) The NCCL branch needs a card a rank. `host`: the
+    bench scene's host tree, built once by ``main``."""
+    t_phase = time.time()
+    golden = np.load(mesh_golden.GOLDEN)
+    out = {"golden": {}}
+    t_golden = time.time()
+    for name in mesh_golden.CONFIGS:
+        small, cam, smp, li, filt = mesh_golden.port_setup(name, dev)
+        tc.reset_launches()
+        t0 = time.time()
+        img = pm.render_sharded(small, cam, smp, li, mesh_golden.W,
+                                mesh_golden.H,
+                                pm.make_device_mesh(*mesh_golden.MESH),
+                                filter_name=filt, device=dev)
+        want = golden[f"{name}_img"]
+        require(img.shape == want.shape and np.isfinite(img).all()
+                and np.allclose(img, want, **MESH_TOL),
+                f"mesh {name}: max abs diff {np.abs(img - want).max()}")
+        n_tiles, n_spp = mesh_golden.MESH
+        launches = counted_launches()
+        waves = n_tiles * n_spp * -(-smp.spp // n_spp)
+        require(launches == path_launches(waves, mesh_golden.CONFIGS[name][5]),
+                f"mesh {name}: launches {launches}")
+        out["golden"][name] = {
+            "seconds": time.time() - t0, "launches": launches,
+            "max_abs_diff": float(np.abs(img - want).max()),
+            "pixels_bit_equal": bit_equal_share(img, want)}
+    PART_SECONDS["golden"] += time.time() - t_golden
+    os.makedirs(MESH_DIR, exist_ok=True)
+    for f in os.listdir(MESH_DIR):
+        os.remove(os.path.join(MESH_DIR, f))
+    torch.cuda.empty_cache()
+    t_spawn = time.time()
+    torch.multiprocessing.spawn(mesh_rank, args=(MESH_RANKS, t_spawn,
+                                                 MESH_DIR),
+                                nprocs=MESH_RANKS, join=True)
+    spawn_wall = time.time() - t_spawn
+    recs = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(MESH_DIR, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    cam, _, _, _, _ = camera_wave(dev)
+    ig = pi.PathIntegrator(max_depth=MAX_DEPTH)
+    li = lambda s, r, d, c: pi.li(ig, s, r, d, c)  # noqa: E731
+    runs = []
+    for i, (shape, filt, spp) in enumerate(MESH_RUNS):
+        smp = samplers.make_sampler("lowdiscrepancy", spp=spp)
+        t0 = time.time()
+        ref = rend.render(host, cam, smp, li, WIDTH, HEIGHT,
+                          filter_name=filt, device=dev)
+        render_s = time.time() - t0
+        want = path_launches(spp // shape[1])
+        imgs = [np.load(os.path.join(MESH_DIR, f"rank{r}_{i}.npy"))
+                for r in range(MESH_RANKS)]
+        for r, rec in enumerate(recs):
+            run = rec["runs"][i]
+            require(run["launches"] == want and run["overflow"] == 0,
+                    f"mesh {shape} rank {r}: launches {run['launches']}, "
+                    f"expected {want}; overflow {run['overflow']}")
+            require(np.array_equal(imgs[r], imgs[0]),
+                    f"mesh {shape}: rank {r}'s image differs from rank 0's")
+        img = imgs[0]
+        require(img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(img).all(),
+                f"mesh {shape}: image not finite")
+        if filt == "box" and shape[1] == 1:
+            require(np.array_equal(img, ref),
+                    f"mesh {shape}: not render's image bit for bit (max abs "
+                    f"diff {np.abs(img - ref).max()})")
+        else:
+            require(np.allclose(img, ref, **MESH_TOL),
+                    f"mesh {shape}: max abs diff {np.abs(img - ref).max()}")
+        ranks_s = max(rec["runs"][i]["render_s"] for rec in recs)
+        rays = WIDTH * HEIGHT * 2 * (MAX_DEPTH + 1) * spp
+        runs.append({
+            "mesh": list(shape), "filter": filt, "spp": spp,
+            "launches_a_rank": want,
+            "cells": [rec["runs"][i]["cell"] for rec in recs],
+            "render_s_ranks": ranks_s, "render_s_one_process": render_s,
+            "rays_per_s": rays / ranks_s,
+            "render_rays_per_s": rays / render_s,
+            "main_path_rays_per_s": main_rays_per_s,
+            "max_abs_diff_vs_render": float(np.abs(img - ref).max()),
+            "pixels_bit_equal_vs_render": bit_equal_share(img, ref)})
+    out["ranks"] = {
+        "ranks": MESH_RANKS, "host_cpus": os.cpu_count(),
+        "backends": [rec["backend"] for rec in recs],
+        "devices": [rec["device"] for rec in recs],
+        "spawn_and_setup_s": max(rec["ready_s"] for rec in recs),
+        "spawn_wall_s": spawn_wall, "runs": runs}
+    out["nccl"] = ("not exercised: one card here, and NCCL takes one rank a "
+                   "device")
+    say("mesh_path", seconds=time.time() - t_phase, **out)
+
+
 SMALL_GRAD_PATHS = ["materials.kd", "lights.intensity"]
 GRAD_CPU_REL = 2e-3        # card vs CPU gradient: share of the largest |g|
 GRAD_SPPS = (2, 8)         # the full-width gradient's two sample counts
@@ -3264,8 +3504,9 @@ def main():
                             dev)
     small_img = small_scene_phase(dev)
     motion_small_phase(dev, small_img)
-    launches, static_img, main_rays_per_s = main_path_phase(scene, dev)
-    launches_m = motion_path_phase(moving, dev, static_img)
+    launches, static_img, static_snap, main_rays_per_s = main_path_phase(
+        scene, dev)
+    launches_m = motion_path_phase(moving, dev, static_snap)
     alt_kernels_phase(dev, small_img)
 
     # every kernel's launches on ITS path, each path counted from zero: the
@@ -3292,11 +3533,11 @@ def main():
     alpha_env_path_phase(dev, main_rays_per_s)
     # samplers, filters, cameras, the sampled mode, checkpoints and the
     # adaptive renderer (their launches are printed on sampling_path's line)
-    sampling_path_phase(dev, main_rays_per_s)
+    main_kernels = sampling_path_phase(dev, main_rays_per_s)
     # the grid and kd-tree walks (no kernel), participating media and the
     # IGI integrator (their launches are printed on their own lines)
     accel_path_phase(dev, scene, shapes[1])
-    volume_path_phase(dev, main_rays_per_s)
+    volume_path_phase(dev, main_rays_per_s, main_kernels)
     igi_path_phase(dev, main_rays_per_s)
     # the photon map, irradiance cache and dipole integrators (their
     # launches are printed on cache_path's line)
@@ -3305,6 +3546,9 @@ def main():
     # Metropolis renderer (their launches are printed on their own lines)
     prt_path_phase(dev, main_rays_per_s)
     mlt_path_phase(dev)
+    # band-sharded rendering, in one process and over ranks sharing the card
+    # (each rank's launches are checked and printed on mesh_path's line)
+    mesh_path_phase(host, dev, main_rays_per_s)
     # the differentiable render: its launches are printed on grad_path's
     # line, not counted into the kernels line (main_path's are)
     grad_small_phase(dev)

@@ -16,7 +16,9 @@ a ``Distribution2D`` of luminance x sin(theta), with ``env_le`` /
 ``env_pdf`` for escaped rays). ``sample_le`` emits photon rays from every
 kind. One ``proj_map`` and one ``env_map`` serve the whole table: with two
 projection or goniometric lights the last one's map wins, as in the
-reference. RGB mode only (the sampled-spectrum mode is not ported).
+reference. In the sampled-spectrum mode (``spec.mode() == "sampled"``)
+the power CDF weighs luminance through the bands, and the environment and
+projection maps, given in RGB, are turned into bands as illuminants.
 """
 from __future__ import annotations
 

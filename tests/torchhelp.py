@@ -5,7 +5,9 @@ the port; results come back as numpy arrays. The only place where both
 packages meet is a test.
 """
 import dataclasses
+import multiprocessing
 import os
+import sys
 
 import numpy as np
 import torch
@@ -33,7 +35,9 @@ def _use_safe_reference_builder():
             ref_native._tried = False
 
 
-_use_safe_reference_builder()
+# a rank spawned for mesh_rank imports this module and runs only the port
+if multiprocessing.parent_process() is None:
+    _use_safe_reference_builder()
 
 
 def np_tree(x):
@@ -260,3 +264,35 @@ def hold_rays_independent(walk, n, seed):
     assert same_bits(t[live], base_t[sel[live]])
     assert same_bits(p[live], base_p[sel[live]])
     assert np.isposinf(t[~live]).all() and (p[~live] == -1).all()
+
+
+def mesh_rank(rank, world, init_file, shape, name, filter_name, out_dir):
+    """One spawned CPU rank of a gloo process group (rendezvous through the
+    file `init_file`): ``render_sharded`` and ``sharded_film`` of
+    ``tools/make_mesh_golden.py``'s configuration `name` with `filter_name`
+    over a `shape` mesh, saved to `out_dir`/rank<rank>.npz as img, pixels
+    and the mesh shapes that ``make_device_mesh`` refused (raised)."""
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import make_mesh_golden as golden
+    from dartray_tpu_torch.parallel import mesh as pm
+    assert pm.init_distributed(f"file://{init_file}", world, rank,
+                               device="cpu")
+    try:
+        raised = []             # known behaviour aj: the world must fit
+        for cells in ((1, 1), (world, 2)):
+            try:
+                pm.make_device_mesh(*cells)
+            except ValueError:
+                raised.append(cells)
+        scene, cam, smp, li, _ = golden.port_setup(name, "cpu")
+        m = pm.make_device_mesh(*shape)
+        img = pm.render_sharded(scene, cam, smp, li, golden.W, golden.H, m,
+                                filter_name=filter_name, device="cpu")
+        pixels, _ = pm.sharded_film(scene, cam, smp, li, golden.W, golden.H,
+                                    m, filter_name=filter_name, device="cpu")
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), img=img,
+                 pixels=pixels, raised=np.asarray(raised))
+    finally:
+        dist.destroy_process_group()
