@@ -128,6 +128,20 @@ script exits non-zero:
                nodes, 1 path wave (ms a wave, steps a query, image against
                v6's); (c) a 32x32 window about the displaced sphere, 1 wave,
                card vs CPU
+  walks_path   the reference's own traversal walks (plain torch, no kernel;
+               v6 only as their oracle), the bench scene with nothing cut:
+               (a) the per-triangle SAH BVH's build seconds, nodes and
+               depth; (b) closest hits of the camera wave and of sorted
+               incoherent rays by the stackless walk and by the cluster
+               packet walk, equal to v6's (rays hit outside their
+               triangle's own box counted apart, ties at the same t
+               counted); (c) each walk's occlusion mask equal to v6's
+               any-hit mask on the camera wave and on the incoherent rays
+               cut at tmax 1, but for rays counted apart; (d) the moving
+               scene's packet walk on the camera wave with seeded times
+               against v6's motion mode; (e) 4,096 camera rays, each walk
+               on the card and on the CPU; ms a query beside v6's, steps
+               and flushes a query, host torch operations a step
   volume_path  participating media: (a) scenes/smoke.pbrt and both variants
                of scenes/volumes.pbrt against tools/volume_golden.npz, a
                wave's launches the surface integrator's + 1 closest (+ 32
@@ -228,9 +242,12 @@ from dartray_tpu_torch import __main__ as cli
 from dartray_tpu_torch import cameras, grad, samplers
 from dartray_tpu_torch import film as film_mod
 from dartray_tpu_torch import stats as stats_mod
+from dartray_tpu_torch.accel import bvh as bvh_mod
+from dartray_tpu_torch.accel import cluster as cluster_mod
 from dartray_tpu_torch.accel import grid as grid_mod
 from dartray_tpu_torch.accel import kdtree as kd_mod
 from dartray_tpu_torch.accel import native
+from dartray_tpu_torch.accel import traverse as tv
 from dartray_tpu_torch.core import math as vm
 from dartray_tpu_torch.core import spectrum as spec
 from dartray_tpu_torch.core import transform as tr
@@ -2029,20 +2046,37 @@ ACCEL_WINDOW_WAVES = 1      # (c): its window's waves on each side
 SPHERE_POINT = (-0.4, 1.05, 0.2)
 
 
-def alt_hits_compare(what, g_alt, g_v6, rays):
-    """Closest hits of the alternate walk against the v6 kernel's on the
-    same rays: prim equal on every ray but those one side hits outside the
+def own_hit(geom, rays, prim, deltas=None):
+    """Triangle `prim` of each ray (lerped to its time by `deltas`) tested
+    by ONE routine, whichever walk found it: (t, outside) where outside
+    marks a hit on a ray that misses the triangle's own box (a hit no box
+    walk need find: ``aggregate_compare``)."""
+    j = prim.clamp_min(0).long()
+    tri = [vm.to_arr(a)[j] for a in (geom.v0, geom.e1, geom.e2)]
+    if deltas is not None:
+        tri = [a + rays.time[:, None] * da[j] for a, da in zip(tri, deltas)]
+    o, d = vm.to_arr(rays.o), vm.to_arr(rays.d)
+    _, t, _, _ = tv.mt_test_plain(o, d, *tri, rays.tmin, rays.tmax)
+    v0, e1, e2 = tri
+    corners = torch.stack([v0, v0 + e1, v0 + e2])
+    inside = tv._slab_test(o, tv.inv_dir(d), corners.amin(0),
+                           corners.amax(0), rays.tmin, rays.tmax)
+    return t, (prim >= 0) & ~inside
+
+
+def hits_compare(what, h, h6, geom, rays, deltas=None):
+    """An alternate walk's closest hits `h` against v6's `h6` on the same
+    rays: prim equal on every ray but those where a side hits outside its
     triangle's own box (counted apart, as ``aggregate_compare`` does) and
-    ties, where each walk hits its own triangle at the same t bit for bit
-    (a ray through an edge two triangles share: the grid and kd-tree keep
-    the first triangle of their list, v6 the one it tests first); t within
+    ties, where the two triangles meet the ray at the same t bit for bit
+    (a ray through an edge two triangles share: each walk keeps the one it
+    tests first), both tested by one routine (``own_hit``); t within
     T_RTOL where both hit the same triangle."""
-    h = st.intersect(g_alt, rays)
-    h6 = st.intersect(g_v6, rays)
     differ = h.prim != h6.prim
-    apart = differ & (manager.misses_own_box(g_v6, rays, h6.prim)
-                      | manager.misses_own_box(g_alt, rays, h.prim))
-    tie = differ & ~apart & (h.prim >= 0) & (h6.prim >= 0) & (h.t == h6.t)
+    t_w, out_w = own_hit(geom, rays, h.prim, deltas)
+    t_6, out_6 = own_hit(geom, rays, h6.prim, deltas)
+    apart = differ & (out_w | out_6)
+    tie = differ & ~apart & (h.prim >= 0) & (h6.prim >= 0) & (t_w == t_6)
     same = ~differ & (h.prim >= 0)
     rel = ((h.t - h6.t).abs() / h6.t.abs())[same]
     out = {"rays": rays.n, "hits": int(same.sum()),
@@ -2062,7 +2096,7 @@ def accel_path_phase(dev, scene, inc):
     accelerator against tools/accel_golden.npz by ``compare_images``, with
     no kernel launched. (b) The bench scene, nothing cut, compiled with each
     accelerator: build seconds; the camera wave's and the sorted incoherent
-    rays' closest hits against v6's (``alt_hits_compare``); the camera
+    rays' closest hits against v6's (``hits_compare``); the camera
     query's host torch operations against its steps (DDA steps or nodes);
     ACCEL_WAVES path waves at depth MAX_DEPTH, no kernel launched, ms a wave
     and steps a query, the image against the same waves through v6; the
@@ -2103,10 +2137,10 @@ def accel_path_phase(dev, scene, inc):
                    else {"max_leaf": alt.max_leaf, "nodes": alt.n_nodes})
         g = st.to_device(host, dev)
         tc.reset_launches()
-        res["camera"] = alt_hits_compare(f"{kind} camera wave", g.geometry,
-                                         scene.geometry, cam_rays)
-        res["incoherent"] = alt_hits_compare(f"{kind} incoherent rays",
-                                             g.geometry, scene.geometry, inc)
+        for key, rays in (("camera", cam_rays), ("incoherent", inc)):
+            res[key] = hits_compare(
+                f"{kind} {key} rays", st.intersect(g.geometry, rays),
+                st.intersect(scene.geometry, rays), scene.geometry, rays)
         # the camera query: its time, and its host operations (counted in
         # a second call) against its steps
         torch.cuda.synchronize()
@@ -2153,6 +2187,175 @@ def accel_path_phase(dev, scene, inc):
         bench_text_with(os.path.join(PBRT_DIR, f"accel_bench_{kind}.pbrt"),
                         {PATH_LINE: f'{PATH_LINE}\nAccelerator "{kind}"'})
     say("accel_path", seconds=time.time() - t_phase, **out)
+
+
+WALK_SHADOW_TMAX = 1.0      # (c): the incoherent rays cut to shadow rays
+WALK_CPU_RAYS = 4096        # (e): every 64th camera ray
+
+
+def map_rays(fn, rays):
+    """`fn` applied to every tensor plane of `rays` (a selection, a move)."""
+    return vm.Rays(*(vm.V3(*(fn(c) for c in f)) if isinstance(f, vm.V3)
+                     else fn(f) for f in rays))
+
+
+def soup_deltas(cl, n):
+    """A moving cluster tree's (close - open) triangle deltas, put back in
+    prim order: three (n, 3) arrays (zero for a prim the tree lacks)."""
+    ok = cl.tri_id >= 0
+    out = []
+    for a in (cl.tri_dv0, cl.tri_de1, cl.tri_de2):
+        x = np.zeros((n, 3), np.float32)
+        x[cl.tri_id[ok]] = a[ok]
+        out.append(x)
+    return out
+
+
+def walk_occlusion_compare(what, occ, walk, geom, rays):
+    """A walk's occlusion mask against v6's any-hit mask: equal but on rays
+    counted apart (the closest hit of either side, on the rays where the
+    masks differ, outside its triangle's own box)."""
+    occ6 = st.intersect_p(geom, rays)
+    differ = torch.nonzero(occ != occ6)[:, 0]
+    apart = 0
+    if differ.numel():
+        sub = map_rays(lambda x: x[differ], rays)
+        _, out_w = own_hit(geom, sub, walk(sub).prim)
+        _, out_6 = own_hit(geom, sub, st.intersect(geom, sub).prim)
+        apart = int((out_w | out_6).sum())
+    out = {"rays": rays.n, "occluded": int(occ6.sum()),
+           "differ": int(differ.numel()), "apart": apart}
+    require(out["differ"] == apart,
+            f"{what}: occlusion differs from v6's on {out}")
+    return out
+
+
+def timed_walk(walk, counters, rays, key="first_ms"):
+    """A walk's query: (result, {`key`: its wall ms on the card, and the
+    walk's counters it moved})."""
+    torch.cuda.synchronize()
+    before = dict(counters)
+    t0 = time.time()
+    res = walk(rays)
+    torch.cuda.synchronize()
+    out = {key: (time.time() - t0) * 1e3}
+    out.update({k: counters[k] - before[k] for k in counters
+                if k != "queries"})
+    return res, out
+
+
+def torch_ops_a_step(walk, counters, rays):
+    """Host torch operations of one query (a second call), over the loop
+    rounds (steps, and flushes) it took."""
+    before = dict(counters)
+    with stats_mod.TorchOps() as ops:
+        walk(rays)
+    rounds = sum(counters[k] - before[k] for k in counters if k != "queries")
+    return {"torch_ops": ops.n, "torch_ops_per_step": ops.n / max(rounds, 1)}
+
+
+def walks_path_phase(dev, host, scene, moving, shapes):
+    """The reference's own traversal walks on the card at full width: the
+    stackless walk of the per-triangle SAH BVH (accel/bvh.py,
+    accel/traverse.py) and the cluster packet walk (accel/cluster.py),
+    plain torch, no kernel of their own; v6 runs as their oracle. (a) The
+    per-triangle build: seconds, nodes, depth. (b) Closest hits of the
+    camera wave and of the sorted incoherent rays against v6's
+    (``hits_compare``). (c) Occlusion masks against v6's any-hit
+    masks on the camera wave and on the incoherent rays cut at
+    WALK_SHADOW_TMAX (``walk_occlusion_compare``). (d) The moving scene's
+    packet walk (build_motion's tree) on the camera wave with seeded times
+    against v6's motion mode. (e) WALK_CPU_RAYS camera rays through each
+    walk on the card and on the CPU: prim equal, t within T_RTOL, the
+    masks equal. Timing: each query's first call (first_ms); a camera
+    query of each walk again, warm (ms), beside v6's whole query queued;
+    steps and flushes a query, host torch operations a step."""
+    t_phase = time.time()
+    cam, inc = shapes[0], shapes[1]
+    g6 = scene.geometry
+    hg = host.geometry
+    soup = [vm.to_arr(a).cpu().numpy() for a in (g6.v0, g6.e1, g6.e2)]
+    t0 = time.time()
+    b = bvh_mod.build(*soup)
+    out = {"smi": nvidia_smi_line(),
+           "build": {"seconds": time.time() - t0, "tris": hg.n_prims,
+                     "nodes": b.n_nodes, "max_depth": b.max_depth}}
+    rows = torch.as_tensor(b.rows, device=dev)
+    links = torch.as_tensor(b.links, device=dev)
+    cl = cluster_mod.to_device(hg.cl, dev)
+    walks = {
+        "stackless": (lambda r: tv.intersect(rows, links, r),
+                      lambda r: tv.intersect_p(rows, links, r), tv.STEPS),
+        "packet": (lambda r: cluster_mod.intersect(cl, r),
+                   lambda r: cluster_mod.intersect_p(cl, r),
+                   cluster_mod.STEPS)}
+    shadow = inc._replace(tmax=torch.full_like(inc.tmax, WALK_SHADOW_TMAX))
+    for name, (closest, anyhit, counters) in walks.items():
+        with part("walks"):
+            h_cam, q_cam = timed_walk(closest, counters, cam)
+            occ_sh, q_sh = timed_walk(anyhit, counters, shadow)
+            res = {
+                "camera": hits_compare(
+                    f"{name} camera wave", h_cam, st.intersect(g6, cam), g6,
+                    cam),
+                "incoherent": hits_compare(
+                    f"{name} incoherent rays", closest(inc),
+                    st.intersect(g6, inc), g6, inc),
+                "occlusion_camera": walk_occlusion_compare(
+                    f"{name} camera occlusion", anyhit(cam), closest, g6,
+                    cam),
+                "occlusion_shadow": walk_occlusion_compare(
+                    f"{name} shadow occlusion", occ_sh, closest, g6,
+                    shadow),
+                "camera_query": {**q_cam,
+                                 **timed_walk(closest, counters, cam, "ms")[1],
+                                 **torch_ops_a_step(closest, counters, cam)},
+                "shadow_query": q_sh}
+        out[name] = res
+    # v6's whole query (sort, launch, finish), device ms by CUDA events
+    out["v6_camera_ms_queued"] = time_ms(lambda: st.intersect(g6, cam))
+    out["v6_motion_camera_ms_queued"] = time_ms(
+        lambda: st.intersect(moving.geometry, cam))
+    out["v6_shadow_ms_queued"] = time_ms(lambda: st.intersect_p(g6, shadow))
+    # (d) the moving tree's packet walk against v6's motion mode
+    gm = moving.geometry
+    deltas = [torch.from_numpy(a).to(dev)
+              for a in soup_deltas(gm.cl, gm.n_prims)]
+    cm = cluster_mod.to_device(gm.cl, dev)
+    camm = cam._replace(time=st._shutter_time01(gm, cam))   # as v6 reads it
+    with part("walks"):
+        h, q = timed_walk(lambda r: cluster_mod.intersect(cm, r),
+                          cluster_mod.STEPS, camm)
+        out["moving"] = {**hits_compare(
+            "packet walk, moving scene", h, st.intersect(gm, cam), gm, camm,
+            deltas), "query": q}
+    # (e) card against CPU on every 64th camera ray
+    sel = torch.arange(0, cam.n, cam.n // WALK_CPU_RAYS, device=dev)
+    few = map_rays(lambda x: x[sel], cam)
+    few_cpu = map_rays(lambda x: x.cpu(), few)
+    cpu_walks = {
+        "stackless": (lambda r: tv.intersect(b.rows, b.links, r),
+                      lambda r: tv.intersect_p(b.rows, b.links, r)),
+        "packet": (lambda r: cluster_mod.intersect(hg.cl, r),
+                   lambda r: cluster_mod.intersect_p(hg.cl, r))}
+    cvc = {}
+    with part("card_vs_cpu"):
+        for name, (closest, anyhit, _) in walks.items():
+            card, cpu = closest(few), cpu_walks[name][0](few_cpu)
+            same = card.prim.cpu() == cpu.prim
+            hit = same & (cpu.prim >= 0)
+            rel = ((card.t.cpu() - cpu.t).abs() / cpu.t.abs())[hit]
+            occ_same = torch.equal(anyhit(few).cpu(),
+                                   cpu_walks[name][1](few_cpu))
+            cvc[name] = {"rays": few.n, "prim_differ": int((~same).sum()),
+                         "hits": int(hit.sum()),
+                         "max_rel_dt": float(rel.max()) if rel.numel()
+                         else 0.0, "occlusion_equal": occ_same}
+            require(cvc[name]["prim_differ"] == 0 and occ_same
+                    and cvc[name]["max_rel_dt"] <= T_RTOL,
+                    f"walks_path {name}: card vs CPU {cvc[name]}")
+    out["card_vs_cpu"] = cvc
+    say("walks_path", seconds=time.time() - t_phase, **out)
 
 
 VOLUME_WAVES = 4
@@ -3537,6 +3740,8 @@ def main():
     # the grid and kd-tree walks (no kernel), participating media and the
     # IGI integrator (their launches are printed on their own lines)
     accel_path_phase(dev, scene, shapes[1])
+    # the reference's own walks (no kernel; v6 as their oracle)
+    walks_path_phase(dev, host, scene, moving, shapes)
     volume_path_phase(dev, main_rays_per_s, main_kernels)
     igi_path_phase(dev, main_rays_per_s)
     # the photon map, irradiance cache and dipole integrators (their

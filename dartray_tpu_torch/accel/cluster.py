@@ -1,19 +1,31 @@
-"""Cluster BVH: host build (counterpart of the JAX reference's
-``accel/cluster.py``, numpy only).
+"""Cluster BVH: host build and the packet walk (counterpart of the JAX
+reference's ``accel/cluster.py``).
 
 Triangles are grouped into fixed-size CLUSTERS (K triangles, SAH-built
-leaves) and a binary BVH is built over the clusters. ``accel/wide.py``
-collapses that tree to 8-ary and ``ops/traverse_cuda.py`` packs and walks it.
-Only the build lives here: the reference's own packet traversal over this
-tree (its CPU fallback) has no counterpart in the port, whose plain traversal
-is ``ops.traverse_cuda.traverse6_plain``.
+leaves) and a binary BVH is built over the clusters, in host numpy.
+``accel/wide.py`` collapses that tree to 8-ary and ``ops/traverse_cuda.py``
+packs it and walks it with the kernels: that is the renderer's path.
+
+``intersect`` / ``intersect_p`` are the reference's own packet walk over the
+binary tree, in plain torch: rays go in packets of ``PACKET`` (128) with ONE
+node stack a packet and near-child-first order from the packet's majority
+direction sign. An inner loop takes node-only steps (one slab test a packet
+a step) and buffers up to ``LEAF_BUF`` leaf clusters a packet; then one
+dense (packet, ray, buffered triangle) Moeller-Trumbore flush a round.
+Moving geometry (``build_motion``) lerps the buffered triangles to each
+ray's time in the flush.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
+from ..core import math as vm
+from .traverse import Hits, _slab_test, inv_dir, mt_test_plain
+
+PACKET = 128          # rays per packet
 DEFAULT_K = 32        # triangles per cluster
 N_BUCKETS = 12
 
@@ -225,3 +237,172 @@ def _native_build(v0, e1, e2, k):
         n_nodes=int(n_nodes), n_clusters=int(n_clusters), k=int(k),
         max_depth=int(max_depth))
 
+
+
+def _pad_packets(x, n_pad, fill):
+    if n_pad == 0:
+        return x
+    pad = torch.full((n_pad,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([x, pad])
+
+
+LEAF_BUF = 8  # clusters buffered per packet between dense flushes
+# packets a flush takes at once: its (packets, PACKET, LEAF_BUF * K, 3)
+# float32 temporaries are 0.4 MB a packet each at K = 32
+FLUSH_PACKETS = 256
+_TABLES = ("node_lo", "node_hi", "node_child", "node_axis", "tri_v0",
+           "tri_e1", "tri_e2", "tri_id", "tri_dv0", "tri_de1", "tri_de2")
+
+# walk counters of the packet walk: queries walked, inner (node) steps and
+# flushes (one a round of the outer loop)
+STEPS = {"queries": 0, "steps": 0, "flushes": 0}
+
+
+def to_device(bvh: ClusterBVH, device) -> ClusterBVH:
+    """The tree's tables as tensors on `device` (what the walk reads);
+    sizes and depth unchanged."""
+    dev = torch.device(device)
+    return dataclasses.replace(bvh, **{
+        f: None if getattr(bvh, f) is None
+        else torch.as_tensor(getattr(bvh, f), device=dev) for f in _TABLES})
+
+
+@torch.no_grad()
+def _traverse(bvh: ClusterBVH, rays: vm.Rays, any_hit: bool,
+              t_cull_quantile=None):
+    """Packet traversal; rays are padded to a multiple of PACKET with dead
+    lanes (tmax = -1).
+
+    Two nested loops: the inner loop runs node-only steps while any packet
+    has stack left and buffer room; then the outer loop runs ONE dense
+    Moeller-Trumbore flush of every packet's buffered clusters and empties
+    the buffers. Any-hit clears a packet's stack once all its live rays
+    have hit. `t_cull_quantile` is accepted and never read, as in the
+    reference."""
+    o = vm.to_arr(rays.o)
+    d = vm.to_arr(rays.d)
+    dev = o.device
+    bvh = to_device(bvh, dev)
+    r = o.shape[0]
+    n_pad = (-r) % PACKET
+    np_ = (r + n_pad) // PACKET
+    o = _pad_packets(o, n_pad, 0.0).reshape(np_, PACKET, 3)
+    d = _pad_packets(d, n_pad, 1.0).reshape(np_, PACKET, 3)
+    tmin = _pad_packets(rays.tmin, n_pad, 0.0).reshape(np_, PACKET)
+    tmax = _pad_packets(rays.tmax, n_pad, -1.0).reshape(np_, PACKET)
+    has_motion = bvh.tri_dv0 is not None
+    if has_motion:
+        time = _pad_packets(rays.time, n_pad, 0.0).reshape(np_, PACKET)
+    inv_d = inv_dir(d)
+    # packet majority direction sign per axis
+    neg_major = (d < 0).sum(1) > (PACKET // 2)              # (np_, 3)
+
+    depth = bvh.max_depth + 2
+    stack = torch.zeros((np_, depth), dtype=torch.long, device=dev)
+    sp = torch.ones(np_, dtype=torch.long, device=dev)     # root pushed
+    t_best = torch.where(tmax >= tmin, tmax, tmin - 1.0)
+    prim = torch.full((np_, PACKET), -1, dtype=torch.int32, device=dev)
+    b1 = torch.zeros((np_, PACKET), dtype=torch.float32, device=dev)
+    b2 = torch.zeros_like(b1)
+    alive0 = tmax >= tmin
+    done = torch.zeros((np_, PACKET), dtype=torch.bool, device=dev)
+    buf = torch.zeros((np_, LEAF_BUF), dtype=torch.long, device=dev)
+    nbuf = torch.zeros(np_, dtype=torch.long, device=dev)
+    pk = torch.arange(np_, device=dev)
+    k = bvh.k
+    node_child = bvh.node_child.long()
+    node_axis = bvh.node_axis.long()
+    STEPS["queries"] += 1
+
+    def inner_step(stack, sp, nbuf):
+        can = (sp > 0) & (nbuf < LEAF_BUF)
+        spm1 = torch.where(can, sp - 1, sp)
+        node = stack.gather(1, spm1.clamp_min(0)[:, None])[:, 0]
+        node = torch.where(can, node, 0)
+        ray_hit = (_slab_test(o, inv_d, bvh.node_lo[node][:, None, :],
+                              bvh.node_hi[node][:, None, :], tmin, t_best)
+                   & alive0 & ~done)
+        packet_hit = can & ray_hit.any(1)
+        ch = node_child[node]
+        is_leaf = ch[:, 0] < 0
+        # buffer the leaf's cluster
+        take_leaf = packet_hit & is_leaf
+        slot = nbuf.clamp_max(LEAF_BUF - 1)
+        buf[pk, slot] = torch.where(take_leaf, -ch[:, 0] - 1, buf[pk, slot])
+        nbuf = torch.where(take_leaf, nbuf + 1, nbuf)
+        # push the children, near one last (popped first)
+        swap = neg_major.gather(1, node_axis[node][:, None])[:, 0]
+        near = torch.where(swap, ch[:, 1], ch[:, 0])
+        far = torch.where(swap, ch[:, 0], ch[:, 1])
+        do_push = packet_hit & ~is_leaf
+        s1 = spm1.clamp_max(depth - 1)
+        stack[pk, s1] = torch.where(do_push, far, stack[pk, s1])
+        sp2 = torch.where(do_push, spm1 + 1, spm1)
+        s2 = sp2.clamp_max(depth - 1)
+        stack[pk, s2] = torch.where(do_push, near, stack[pk, s2])
+        return torch.where(do_push, sp2 + 1, sp2), nbuf
+
+    def flush(a, b):
+        """Dense test of packets [a, b)'s buffered clusters; updates the
+        packets' rows of t_best, prim, b1, b2 (and done) in place."""
+        n = b - a
+        bb = buf[a:b]
+        lk = LEAF_BUF * k
+        tri = lambda tab: tab[bb].reshape(n, 1, lk, 3)
+        cv0, ce1, ce2 = tri(bvh.tri_v0), tri(bvh.tri_e1), tri(bvh.tri_e2)
+        if has_motion:
+            # continuous motion: lerp vertices to each ray's shutter time
+            tt = time[a:b, :, None, None]
+            cv0 = cv0 + tt * tri(bvh.tri_dv0)
+            ce1 = ce1 + tt * tri(bvh.tri_de1)
+            ce2 = ce2 + tt * tri(bvh.tri_de2)
+        ctid = bvh.tri_id[bb].reshape(n, lk)
+        slot_ok = (torch.arange(LEAF_BUF, device=dev)[None, :]
+                   < nbuf[a:b, None]).repeat_interleave(k, 1)
+        tb = t_best[a:b]
+        ok, t, u, v = mt_test_plain(o[a:b, :, None, :], d[a:b, :, None, :],
+                                    cv0, ce1, ce2, tmin[a:b, :, None],
+                                    tb[:, :, None])
+        ok = (ok & (ctid[:, None, :] >= 0) & slot_ok[:, None, :]
+              & (alive0[a:b] & ~done[a:b])[:, :, None])
+        t_m = torch.where(ok, t, float("inf"))
+        jbest = t_m.argmin(-1, keepdim=True)        # ties: the lower slot
+        tbj = t_m.gather(-1, jbest)[..., 0]
+        better = tbj < tb
+        take = lambda x: x.gather(-1, jbest)[..., 0]
+        t_best[a:b] = torch.where(better, tbj, tb)
+        prim[a:b] = torch.where(better, ctid.gather(1, jbest[..., 0]),
+                                prim[a:b])
+        b1[a:b] = torch.where(better, take(u), b1[a:b])
+        b2[a:b] = torch.where(better, take(v), b2[a:b])
+        if any_hit:
+            done[a:b] |= prim[a:b] >= 0
+
+    while bool(((sp > 0) | (nbuf > 0)).any()):
+        while bool(((sp > 0) & (nbuf < LEAF_BUF)).any()):
+            sp, nbuf = inner_step(stack, sp, nbuf)
+            STEPS["steps"] += 1
+        for a in range(0, np_, FLUSH_PACKETS):
+            flush(a, min(a + FLUSH_PACKETS, np_))
+        STEPS["flushes"] += 1
+        nbuf = torch.zeros_like(nbuf)
+        if any_hit:
+            sp = torch.where((done | ~alive0).all(1), 0, sp)
+    prim_flat = prim.reshape(-1)[:r]
+    t_out = torch.where(prim_flat >= 0, t_best.reshape(-1)[:r],
+                        float("inf"))
+    return Hits(t=t_out, prim=prim_flat, b1=b1.reshape(-1)[:r],
+                b2=b2.reshape(-1)[:r])
+
+
+def intersect(bvh: ClusterBVH, rays: vm.Rays) -> Hits:
+    """Closest hit by the packet walk over `bvh` (host numpy, moved to the
+    rays' device at each call, or ``to_device``'s tensors)."""
+    return _traverse(bvh, rays, any_hit=False)
+
+
+def intersect_p(bvh: ClusterBVH, rays: vm.Rays):
+    """Any-hit / occlusion by the packet walk: (R,) bool mask."""
+    h = _traverse(bvh, rays, any_hit=True)
+    return h.prim >= 0

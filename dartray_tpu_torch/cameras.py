@@ -24,11 +24,18 @@ from . import device as device_mod
 from .core import math as vm
 from .core import sampling as smp
 from .core import transform as tr
-from .samplers import CameraSamples  # noqa: F401  (re-export, as upstream)
 
 PERSPECTIVE = 0
 ORTHOGRAPHIC = 1
 ENVIRONMENT = 2
+
+
+class CameraSamples(NamedTuple):
+    """SoA camera samples: continuous image position (pixel + jitter), lens
+    uv, time u."""
+    image_xy: vm.V2
+    lens_uv: vm.V2
+    time_u: torch.Tensor
 
 
 @dataclasses.dataclass

@@ -15,6 +15,8 @@ import torch
 
 F32 = torch.float32
 INF = float("inf")
+EPS = float(np.float32(1e-7))
+MACHINE_EPSILON = float(np.finfo(np.float32).eps) * 0.5
 
 
 class V3(NamedTuple):
@@ -155,6 +157,14 @@ def normalize(v):
     return v * torch.rsqrt(length_sq(v).clamp_min(1e-30))
 
 
+def distance(a, b):
+    return length(b - a)
+
+
+def distance_sq(a, b):
+    return length_sq(b - a)
+
+
 def face_forward(n, v):
     """Flip n to lie in the hemisphere of v."""
     return where3(dot(n, v) < 0.0, -n, n)
@@ -170,6 +180,17 @@ def coordinate_system(v1):
     v2 = where3(big_x, V3(-z * inv_a, zero, x * inv_a),
                 V3(zero, z * inv_a, -y * inv_a))
     return v2, cross(v1, v2)
+
+
+def spherical_direction(sintheta, costheta, phi) -> V3:
+    return V3(sintheta * torch.cos(phi), sintheta * torch.sin(phi), costheta)
+
+
+def spherical_direction_basis(sintheta, costheta, phi, x: V3, y: V3,
+                              z: V3) -> V3:
+    """The direction of spherical_direction in the frame (x, y, z)."""
+    return (x * (sintheta * torch.cos(phi)) + y * (sintheta * torch.sin(phi))
+            + z * costheta)
 
 
 def spherical_theta(v: V3):
@@ -197,8 +218,29 @@ def xform_vector3(m, v: V3) -> V3:
               f(2, 0) * v.x + f(2, 1) * v.y + f(2, 2) * v.z)
 
 
+def xform_vector3_rows(mr, v: V3) -> V3:
+    """Per-ray matrices as a V3 of V3 rows: mr[i][j] is the (R,) tensor of
+    matrix entry (i, j)."""
+    return V3(mr[0][0] * v.x + mr[0][1] * v.y + mr[0][2] * v.z,
+              mr[1][0] * v.x + mr[1][1] * v.y + mr[1][2] * v.z,
+              mr[2][0] * v.x + mr[2][1] * v.y + mr[2][2] * v.z)
+
+
 def lerp(t, a, b):
     return a + t * (b - a)
+
+
+def quadratic(a, b, c):
+    """Stable quadratic solve, branch-free: (has_roots, t0, t1) with
+    t0 <= t1; where has_roots is False, t0 / t1 are garbage."""
+    disc = b * b - 4.0 * a * c
+    has = disc >= 0.0
+    root = torch.sqrt(disc.clamp_min(0.0))
+    q = torch.where(b < 0.0, -0.5 * (b - root), -0.5 * (b + root))
+    # guard the divisions; masked out where has is False or degenerate
+    t0 = q / torch.where(torch.abs(a) < 1e-30, 1.0, a)
+    t1 = c / torch.where(torch.abs(q) < 1e-30, 1.0, q)
+    return has, torch.minimum(t0, t1), torch.maximum(t0, t1)
 
 
 class Rays(NamedTuple):
@@ -235,3 +277,35 @@ def make_rays(o, d, tmin=None, tmax=None, time=None):
 
     return Rays(o=o, d=d, tmin=plane(tmin, 0.0), tmax=plane(tmax, INF),
                 time=plane(time, 0.0))
+
+
+# --- BBox ops on (2, 3) or (N, 2, 3) tensors ---------------------------------
+
+def bbox_empty(device):
+    """The empty box: lo = +inf, hi = -inf."""
+    return torch.tensor([[INF] * 3, [-INF] * 3], dtype=F32, device=device)
+
+
+def bbox_union(a, b):
+    return torch.stack([torch.minimum(a[..., 0, :], b[..., 0, :]),
+                        torch.maximum(a[..., 1, :], b[..., 1, :])], dim=-2)
+
+
+def bbox_union_point(b, p):
+    return torch.stack([torch.minimum(b[..., 0, :], p),
+                        torch.maximum(b[..., 1, :], p)], dim=-2)
+
+
+def bbox_surface_area(b):
+    d = (b[..., 1, :] - b[..., 0, :]).clamp_min(0.0)
+    return 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                  + d[..., 2] * d[..., 0])
+
+
+def bbox_intersect_p(bounds_lo, bounds_hi, o, inv_d, tmin, tmax):
+    """Slab test over trailing-3 tensors (all broadcast); the hit mask."""
+    t0 = (bounds_lo - o) * inv_d
+    t1 = (bounds_hi - o) * inv_d
+    t_enter = torch.maximum(torch.minimum(t0, t1).amax(-1), tmin)
+    t_exit = torch.minimum(torch.maximum(t0, t1).amin(-1), tmax)
+    return t_enter <= t_exit

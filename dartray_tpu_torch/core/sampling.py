@@ -8,18 +8,18 @@ every "uint32" value here is an int64 tensor holding a value in [0, 2^32):
 each multiply, add and left shift is followed by ``& M32``, and right shifts
 always see a non-negative value, so they are logical shifts.
 
-Ported: the hash RNG, ``index_permute``, ``van_der_corput``, ``sobol2``,
-``sample02``, the radical inverse of the Halton sampler, the warps the
-integrators and lights use (concentric disk, cosine hemisphere, uniform
-sphere, uniform cone, uniform triangle, power heuristic) and the host-side
-1D / 2D piecewise-constant distributions the environment light is built
-from.
+Every public name of the reference's module has its counterpart here but
+``U32`` (the "uint32" convention above stands for it). A key-taking helper
+(``stratified_sample_1d`` / ``_2d``, ``shuffle_permutation``,
+``latin_hypercube``) takes its key as a u32-in-int64 tensor and returns
+tensors on the key's device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from . import math as vm
 
 M32 = 0xFFFFFFFF
@@ -42,6 +42,12 @@ def hash_u32(x):
     x = (x * 0x846ca68b) & M32
     x = x ^ (x >> 16)
     return x
+
+
+def hash_combine(a, b):
+    """hash(a ^ (0x9e3779b9 + (b << 6))) in u32; a, b: u32-in-int64
+    tensors or Python ints (at least one a tensor)."""
+    return hash_u32((a & M32) ^ ((0x9e3779b9 + ((b << 6) & M32)) & M32))
 
 
 def index_permute(i, n: int, key):
@@ -133,6 +139,10 @@ def sample02(n, scramble2, n_bits: int = 32):
                  sobol2(n, scramble2[1], n_bits))
 
 
+def ld_shuffle_scrambled_1d(n_samples_log2_rounded: int):
+    raise NotImplementedError  # covered by the samplers' wave layouts
+
+
 # --- Radical inverse (the Halton sampler) ----------------------------------
 
 _PRIMES = np.array([
@@ -164,7 +174,59 @@ def radical_inverse(n, base: int):
     return val.clamp_max(ONE_MINUS_EPS)
 
 
+def permuted_radical_inverse(n, base: int, perm):
+    """Digit-scrambled radical inverse (PermutedHalton): radical_inverse
+    with each digit d replaced by perm[d]; perm: (base,) int tensor on n's
+    device. The same float32 fused step as radical_inverse."""
+    n_digits = int(np.ceil(32 / np.log2(base))) + 1
+    inv_base = np.float32(1.0 / base)
+    nn = ((n.to(torch.int64) & M32) ^ 0x80000000) - 0x80000000   # int32
+    perm = perm.to(torch.float64)
+    val = torch.zeros(n.shape, dtype=torch.float32, device=n.device)
+    inv_bi = inv_base
+    for _ in range(n_digits):
+        val = (val.to(torch.float64) + perm[nn % base] * float(inv_bi)
+               ).to(torch.float32)
+        inv_bi = np.float32(inv_bi * inv_base)
+        nn = nn // base
+    return val.clamp_max(ONE_MINUS_EPS)
+
+
+def halton_permutations(n_dims: int, seed: int = 0,
+                        device=device_mod.DEFAULT):
+    """Random digit permutations for PermutedHalton, made on the host from
+    `seed`: (bases, [(base,) int32 tensor on `device` a dimension])."""
+    dev = device_mod.resolve(device)
+    rng = np.random.RandomState(seed)
+    perms = []
+    for i in range(n_dims):
+        b = int(_PRIMES[i])
+        perms.append(torch.as_tensor(rng.permutation(b).astype(np.int32),
+                                     device=dev))
+    return [int(_PRIMES[i]) for i in range(n_dims)], perms
+
+
 # --- Geometric sampling transforms -----------------------------------------
+
+def uniform_sample_hemisphere(u):
+    """2D sample -> V3 direction about +z, pdf = 1 / (2 pi)."""
+    u = vm.from_arr2(u)
+    z = u.x
+    r = torch.sqrt((1.0 - z * z).clamp_min(0.0))
+    phi = 2.0 * np.pi * u.y
+    return vm.V3(r * torch.cos(phi), r * torch.sin(phi), z)
+
+
+UNIFORM_HEMISPHERE_PDF = float(1.0 / (2.0 * np.pi))
+
+
+def uniform_sample_disk(u):
+    """2D sample -> (x, y) uniform on the unit disk (polar map)."""
+    u = vm.from_arr2(u)
+    r = torch.sqrt(u.x)
+    theta = 2.0 * np.pi * u.y
+    return r * torch.cos(theta), r * torch.sin(theta)
+
 
 def concentric_sample_disk(u):
     """Shirley-Chiu concentric disk mapping, branch-free over the wedges."""
@@ -226,12 +288,64 @@ def uniform_sample_triangle(u):
     return 1.0 - su1, u.y * su1
 
 
-# --- MIS heuristic ----------------------------------------------------------
+# --- MIS heuristics ---------------------------------------------------------
+
+def balance_heuristic(nf, f_pdf, ng, g_pdf):
+    return (nf * f_pdf) / (nf * f_pdf + ng * g_pdf).clamp_min(1e-30)
+
 
 def power_heuristic(nf, f_pdf, ng, g_pdf):
     f = nf * f_pdf
     g = ng * g_pdf
     return (f * f) / (f * f + g * g).clamp_min(1e-30)
+
+
+# --- Stratified / LHS / shuffle ---------------------------------------------
+
+def stratified_sample_1d(n: int, key, jitter=True):
+    """n stratified samples in [0, 1); key: 0-d u32-in-int64 tensor."""
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    u = (rng_uniform(key.expand(n), i) if jitter
+         else torch.full((n,), 0.5, dtype=torch.float32, device=key.device))
+    return ((i.to(torch.float32) + u) / n).clamp_max(ONE_MINUS_EPS)
+
+
+def stratified_sample_2d(nx: int, ny: int, key):
+    """(nx * ny, 2) jittered grid samples, x fastest; key as above."""
+    dev = key.device
+    gy, gx = torch.meshgrid(torch.arange(ny, dtype=torch.float32, device=dev),
+                            torch.arange(nx, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    flat = torch.arange(nx * ny, dtype=torch.int64, device=dev)
+    keyb = key.expand(nx * ny)
+    jx = rng_uniform(keyb, (flat * 2) & M32)
+    jy = rng_uniform(keyb, (flat * 2 + 1) & M32)
+    sx = ((gx.reshape(-1) + jx) / nx).clamp_max(ONE_MINUS_EPS)
+    sy = ((gy.reshape(-1) + jy) / ny).clamp_max(ONE_MINUS_EPS)
+    return torch.stack([sx, sy], dim=-1)
+
+
+def shuffle_permutation(n: int, key):
+    """Pseudo-random permutation of [0, n) from a u32 key: the stable
+    argsort of hashed keys."""
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    k = hash_u32(key.expand(n) ^ hash_u32(i))
+    return torch.argsort(k, stable=True)
+
+
+def latin_hypercube(n: int, dims: int, key):
+    """(n, dims) Latin-hypercube samples: a jittered diagonal, each
+    dimension shuffled by its own key."""
+    delta = 1.0 / n
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    cols = []
+    for d in range(dims):
+        keyb = (key + 7919 * d) & M32
+        u = rng_uniform(keyb.expand(n), i)
+        vals = ((i.to(torch.float32) + u) * delta).clamp_max(ONE_MINUS_EPS)
+        perm = shuffle_permutation(n, keyb ^ 0xabcdef01)
+        cols.append(vals[perm])
+    return torch.stack(cols, dim=-1)
 
 
 # --- Distribution1D / Distribution2D (host numpy) -----------------------------

@@ -29,6 +29,7 @@ RGB_TO_XYZ = np.array([
     [0.212671, 0.715160, 0.072169],
     [0.019334, 0.119193, 0.950227]], np.float32)
 
+CIE_Y_INTEGRAL = 106.856895
 
 def _mat3(m, c):
     """Apply a 3x3 constant matrix to a color: V3 -> V3 (componentwise) or
@@ -61,6 +62,13 @@ def luminance(c):
     """Y of a V3 color under the current mode."""
     w = BANDS_TO_XYZ[1] if _mode == "sampled" else RGB_TO_XYZ[1]
     return float(w[0]) * c.x + float(w[1]) * c.y + float(w[2]) * c.z
+
+
+def is_black(rgb):
+    """True where every channel is zero. V3 or (..., 3) tensor."""
+    if isinstance(rgb, vm.V3):
+        return (rgb.x == 0.0) & (rgb.y == 0.0) & (rgb.z == 0.0)
+    return (rgb == 0.0).all(-1)
 
 
 def any_nonzero(c):

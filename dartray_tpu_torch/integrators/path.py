@@ -39,6 +39,8 @@ from ..core import spectrum as spec
 from ..scene import types as st
 from . import common
 
+SAMPLE_DEPTH = 3  # structured sample dims for the first bounces (read nowhere)
+
 
 @dataclasses.dataclass
 class PathIntegrator:

@@ -150,6 +150,28 @@ def _take3(v: V3, i) -> V3:
     return V3(v.x[i], v.y[i], v.z[i])
 
 
+def gather_photons(pm: PhotonMap, q: V3, accum_fn, init):
+    """The generic fold over the photons a query scans: ``carry =
+    accum_fn(carry, p, wi, alpha, valid)`` over the 27 neighbour cells of
+    each query (in ``_NEIGHBORS`` order) and MAX_SCAN slots of each, slot
+    k taking the hash id's (k+1)-th photon where ``valid`` (the index is
+    clamped to the table elsewhere). One call of `accum_fn` a (cell, slot)
+    on all queries: 27 * MAX_SCAN calls, the reference's order.
+    ``density_radiance`` gets the same photons through ``scan_pairs``."""
+    iq = [cell_coords(c, pm.cell_size) for c in q]
+    carry = init
+    for off in _NEIGHBORS.tolist():
+        hid = hash_cells(iq[0] + off[0], iq[1] + off[1], iq[2] + off[2])
+        lo = torch.searchsorted(pm.cell, hid)
+        hi = torch.minimum(torch.searchsorted(pm.cell, hid, right=True),
+                           lo + MAX_SCAN)
+        for k in range(MAX_SCAN):
+            idx = (lo + k).clamp_max(pm.n - 1)
+            carry = accum_fn(carry, _take3(pm.p, idx), _take3(pm.wi, idx),
+                             _take3(pm.alpha, idx), (lo + k) < hi)
+    return carry
+
+
 def _take_params(p: bx.BSDFParams, i) -> bx.BSDFParams:
     """The lanes `i` of a BSDFParams (the measured pool stays whole)."""
     out = {}

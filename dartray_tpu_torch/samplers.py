@@ -17,11 +17,11 @@ tensor, as the Metropolis renderer drives the integrators).
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .cameras import CameraSamples
 from .core import sampling as smp
 from .core.math import V2
 
@@ -31,14 +31,6 @@ RANDOM = 2
 HALTON = 3
 BESTCANDIDATE = 4
 VECTOR = 5   # primary-sample-space vector (Metropolis chains)
-
-
-class CameraSamples(NamedTuple):
-    """SoA camera samples: continuous image position (pixel + jitter), lens
-    uv, time u."""
-    image_xy: V2
-    lens_uv: V2
-    time_u: torch.Tensor
 
 
 # --- best-candidate (Poisson-disk) image-sample tile ------------------------

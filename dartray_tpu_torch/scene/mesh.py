@@ -79,6 +79,30 @@ def make_mesh(verts, faces, normals=None, uvs=None) -> TriangleMesh:
         None if uvs is None else np.asarray(uvs, np.float32).reshape(-1, 2))
 
 
+def concat_meshes(meshes):
+    """One mesh of all `meshes`' triangles (faces re-indexed). Normals or
+    uvs are kept when any mesh has them: a mesh without normals brings its
+    area-weighted vertex normals, one without uvs zeros."""
+    vs, fs, ns, uvs = [], [], [], []
+    off = 0
+    any_n = any(m.normals is not None for m in meshes)
+    any_uv = any(m.uvs is not None for m in meshes)
+    for m in meshes:
+        vs.append(m.verts)
+        fs.append(m.faces + off)
+        if any_n:
+            ns.append(m.normals if m.normals is not None
+                      else _vertex_normals(m))
+        if any_uv:
+            uvs.append(m.uvs if m.uvs is not None
+                       else np.zeros((m.verts.shape[0], 2), np.float32))
+        off += m.verts.shape[0]
+    return TriangleMesh(
+        np.concatenate(vs), np.concatenate(fs),
+        np.concatenate(ns) if any_n else None,
+        np.concatenate(uvs) if any_uv else None)
+
+
 def _vertex_normals(m: TriangleMesh) -> np.ndarray:
     v, f = m.verts.astype(np.float64), m.faces
     fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])

@@ -13,6 +13,7 @@ test's own temporary directory.
 """
 import os
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -31,6 +32,9 @@ import make_mesh_golden as golden  # noqa: E402
 torch.set_num_threads(1)
 
 RTOL, ATOL = 2e-3, 2e-4
+# seconds a spawn of ranks may take: about 8 s alone, a few times that on a
+# loaded host; a rendezvous that hangs is cut here
+SPAWN_DEADLINE_S = 180
 
 
 @pytest.mark.parametrize("width,height,n_tiles", [
@@ -145,11 +149,25 @@ def test_mesh_golden_is_the_references(mesh_golden, name):
 
 
 def _spawn_ranks(shape, filt, tmp_path):
+    """Spawn the ranks and join them within SPAWN_DEADLINE_S: a rendezvous
+    that never completes fails this test, its ranks terminated, instead of
+    holding the whole run."""
     world = shape[0] * shape[1]
-    torch.multiprocessing.spawn(
+    ctx = torch.multiprocessing.spawn(
         th.mesh_rank, args=(world, str(tmp_path / "rendezvous"), shape,
                             "gaussian", filt, str(tmp_path)),
-        nprocs=world, join=True)
+        nprocs=world, join=False)
+    deadline = time.monotonic() + SPAWN_DEADLINE_S
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                pytest.fail(f"{world} gloo ranks still running after "
+                            f"{SPAWN_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
     return [np.load(tmp_path / f"rank{r}.npz") for r in range(world)]
 
 
