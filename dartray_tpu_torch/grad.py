@@ -50,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import device as device_mod
 from . import film as film_mod
+from . import stats
 from .renderers import sampler as rend
 from .scene import types as st
 
@@ -118,16 +119,22 @@ def render_loss_grad(scene, camera, sampler, li_fn, width, height,
 
     theta / inject from ``select``; loss_fn: (H, W, 3) image -> scalar.
     Both come back as tensors on `device`; a parameter the image does not
-    depend on gets a zero gradient."""
+    depend on gets a zero gradient.
+
+    Spans: ``grad.step`` (a unit) holding ``grad.forward`` (the waves and
+    the loss) and ``grad.backward`` (the autograd pass, whose checkpoint
+    recomputes open their spans marked ``recompute``)."""
     dev = device_mod.resolve(device)
     leaves = {p: torch.as_tensor(v, device=dev).detach().clone()
               .requires_grad_(True) for p, v in theta.items()}
-    with torch.enable_grad():
-        img = render_image(inject(scene, leaves), camera, sampler, li_fn,
-                           width, height, spp=spp, device=dev)
-        loss = loss_fn(img)
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
+    with torch.enable_grad(), stats.span("grad.step", unit=True):
+        with stats.span("grad.forward"):
+            img = render_image(inject(scene, leaves), camera, sampler, li_fn,
+                               width, height, spp=spp, device=dev)
+            loss = loss_fn(img)
+        with stats.span("grad.backward"):
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
     return loss.detach(), {
         p: torch.zeros_like(x) if g is None else g
         for (p, x), g in zip(leaves.items(), grads)}

@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from .. import stats
 from ..core import math as vm
 from ..core import sampling as smp
 from ..scene import types as st
@@ -35,10 +36,12 @@ def li(ig: AOIntegrator, scene: st.CompiledScene, rays, diffs, sctx):
     r = rays.n
     dev = rays.tmin.device
     # one scramble pair per (pixel, camera sample), the same for every probe
-    base = smp.hash_u32(smp.as_u32(sctx["px"])
-                        ^ (smp.as_u32(sctx["py"]) << 16)
-                        ^ smp.hash_u32(smp.as_u32(sctx["s_idx"])))
-    scr = (smp.hash_u32(base ^ 0x1234567), smp.hash_u32(base ^ 0x89abcdef))
+    with stats.span("sample"):
+        base = smp.hash_u32(smp.as_u32(sctx["px"])
+                            ^ (smp.as_u32(sctx["py"]) << 16)
+                            ^ smp.hash_u32(smp.as_u32(sctx["s_idx"])))
+        scr = (smp.hash_u32(base ^ 0x1234567),
+               smp.hash_u32(base ^ 0x89abcdef))
     eps = st.ray_epsilon(it["t"])
     # offset on the probe-hemisphere side of the surface (ng may face away
     # from the shading hemisphere for back-lit or unoriented geometry)
@@ -48,8 +51,9 @@ def li(ig: AOIntegrator, scene: st.CompiledScene, rays, diffs, sctx):
     n_clear = torch.zeros((r,), dtype=torch.float32, device=dev)
     n_bits = max(int(ig.n_samples - 1).bit_length(), 1)
     for i in range(ig.n_samples):
-        u = smp.sample02(torch.full((r,), i, dtype=torch.int64, device=dev),
-                         scr, n_bits)
+        with stats.span("sample"):
+            u = smp.sample02(torch.full((r,), i, dtype=torch.int64,
+                                        device=dev), scr, n_bits)
         w = vm.face_forward(smp.uniform_sample_sphere(u), n)
         occ = st.intersect_p(geom, vm.Rays(o=o, d=w, tmin=tmin, tmax=tmax,
                                            time=rays.time))

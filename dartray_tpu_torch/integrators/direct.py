@@ -22,6 +22,7 @@ from .. import bsdf as bx
 from .. import lights as lt_mod
 from .. import materials as mat_mod
 from .. import samplers as smp_mod
+from .. import stats
 from ..core import math as vm
 from ..core import spectrum as spec
 from ..scene import types as st
@@ -90,33 +91,41 @@ def li(ig: DirectLightingIntegrator, scene: st.CompiledScene, rays, diffs,
     cur = rays
     dim = 5
     for depth in range(ig.max_depth + 1):
-        hits = st.intersect(geom, cur)
-        hit = hits.hit & active
-        if lt is not None and lt.env_light_index >= 0:
-            # an escaped ray sees the environment light
-            L = L + vm.where3(active & ~hits.hit,
-                              throughput * lt_mod.env_le(lt, cur.d), 0.0)
-        it, frame, params = surface_hit(scene, cur, hits,
-                                        diffs0 if depth == 0 else None)
-        # emitted radiance at the hit (area lights are visible)
-        if lt is not None:
-            le = lt_mod.le_emitted(lt, geom, hits.prim, it["wo"], it["ns"],
-                                   lid=it["light_id"])
-            L = L + vm.where3(hit, throughput * le, 0.0)
-        if lt is not None and lt.n > 0:
-            if ig.strategy == STRATEGY_ALL:
-                ld = common.uniform_sample_all_lights(
-                    scene, it, frame, params, it["wo"], sctx, dim0=dim)
-                dim += 6 * lt.n
-            else:
-                ld = common.uniform_sample_one_light(
-                    scene, it, frame, params, it["wo"], sd(dim), sd2(dim + 1),
-                    sd(dim + 3), sd2(dim + 4), sd(dim + 6))
-                dim += 7
-            L = L + vm.where3(hit, throughput * ld, 0.0)
-        if depth == ig.max_depth:
-            break
-        cur, active, throughput = specular_continuation(
-            scene, it, frame, params, cur, hit, throughput, sctx, dim)
-        dim += 3
+        with stats.span("bounce", index=depth):
+            hits = st.intersect(geom, cur)
+            hit = hits.hit & active
+            with stats.span("shade"):
+                if lt is not None and lt.env_light_index >= 0:
+                    # an escaped ray sees the environment light
+                    L = L + vm.where3(
+                        active & ~hits.hit,
+                        throughput * lt_mod.env_le(lt, cur.d), 0.0)
+                it, frame, params = surface_hit(
+                    scene, cur, hits, diffs0 if depth == 0 else None)
+                # emitted radiance at the hit (area lights are visible)
+                if lt is not None:
+                    le = lt_mod.le_emitted(lt, geom, hits.prim, it["wo"],
+                                           it["ns"], lid=it["light_id"])
+                    L = L + vm.where3(hit, throughput * le, 0.0)
+            if lt is not None and lt.n > 0:
+                with stats.span("nee"):
+                    if ig.strategy == STRATEGY_ALL:
+                        ld = common.uniform_sample_all_lights(
+                            scene, it, frame, params, it["wo"], sctx,
+                            dim0=dim)
+                        dim += 6 * lt.n
+                    else:
+                        ld = common.uniform_sample_one_light(
+                            scene, it, frame, params, it["wo"], sd(dim),
+                            sd2(dim + 1), sd(dim + 3), sd2(dim + 4),
+                            sd(dim + 6))
+                        dim += 7
+                    L = L + vm.where3(hit, throughput * ld, 0.0)
+            if depth == ig.max_depth:
+                break
+            with stats.span("bsdf"):
+                cur, active, throughput = specular_continuation(
+                    scene, it, frame, params, cur, hit, throughput, sctx,
+                    dim)
+            dim += 3
     return L

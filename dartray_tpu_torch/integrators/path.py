@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import bsdf as bx
 from .. import materials as mat_mod
 from .. import samplers as smp_mod
+from .. import stats
 from ..core import math as vm
 from ..core import spectrum as spec
 from ..scene import types as st
@@ -81,55 +82,65 @@ def li(ig: PathIntegrator, scene: st.CompiledScene, rays, diffs, sctx,
     diffs0 = diffs if scene.textures is not None else None
 
     def body(carry, bounce):
+        with stats.span("bounce", index=bounce):
+            return bounce_body(carry, bounce)
+
+    def bounce_body(carry, bounce):
         L, throughput, active, specular_bounce, prev_pdf, cur, hits = carry
         dim = 5 + bounce * 10
         hit = hits.hit & active
-        it = st.interaction(geom, cur, hits,
-                            diffs=diffs0 if bounce == 0 else None)
-        it["ns"] = mat_mod.bump_shading_normal(scene.materials, it["mat_id"],
-                                               scene.textures, it)
-        frame = bx.make_frame(it["ns"], it["dpdu"], it["ng"])
-        # emitted light gathered by the extension ray (MIS weighted)
-        if lt is not None:
-            le_w = common.emitter_hit_mis(scene, cur, hits, it, prev_pdf,
-                                          specular_bounce, bounce == 0)
-            if skip_direct and bounce == 0:
-                gate = torch.zeros_like(active)
-            elif skip_direct and bounce == 1:
-                gate = active & specular_bounce
-            else:
-                gate = active
-            L = L + vm.where3(gate, throughput * le_w, 0.0)
-        params = mat_mod.eval_params(scene.materials, it["mat_id"],
-                                     scene.textures, it)
+        with stats.span("shade"):
+            it = st.interaction(geom, cur, hits,
+                                diffs=diffs0 if bounce == 0 else None)
+            it["ns"] = mat_mod.bump_shading_normal(
+                scene.materials, it["mat_id"], scene.textures, it)
+            frame = bx.make_frame(it["ns"], it["dpdu"], it["ng"])
+            # emitted light gathered by the extension ray (MIS weighted)
+            if lt is not None:
+                le_w = common.emitter_hit_mis(scene, cur, hits, it, prev_pdf,
+                                              specular_bounce, bounce == 0)
+                if skip_direct and bounce == 0:
+                    gate = torch.zeros_like(active)
+                elif skip_direct and bounce == 1:
+                    gate = active & specular_bounce
+                else:
+                    gate = active
+                L = L + vm.where3(gate, throughput * le_w, 0.0)
+            params = mat_mod.eval_params(scene.materials, it["mat_id"],
+                                         scene.textures, it)
         wo = it["wo"]
         # NEE shade half: one light, shadow ray built but not yet traced
         do_nee = has_lights and not (skip_direct and bounce == 0)
         if do_nee:
-            sray, usable, contrib = common.nee_prepare(
-                scene, it, frame, params, wo, sd(dim), sd2(dim + 1),
-                sd(dim + 3), mask=hit)
+            with stats.span("nee"):
+                sray, usable, contrib = common.nee_prepare(
+                    scene, it, frame, params, wo, sd(dim), sd2(dim + 1),
+                    sd(dim + 3), mask=hit)
         last = bounce == ig.max_depth
         if not last:
-            # BSDF sampling for the next ray (also the MIS light-hit sample)
-            bs = bx.sample_f(params, frame, wo, sd2(dim + 7), sd(dim + 9),
-                             flags=bx.ALL)
-            cos_s = vm.absdot(bs.wi, frame.n)
-            cont = hit & bs.valid & (bs.pdf > 0.0) & spec.any_nonzero(bs.f)
-            new_tp = throughput * bs.f * (cos_s / bs.pdf.clamp_min(1e-20))
-            if bounce > ig.rr_depth:        # Russian roulette
-                u_rr = sd(dim + 8)
-                cprob = spec.luminance(new_tp).clamp_max(0.5)
-                survive = u_rr <= cprob
-                new_tp = new_tp * (1.0 / cprob.clamp_min(1e-8))
-                cont = cont & survive
-            eps = st.ray_epsilon(it["t"])
-            ng_f = vm.face_forward(it["ng"], bs.wi)
-            next_ray = vm.Rays(
-                o=it["p"] + ng_f * eps, d=bs.wi,
-                tmin=torch.zeros((r,), dtype=torch.float32, device=dev),
-                tmax=torch.where(cont, float("inf"), -1.0),
-                time=cur.time)
+            with stats.span("bsdf"):
+                # BSDF sampling for the next ray (also the MIS light-hit
+                # sample)
+                bs = bx.sample_f(params, frame, wo, sd2(dim + 7),
+                                 sd(dim + 9), flags=bx.ALL)
+                cos_s = vm.absdot(bs.wi, frame.n)
+                cont = (hit & bs.valid & (bs.pdf > 0.0)
+                        & spec.any_nonzero(bs.f))
+                new_tp = throughput * bs.f * (cos_s
+                                              / bs.pdf.clamp_min(1e-20))
+                if bounce > ig.rr_depth:        # Russian roulette
+                    u_rr = sd(dim + 8)
+                    cprob = spec.luminance(new_tp).clamp_max(0.5)
+                    survive = u_rr <= cprob
+                    new_tp = new_tp * (1.0 / cprob.clamp_min(1e-8))
+                    cont = cont & survive
+                eps = st.ray_epsilon(it["t"])
+                ng_f = vm.face_forward(it["ng"], bs.wi)
+                next_ray = vm.Rays(
+                    o=it["p"] + ng_f * eps, d=bs.wi,
+                    tmin=torch.zeros((r,), dtype=torch.float32, device=dev),
+                    tmax=torch.where(cont, float("inf"), -1.0),
+                    time=cur.time)
         # the merged traversal: extension closest-hit + shadow any-hit
         if do_nee and not last:
             hits_next, occluded = st.intersect_pair(geom, next_ray, sray)

@@ -96,6 +96,7 @@ from time import perf_counter
 import numpy as np
 import torch
 
+from .. import stats
 from ..core.math import V3
 
 TRI_EPS = 1e-10
@@ -361,7 +362,7 @@ def _bind(name, lib):
 def load_kernels(names=tuple(KERNEL_SOURCES)):
     """Build (where needed, all ``nvcc`` runs started together) and load the
     libraries of `names`; raises if one fails to build."""
-    with _lib_lock:
+    with _lib_lock, stats.span("kernel_load"):
         tag = _csrc_hash()
         path = {name: os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
                 for name in names}
@@ -1265,18 +1266,24 @@ def finish_hits_rows(bvh: PackedBVH, attrp, o, d, tmin, t_approx, prim_p,
 DEFAULT_KERNEL = dict(closest_coherent="v6", closest="v6", any="v6")
 
 
-def _sorted_launch(fn, bvh, key, planes, **kw):
-    """Stable sort by key, gather the ray planes (o, d, tmin, tmax, then the
-    optional per-lane planes named in `kw`), traverse with `fn`, unsort."""
-    order = torch.sort(key, stable=True).indices
-    s = [p[order] for p in planes]
-    kw = {k: (v[order] if torch.is_tensor(v) else v) for k, v in kw.items()}
-    t_s, prim_s = fn(bvh, V3(s[0], s[1], s[2]), V3(s[3], s[4], s[5]),
-                     s[6], s[7], **kw)
-    t = torch.empty_like(t_s)
-    prim_p = torch.empty_like(prim_s)
-    t[order] = t_s
-    prim_p[order] = prim_s
+def _sorted_launch(fn, bvh, key_fn, planes, **kw):
+    """Stable sort by the key ``key_fn()`` makes, gather the ray planes (o,
+    d, tmin, tmax, then the optional per-lane planes named in `kw`),
+    traverse with `fn`, unsort: the spans ``sort``, ``kernel`` and
+    ``finish``."""
+    with stats.span("sort"):
+        order = torch.sort(key_fn(), stable=True).indices
+        s = [p[order] for p in planes]
+        kw = {k: (v[order] if torch.is_tensor(v) else v)
+              for k, v in kw.items()}
+    with stats.span("kernel"):
+        t_s, prim_s = fn(bvh, V3(s[0], s[1], s[2]), V3(s[3], s[4], s[5]),
+                         s[6], s[7], **kw)
+    with stats.span("finish"):
+        t = torch.empty_like(t_s)
+        prim_p = torch.empty_like(prim_s)
+        t[order] = t_s
+        prim_p[order] = prim_s
     return t, prim_p
 
 
@@ -1312,18 +1319,20 @@ def intersect_rays(bvh: PackedBVH, perm, lo, hi, o, d, tmin, tmax, *,
         kw["time"] = time
     oc, dc = _components(o, d)
     if sort:
-        key = sort_key_i32(oc, dc, tmin, tmax, lo, hi)
-        t, prim_p = _sorted_launch(fns[which], bvh, key,
-                                   [*oc, *dc, tmin, tmax], **kw)
+        t, prim_p = _sorted_launch(
+            fns[which], bvh, lambda: sort_key_i32(oc, dc, tmin, tmax, lo, hi),
+            [*oc, *dc, tmin, tmax], **kw)
     else:
-        t, prim_p = fns[which](bvh, o, d, tmin, tmax, **kw)
-    if any_hit:
-        z = torch.zeros_like(t)
-        return t, prim_p, z, z
-    if rows_table is not None:
-        return finish_hits_rows(bvh, rows_table, o, d, tmin, t, prim_p,
-                                time=time)
-    return finish_hits(bvh, perm, o, d, tmin, t, prim_p, time=time)
+        with stats.span("kernel"):
+            t, prim_p = fns[which](bvh, o, d, tmin, tmax, **kw)
+    with stats.span("finish"):
+        if any_hit:
+            z = torch.zeros_like(t)
+            return t, prim_p, z, z
+        if rows_table is not None:
+            return finish_hits_rows(bvh, rows_table, o, d, tmin, t, prim_p,
+                                    time=time)
+        return finish_hits(bvh, perm, o, d, tmin, t, prim_p, time=time)
 
 
 @torch.no_grad()
@@ -1340,25 +1349,29 @@ def intersect_rays_pair(bvh: PackedBVH, perm, lo, hi,
     Returns (t, prim, b1, b2) for the extension half (original order,
     original soup ids) and `occluded` bool for the shadow half
     (+ rows when rows_table is given)."""
-    oce, dce = _components(o_e, d_e)
-    ocs, dcs = _components(o_s, d_s)
-    n = oce[0].shape[0]
-    oc = [torch.cat([a, b]) for a, b in zip(oce, ocs)]
-    dc = [torch.cat([a, b]) for a, b in zip(dce, dcs)]
-    tmin = torch.cat([tmin_e, tmin_s])
-    tmax = torch.cat([tmax_e, tmax_s])
-    af = torch.cat([torch.zeros_like(tmin_e), torch.ones_like(tmin_s)])
-    if time_e is None or bvh.soup16d is None:
-        time_e = None
-    kw = {} if time_e is None else {"time": torch.cat([time_e, time_s])}
-    key = sort_key_i32(oc, dc, tmin, tmax, lo, hi, anyflag=af)
-    t, prim_p = _sorted_launch(traverse6, bvh, key, [*oc, *dc, tmin, tmax],
-                               anyf=af, **kw)
-    occluded = prim_p[n:] >= 0
-    if rows_table is not None:
-        te, prime, b1, b2, rows = finish_hits_rows(
-            bvh, rows_table, o_e, d_e, tmin_e, t[:n], prim_p[:n], time=time_e)
-        return te, prime, b1, b2, occluded, rows
-    te, prime, b1, b2 = finish_hits(bvh, perm, o_e, d_e, tmin_e,
-                                    t[:n], prim_p[:n], time=time_e)
-    return te, prime, b1, b2, occluded
+    with stats.span("sort"):
+        oce, dce = _components(o_e, d_e)
+        ocs, dcs = _components(o_s, d_s)
+        n = oce[0].shape[0]
+        oc = [torch.cat([a, b]) for a, b in zip(oce, ocs)]
+        dc = [torch.cat([a, b]) for a, b in zip(dce, dcs)]
+        tmin = torch.cat([tmin_e, tmin_s])
+        tmax = torch.cat([tmax_e, tmax_s])
+        af = torch.cat([torch.zeros_like(tmin_e), torch.ones_like(tmin_s)])
+        if time_e is None or bvh.soup16d is None:
+            time_e = None
+        kw = {} if time_e is None else {"time": torch.cat([time_e, time_s])}
+    t, prim_p = _sorted_launch(
+        traverse6, bvh,
+        lambda: sort_key_i32(oc, dc, tmin, tmax, lo, hi, anyflag=af),
+        [*oc, *dc, tmin, tmax], anyf=af, **kw)
+    with stats.span("finish"):
+        occluded = prim_p[n:] >= 0
+        if rows_table is not None:
+            te, prime, b1, b2, rows = finish_hits_rows(
+                bvh, rows_table, o_e, d_e, tmin_e, t[:n], prim_p[:n],
+                time=time_e)
+            return te, prime, b1, b2, occluded, rows
+        te, prime, b1, b2 = finish_hits(bvh, perm, o_e, d_e, tmin_e,
+                                        t[:n], prim_p[:n], time=time_e)
+        return te, prime, b1, b2, occluded

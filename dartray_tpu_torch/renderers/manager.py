@@ -266,9 +266,12 @@ def run(job: RenderJob, progress: Optional[Callable] = None, log=print,
 
     The ``sampler`` renderer fills `stats` (a fresh one when None) with its
     waves, camera rays, seconds, the traversal queries it issued (counted
-    where they are issued, ``scene.types.QUERIES``: exact with no trace) and
-    the scene's size, and logs the summary. A wave that fails after the
-    first returns the film of the waves before it."""
+    where they are issued, ``scene.types.QUERIES``: exact with no trace)
+    and the scene's size, and logs the summary; where the caller collects
+    into `stats` (``with stats_mod.collect(stats):``), the summary also
+    gives the host seconds of the program's spans and the live share of
+    the traversal lanes. A wave that fails after the first returns the
+    film of the waves before it."""
     dev = device_mod.resolve(device)
     rp = job.renderer_params
     rname = job.renderer

@@ -22,10 +22,12 @@ from .. import cameras as cam_mod
 from .. import device as device_mod
 from .. import film as film_mod
 from .. import samplers as smp_mod
+from .. import stats as stats_mod
 from ..core import spectrum as spec_mod
 from ..scene import types as st
 
 
+@stats_mod.spanned("pixel_grid")
 def pixel_grid(width, height, x0=0, y0=0, morton: bool = True,
                device=device_mod.DEFAULT):
     """Flattened int32 pixel index tensors for a film window.
@@ -65,24 +67,31 @@ def render_wave(scene, camera: cam_mod.Camera, sampler: smp_mod.Sampler,
     it, that is unless the wave's radiance or the film's pixels require
     grad: then it is out of place (``film.add_samples_functional``), `film`
     is left as it was and a new film is returned. Under ``torch.no_grad()``
-    nothing requires grad, so ``render`` always takes the in-place form."""
+    nothing requires grad, so ``render`` always takes the in-place form.
+
+    Spans: ``wave`` (a unit of its own outside a fitting step) holding
+    ``camera``, ``li`` and ``film``."""
     dev = device_mod.resolve(device)
     for name, where in (("camera", camera.device), ("film",
                         film.pixels.device), ("px", px.device)):
         if where.type != dev.type:
             raise ValueError(f"render_wave: {name} lives on {where}, "
                              f"the wave was asked to run on {dev}")
-    cs = smp_mod.camera_samples(sampler, px, py, s_idx)
-    diff_scale = 1.0 / np.sqrt(max(spp, 1))
-    rays, diffs, weight = cam_mod.generate_rays(camera, cs, width, height,
-                                                diff_scale)
-    sctx = {"sampler": sampler, "px": px, "py": py, "s_idx": s_idx}
-    L = li_fn(scene, rays, diffs, sctx)
-    L = L * weight
-    add = (film_mod.add_samples_functional
-           if any(c.requires_grad for c in L) or film.pixels.requires_grad
-           else film_mod.add_samples)
-    return add(film, cs.image_xy, L)
+    with stats_mod.span("wave", unit=True):
+        with stats_mod.span("camera"):
+            cs = smp_mod.camera_samples(sampler, px, py, s_idx)
+            diff_scale = 1.0 / np.sqrt(max(spp, 1))
+            rays, diffs, weight = cam_mod.generate_rays(camera, cs, width,
+                                                        height, diff_scale)
+        sctx = {"sampler": sampler, "px": px, "py": py, "s_idx": s_idx}
+        with stats_mod.span("li"):
+            L = li_fn(scene, rays, diffs, sctx)
+        with stats_mod.span("film"):
+            L = L * weight
+            add = (film_mod.add_samples_functional
+                   if any(c.requires_grad for c in L)
+                   or film.pixels.requires_grad else film_mod.add_samples)
+            return add(film, cs.image_xy, L)
 
 
 def render(scene, camera, sampler, li_fn, width, height,

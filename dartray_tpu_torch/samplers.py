@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import stats
 from .cameras import CameraSamples
 from .core import sampling as smp
 from .core.math import V2
@@ -157,6 +158,7 @@ def _halton_index(sampler: Sampler, px, py, s):
     return s ^ (_pixel_key(sampler, px, py, 0) >> 8)
 
 
+@stats.spanned("sample")
 def sample_2d(sampler: Sampler, px, py, s_idx, dim: int) -> V2:
     """(R,) pixel coords + sample indices -> V2 in [0,1)^2."""
     if sampler.kind == VECTOR:
@@ -208,6 +210,7 @@ def sample_2d(sampler: Sampler, px, py, s_idx, dim: int) -> V2:
               smp.rng_uniform(k, (s * 2 + 1) & smp.M32))
 
 
+@stats.spanned("sample")
 def sample_1d(sampler: Sampler, px, py, s_idx, dim: int):
     if sampler.kind == VECTOR:
         return sampler.u_vec[:, dim % sampler.u_vec.shape[1]]
@@ -228,6 +231,7 @@ def sample_1d(sampler: Sampler, px, py, s_idx, dim: int):
     return smp.rng_uniform(_pixel_key(sampler, px, py, dim), s)
 
 
+@stats.spanned("sample")
 def camera_samples(sampler: Sampler, px, py, s_idx) -> CameraSamples:
     """Image/lens/time sample triple for a wavefront. px/py int32 raster
     pixel; returns continuous raster image_xy = pixel + [0,1)^2 offset."""

@@ -8,6 +8,7 @@ import numpy as np
 
 from .. import lights as lt_mod
 from .. import materials as mat_mod
+from .. import stats
 from ..core import transform as tr
 from . import mesh as mesh_mod
 from . import types as st
@@ -40,6 +41,7 @@ class SceneBuilder:
     def add_light(self, spec: lt_mod.LightSpec):
         self.light_specs.append(spec)
 
+    @stats.spanned("build")
     def build(self, split_method="sah",
               accelerator="bvh") -> st.CompiledScene:
         """Compile to a host (numpy-leaved) CompiledScene; move it with

@@ -8,6 +8,7 @@ scene archives).
 from __future__ import annotations
 
 from .. import device as device_mod
+from .. import stats
 from . import lexer as lx
 from . import paramset as ps
 from .api import PbrtAPI, RenderJob
@@ -57,6 +58,7 @@ def _string(lex: lx.Lexer) -> str:
     return t.value
 
 
+@stats.spanned("parse")
 def parse(text: str, api: PbrtAPI = None, resolver=None,
           log=lambda *a: None, device=device_mod.DEFAULT) -> RenderJob:
     """Parse a complete scene; returns the RenderJob from WorldEnd. `device`

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from .. import stats
 from .. import textures as tex_mod
 from ..accel import bvh as bvh_mod
 from ..accel import cluster as cluster_mod
@@ -153,25 +154,28 @@ def compile_geometry(meshes, mat_ids=None, light_ids=None,
     # moving geometry: ONE shutter-union BVH + per-triangle (close - open)
     # soup deltas; leaf tests lerp by ray time
     has_motion = any(m.verts_end is not None for m in meshes)
-    if has_motion:
-        ends = [bvh_mod.triangles_to_mt(
-            m.verts if m.verts_end is None else m.verts_end, m.faces)
-            for m in meshes]
-        cb = cluster_mod.build_motion(
-            v0, e1, e2, *(np.concatenate([e[c] for e in ends])
-                          for c in range(3)), split_method=split_method)
-    else:
-        cb = cluster_mod.build(v0, e1, e2, split_method=split_method)
+    with stats.span("bvh"):
+        if has_motion:
+            ends = [bvh_mod.triangles_to_mt(
+                m.verts if m.verts_end is None else m.verts_end, m.faces)
+                for m in meshes]
+            cb = cluster_mod.build_motion(
+                v0, e1, e2, *(np.concatenate([e[c] for e in ends])
+                              for c in range(3)), split_method=split_method)
+        else:
+            cb = cluster_mod.build(v0, e1, e2, split_method=split_method)
     wb = np.stack([np.asarray(cb.node_lo[0]), np.asarray(cb.node_hi[0])])
     if has_motion and accelerator in ("grid", "kdtree"):
         warnings.warn(f"Accelerator {accelerator!r} does not support "
                       f"moving geometry; using the cluster BVH")
         accelerator = "bvh"
     alt = build_alt(accelerator, v0, e1, e2)
-    packed, perm = tc.pack(cb.node_lo, cb.node_hi, cb.node_child,
-                           cb.node_axis, cb.tri_v0, cb.tri_e1, cb.tri_e2, cb.tri_id,
-                           deltas=((cb.tri_dv0, cb.tri_de1, cb.tri_de2)
-                                   if has_motion else None))
+    with stats.span("pack"):
+        packed, perm = tc.pack(cb.node_lo, cb.node_hi, cb.node_child,
+                               cb.node_axis, cb.tri_v0, cb.tri_e1, cb.tri_e2,
+                               cb.tri_id,
+                               deltas=((cb.tri_dv0, cb.tri_de1, cb.tri_de2)
+                                       if has_motion else None))
     vn_all = np.concatenate(vns)          # (F, 3 corners, 3)
     uv_all = np.concatenate(uvs)          # (F, 3 corners, 2)
     mat_all = np.concatenate(mids)
@@ -275,6 +279,7 @@ def _pack_attr(v0, e1, e2, vn, uv, mat_id, light_id, alpha_tid):
     return A
 
 
+@stats.spanned("upload")
 def to_device(tree, device=device_mod.DEFAULT):
     """One-shot transfer of a (numpy-leaved) scene tree to `device`:
     dataclasses, NamedTuples, tuples, lists and dicts are walked, numpy
@@ -335,6 +340,17 @@ def _query(*rays):
     QUERIES["rays"] += sum(r.n for r in rays)
 
 
+def _lanes(mode, *rays):
+    """While statistics are collected: the lanes handed to one traversal
+    launch (or alternate walk) of `mode` ("closest", "any", "mixed") and
+    the live ones among them (tmax >= tmin), a sum on the rays' device."""
+    if not stats.collecting():
+        return
+    stats.count("lanes/" + mode, sum(r.n for r in rays))
+    for r in rays:
+        stats.count("lanes_live/" + mode, (r.tmax >= r.tmin).sum())
+
+
 def _shutter_time01(geom: Geometry, rays):
     """The rays' shutter time normalised to [0, 1] for the motion lerp
     (None for a static scene)."""
@@ -348,6 +364,7 @@ def _closest(geom: Geometry, rays, sort: bool) -> Hits:
     """One closest-hit launch over the wave, finished with its attr rows;
     with an alternate accelerator, its walk and one gather of the rows."""
     _query(rays)
+    _lanes("closest", rays)
     if geom.alt_kind:
         h = _ALT_WALKS[geom.alt_kind].intersect(geom.alt, rays)
         return h._replace(rows=attr_rows(geom, h.prim.clamp_min(0)))
@@ -377,6 +394,7 @@ def _alpha_cut(geom: Geometry, hits: Hits):
     return (hits.prim >= 0) & (tid >= 0) & (a.x < 1e-3)
 
 
+@stats.spanned("traverse")
 @torch.no_grad()
 def intersect(geom: Geometry, rays, sort: bool = True) -> Hits:
     """Closest hit over the scene BVH. No gradient passes the traversal:
@@ -407,6 +425,7 @@ def intersect(geom: Geometry, rays, sort: bool = True) -> Hits:
     return h
 
 
+@stats.spanned("traverse")
 @torch.no_grad()
 def intersect_pair(geom: Geometry, ext_rays, shadow_rays):
     """Closest hit over ext_rays + any-hit over shadow_rays in ONE merged
@@ -420,6 +439,7 @@ def intersect_pair(geom: Geometry, ext_rays, shadow_rays):
     if geom.has_alpha or geom.alt_kind:
         return intersect(geom, ext_rays), intersect_p(geom, shadow_rays)
     _query(ext_rays, shadow_rays)
+    _lanes("mixed", ext_rays, shadow_rays)
     t, prim, b1, b2, occ, rows = tc.intersect_rays_pair(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
         ext_rays.o, ext_rays.d, ext_rays.tmin, ext_rays.tmax,
@@ -429,6 +449,7 @@ def intersect_pair(geom: Geometry, ext_rays, shadow_rays):
     return Hits(t=t, prim=prim, b1=b1, b2=b2, rows=rows), occ
 
 
+@stats.spanned("traverse")
 @torch.no_grad()
 def intersect_p(geom: Geometry, rays, sort: bool = True):
     """Any-hit occlusion: (R,) bool. On an alpha scene a blocker may be a
@@ -436,6 +457,7 @@ def intersect_p(geom: Geometry, rays, sort: bool = True):
     _query(rays)
     if geom.has_alpha:
         return intersect(geom, rays, sort=sort).prim >= 0
+    _lanes("any", rays)
     if geom.alt_kind:
         return _ALT_WALKS[geom.alt_kind].intersect_p(geom.alt, rays)
     _, prim, _, _ = tc.intersect_rays(
