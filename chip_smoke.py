@@ -31,14 +31,20 @@ script exits non-zero:
                EQUAL to the plain version's, and the four walks over the
                binary tree (v1-v4) on the same two ray sets: raw (t, prim)
                and v3's counters EQUAL to the plain version's, hit masks
-               equal to v6's on the same rays
+               equal to v6's on the same rays; the sampler's hashing
+               (csrc/sample_hash.cu) through each routed draw at the main
+               path's lanes and at a 3840x2160 wave's: 1-D and 2-D draws of
+               the lowdiscrepancy and stratified kinds, the camera's
+               draws, the AO scramble pair and an AO probe, each EQUAL bit
+               for bit to its plain version on the same tensors
   small_scene  Cornell box 32x32: the whole render on the card against the
                same render on the CPU (plain traversal), pixel by pixel
   motion_small the same with one sphere translating: card against CPU, and
                the zero-delta scene against the static scene on the card
   main_path    bench scene, 512x512, path depth 5, lowdiscrepancy 64 spp
                through renderers.sampler.render_wave on the card; asserts 7
-               launches of the static v6 kernel per wave and of no other, a
+               launches of the static v6 kernel per wave and of no other,
+               MAIN_SAMPLER_LAUNCHES of the sampler's hashing per wave, a
                finite image and the image mean within 1 % of the JAX
                reference's value for the same scene
   motion_path  the moving bench scene through the same path: 7 launches of
@@ -64,7 +70,8 @@ script exits non-zero:
                direct_path's first waves
   ao_path      a few waves of the ambient-occlusion integrator with 64 probes
                (n_samples + 1 launches a wave; the default of 2,048 probes is
-               2,049 launches a wave and belongs to no smoke run)
+               2,049 launches a wave and belongs to no smoke run), and
+               AO_SAMPLER_LAUNCHES of the sampler's hashing a wave
   whitted_path a few waves of the Whitted integrator, depth 5
   pbrt_path    the scene front door on the card: (a) `python -m
                dartray_tpu_torch scenes/cornell.pbrt` (``__main__.main``): 7
@@ -214,9 +221,10 @@ script exits non-zero:
                above the start at most 1.25 times the 2-spp one
 
 Then the script's wall time so far ({"phase": "wall", ...}), one line
-{"kernels": [...]} (per kernel and mode: launches counted on
-its path (the front door's and the gradient's launches are on pbrt_path's
-and grad_path's lines), error against
+{"kernels": [...]} (per kernel and mode, and per entry of the sampler's
+hashing: launches counted on its path (the front door's and the gradient's
+launches are on pbrt_path's and grad_path's lines; the hashing's on
+main_path's and ao_path's), error against
 the plain version, times, the least time the card could take, and the
 registers and spill bytes ptxas gave its kernel function), the nvidia-smi
 line again, and as the last line
@@ -249,6 +257,7 @@ from dartray_tpu_torch.accel import kdtree as kd_mod
 from dartray_tpu_torch.accel import native
 from dartray_tpu_torch.accel import traverse as tv
 from dartray_tpu_torch.core import math as vm
+from dartray_tpu_torch.core import sampling as sampling_mod
 from dartray_tpu_torch.core import spectrum as spec
 from dartray_tpu_torch.core import transform as tr
 from dartray_tpu_torch.integrators import ao as ao_mod
@@ -262,6 +271,7 @@ from dartray_tpu_torch.integrators import photonmap as pm_mod
 from dartray_tpu_torch.integrators import prt as prt_mod
 from dartray_tpu_torch.integrators import whitted as wh
 from dartray_tpu_torch.io import image as io_img
+from dartray_tpu_torch.ops import sampler_cuda as sc
 from dartray_tpu_torch.ops import traverse_cuda as tc
 from dartray_tpu_torch.parallel import mesh as pm
 from dartray_tpu_torch.renderers import manager
@@ -292,6 +302,15 @@ SMALL_SPP = 4              # SMALL_SPP samples (one wave each), depth 3
 ALT_WAVES = 4              # waves of the bench scene per packet kernel
 ATTIC_WAVES = 4            # ... per binary-tree kernel, and of AO and Whitted
 AO_SAMPLES = 64            # probes a wave of ao_path
+# the sampler's hashing a wave (entry -> launches): the main path draws its
+# camera samples in one launch, then at each of its MAX_DEPTH + 1 levels a
+# light sample (three draws), at each level but the last a BSDF sample (two)
+# and past the Russian roulette's depth (3) its draw; ao_path the camera's,
+# the scramble pair and one a probe
+MAIN_SAMPLER_LAUNCHES = {"camera": 1, "draw": 3 * (MAX_DEPTH + 1)
+                         + 2 * MAX_DEPTH + (MAX_DEPTH - 1 - 3)}
+AO_SAMPLER_LAUNCHES = {"camera": 1, "ao_scrambles": 1,
+                       "ao_probe": AO_SAMPLES}
 SAME_MIN = 0.999           # share of pixels two renders of one scene share
 AGREE_MIN = 0.999          # share of lanes whose finished t and prim agree
 T_RTOL = 1e-5              # finished t: both sides finish with the same ops
@@ -308,6 +327,14 @@ FLOPS_PER_TRI_TEST = 50
 FLOPS_PER_LERP = 18
 FLOPS_PER_WOOP_TEST = 45
 CSRC = "dartray_tpu_torch/csrc/"
+# the sampler's hashing has no TPU kernel behind it: the reference draws with
+# XLA's uint32 ops, here the lines of the draws each entry computes
+SAMPLE_HASH = {
+    "draw": "dartray_tpu/samplers.py:158,217",
+    "camera": "dartray_tpu/samplers.py:241",
+    "ao_scrambles": "dartray_tpu/integrators/ao.py:46",
+    "ao_probe": "dartray_tpu/integrators/ao.py:58",
+}
 # kernel -> (source, the TPU kernel's pallas_call it replaces)
 KERNELS = {
     "traverse6": (CSRC + "traverse6.cu",
@@ -385,11 +412,13 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_resources(kern):
+def ptxas_resources(counter):
     """Registers and spill bytes (stores) of the kernel function behind
-    `kern`, from the assembler's report of its library's build (nvcc runs
-    with -Xptxas -v). traverse6.cu holds two: the motion instantiation is
-    the one with ``ILb1E`` in its name."""
+    `counter` (library:mode), from the assembler's report of its library's
+    build (nvcc runs with -Xptxas -v). traverse6.cu holds two: the motion
+    instantiation is the one with ``ILb1E`` in its name; sample_hash.cu one
+    a launcher: the entry's ``<entry>_kernel``."""
+    kern, _, mode = counter.partition(":")
     lib = "traverse6" if kern.startswith("traverse6") else kern
     found = {}
     fn = None
@@ -408,7 +437,10 @@ def ptxas_resources(kern):
     if lib == "traverse6":
         found = {f: v for f, v in found.items()
                  if ("ILb1E" in f) == (kern == "traverse6_motion")}
-    require(len(found) == 1, f"{kern}: the build log names {sorted(found)}")
+    elif lib == "sample_hash":
+        found = {f: v for f, v in found.items() if f"{mode}_kernel" in f}
+    require(len(found) == 1,
+            f"{counter}: the build log names {sorted(found)}")
     return next(iter(found.values()))
 
 
@@ -603,6 +635,85 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
     }, p_k, ft_k
 
 
+def check_sampler(entry, label, lanes, run_k, run_p, bytes_a_lane,
+                  as_plain=lambda x: x):
+    """One routed draw of the sampler's hashing (`entry` of
+    ``sampler_cuda.LAUNCHES``) against its plain version on the same device
+    tensors: exactly one launch, every output plane EQUAL bit for bit
+    (`as_plain` maps a kernel plane to the plain version's dtype); times of
+    both; the bound, the lanes' bytes in and out once each."""
+    name = f"sample_hash:{entry}" + (label and f"_{label}")
+    before = dict(sc.LAUNCHES)
+    got = run_k()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in sc.LAUNCHES.items()
+                if v != before[k]}
+    require(launched == {entry: 1}, f"{name}: the wrapper counted {launched}")
+    with part("plain_checks"):
+        want = run_p()
+    require(len(got) == len(want) and all(
+        torch.equal(as_plain(g), w) for g, w in zip(got, want)),
+        f"{name}: differs from the plain version's bits")
+    ms = time_ms(run_k, repeats=7, warmup=2)
+    ms_queued = time_ms(lambda: [run_k() for _ in range(20)], repeats=3,
+                        warmup=1) / 20
+    with part("plain_timing"):
+        plain_ms = time_ms(run_p, repeats=3, warmup=1)
+    return {
+        "name": name, "route": "cuda", "source": CSRC + "sample_hash.cu",
+        "replaces": SAMPLE_HASH[entry], "launches": 0, "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": lanes * bytes_a_lane / PEAK_BYTES_S * 1e3,
+        "bound_by": "bytes", "library_ms": None, "ms_queued": ms_queued,
+        "counter": f"sample_hash:{entry}", "lanes": lanes, "equal": True,
+        "bytes_a_lane": bytes_a_lane}
+
+
+def sampler_checks(width, height, dev, suffix=""):
+    """Each routed draw of the sampler's hashing over a width x height wave
+    (Morton-ordered pixels as the main path's, a seeded sample index a
+    lane): 2-D and 1-D draws of the lowdiscrepancy and stratified kinds at
+    SPP, the camera's draws, the AO scramble pair and probe 37 of
+    AO_SAMPLES. `suffix` labels every row (a second lane count)."""
+    px, py = rend.pixel_grid(width, height, device=dev)
+    n = px.shape[0]
+    s = torch.from_numpy(np.random.RandomState(16).randint(
+        0, SPP, n).astype(np.int32)).to(dev)
+    ld = samplers.make_sampler("lowdiscrepancy", SPP)
+    strat = samplers.make_sampler("stratified", SPP)
+    n_bits = max(int(AO_SAMPLES - 1).bit_length(), 1)
+    scr_k = ao_mod.scrambles(px, py, s)
+    scr_p = ao_mod.scrambles_plain(px, py, s)
+    probe = torch.full((n,), 37, dtype=torch.int64, device=dev)
+
+    def camera(fn):
+        c = fn(ld, px, py, s)
+        return (*c.image_xy, *c.lens_uv, c.time_u)
+
+    rows = []
+    for label, smp in (("", ld), ("stratified", strat)):
+        rows.append(check_sampler(
+            "draw", label, n, lambda: samplers.sample_2d(smp, px, py, s, 7),
+            lambda: samplers.sample_2d_plain(smp, px, py, s, 7), 12 + 8))
+        rows.append(check_sampler(
+            "draw", "1d" + (label and "_" + label), n,
+            lambda: (samplers.sample_1d(smp, px, py, s, 9),),
+            lambda: (samplers.sample_1d_plain(smp, px, py, s, 9),), 12 + 4))
+    rows.append(check_sampler(
+        "camera", "", n, lambda: camera(samplers.camera_samples),
+        lambda: camera(samplers.camera_samples_plain), 12 + 20))
+    rows.append(check_sampler(
+        "ao_scrambles", "", n, lambda: ao_mod.scrambles(px, py, s),
+        lambda: ao_mod.scrambles_plain(px, py, s), 12 + 8,
+        as_plain=lambda x: x.to(torch.int64) & sampling_mod.M32))
+    rows.append(check_sampler(
+        "ao_probe", "", n, lambda: ao_mod.probe(scr_k, 37, n_bits),
+        lambda: sampling_mod.sample02(probe, scr_p, n_bits), 8 + 8))
+    for r in rows:
+        r["name"] += suffix and "@" + suffix
+    return rows
+
+
 def wave_shapes(geom, dev, cam_rays):
     """The three launch shapes of the main path on `geom`: the unsorted
     camera wave, sorted incoherent rays, and a sorted mixed wave of n
@@ -710,6 +821,10 @@ def kernels_phase(geom, geom_w, shapes, moving, cam_rays, dev):
     run("traverse6_motion", "mixed", gm, mixed_m, af_m)
     overflow = int(tc.overflow_flag(dev).item())
     require(overflow == 0, "stack overflow in a kernel")
+    # the sampler's hashing at the main path's lanes (the kernels line's
+    # rows) and at a 3840x2160 wave's, the benchmark's render cells'
+    results += sampler_checks(WIDTH, HEIGHT, dev)
+    results += sampler_checks(3840, 2160, dev, suffix="2160p")
     say("kernels", kernels=[r["name"] for r in results], overflow=overflow,
         v7_vs_v6=v7_vs_v6, attic_vs_v6=attic_vs_v6,
         packet_lanes={k: v["packet"] for k, v in tc.ATTIC.items()},
@@ -821,19 +936,23 @@ def alt_kernels_phase(dev, v6_img):
 
 
 @timed_part("driven_waves")
-def drive_waves(phase, scene, dev, li, waves, want, snapshot_at=None):
+def drive_waves(phase, scene, dev, li, waves, want, snapshot_at=None,
+                want_draws=None):
     """`waves` waves of the integrator `li` over `scene` through
     render_wave, every count set to 0 just before and read just after;
     requires the launches `want` (counter -> launches a wave) and no other, a
     finite image and no stack overflow. Rays are counted as launches times
-    the lanes of a wave. snapshot_at: also return the image after that many
-    waves."""
+    the lanes of a wave. The sampler's hashing launches go on the line as
+    ``sampler_launches`` (``sample_hash:<entry>``); want_draws: require
+    those (entry -> launches a wave) and no other. snapshot_at: also return
+    the image after that many waves."""
     cam, smp, px, py, _ = camera_wave(dev)
     film = film_mod.make_film(WIDTH, HEIGHT, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tc.reset_overflow(dev)
     tc.reset_launches()
+    sc.LAUNCHES.update(dict.fromkeys(sc.LAUNCHES, 0))
     t0 = time.time()
     t_first = snap = None
     with torch.no_grad():
@@ -851,11 +970,13 @@ def drive_waves(phase, scene, dev, li, waves, want, snapshot_at=None):
     torch.cuda.synchronize()
     secs = time.time() - t0
     launches = dict(tc.LAUNCHES)
+    draws = {f"sample_hash:{k}": v for k, v in sc.LAUNCHES.items() if v}
     img = film_mod.to_rgb(film).cpu().numpy()
     overflow = int(tc.overflow_flag(dev).item())
     n_launches = sum(launches.values())
     info = dict(waves=waves, seconds=secs, first_wave_seconds=t_first,
                 launches={k: v for k, v in launches.items() if v},
+                sampler_launches=draws,
                 launches_per_wave=n_launches / waves,
                 launched_rays_per_s=n_launches * px.shape[0] / secs,
                 img_mean=float(img.mean()), overflow=overflow,
@@ -864,6 +985,11 @@ def drive_waves(phase, scene, dev, li, waves, want, snapshot_at=None):
     want = {k: v * waves for k, v in want.items()}
     require(info["launches"] == want,
             f"{phase}: kernel launches {info['launches']}, expected {want}")
+    if want_draws is not None:
+        want_draws = {f"sample_hash:{k}": v * waves
+                      for k, v in want_draws.items()}
+        require(draws == want_draws, f"{phase}: the sampler's hashing "
+                f"launched {draws}, expected {want_draws}")
     require(overflow == 0, f"{phase}: stack overflow in the kernel")
     require(img.shape == (HEIGHT, WIDTH, 3) and np.isfinite(img).all(),
             f"{phase}: image not finite or of the wrong shape")
@@ -871,17 +997,18 @@ def drive_waves(phase, scene, dev, li, waves, want, snapshot_at=None):
 
 
 def drive_path(phase, scene, dev, kern, camera_kern=None, waves=None,
-               snapshot_at=None):
+               snapshot_at=None, want_draws=None):
     """`waves` waves (default: all 64) of the path integrator over `scene`;
     requires 7 launches of `kern` per wave and of no other kernel, or, with
     `camera_kern`, 1 closest-hit launch of that and the other 6 of `kern`.
-    snapshot_at: also put the image after that many waves in info["snap"]."""
+    snapshot_at: also put the image after that many waves in info["snap"];
+    want_draws: as drive_waves'."""
     ig = pi.PathIntegrator(max_depth=MAX_DEPTH)
     launches, img, info, snap = drive_waves(
         phase, scene, dev, lambda s, r, d, c: pi.li(ig, s, r, d, c),
         waves or SPP, {f"{camera_kern or kern}:closest": 1,
                        f"{kern}:mixed": MAX_DEPTH, f"{kern}:any": 1},
-        snapshot_at=snapshot_at)
+        snapshot_at=snapshot_at, want_draws=want_draws)
     # as the reference's benchmark counts them: two rays a lane and level
     info["rays_per_s"] = (WIDTH * HEIGHT * 2 * (MAX_DEPTH + 1) * info["waves"]
                           / info["seconds"])
@@ -891,17 +1018,19 @@ def drive_path(phase, scene, dev, kern, camera_kern=None, waves=None,
 
 
 def main_path_phase(scene, dev):
-    """Returns the launches, the image, the image after DRIVEN_SPP waves
-    and rays/s."""
+    """Returns the launches (the sampler's hashing's among them), the
+    image, the image after DRIVEN_SPP waves and rays/s."""
     launches, img, info = drive_path("main_path", scene, dev, "traverse6",
-                                     snapshot_at=DRIVEN_SPP)
+                                     snapshot_at=DRIVEN_SPP,
+                                     want_draws=MAIN_SAMPLER_LAUNCHES)
     snap = info.pop("snap")
     say("main_path", reference_img_mean=REFERENCE_IMG_MEAN, **info)
     require(abs(info["img_mean"] - REFERENCE_IMG_MEAN)
             <= 0.01 * REFERENCE_IMG_MEAN,
             f"main path: image mean {info['img_mean']} is not within 1 % of "
             f"{REFERENCE_IMG_MEAN}")
-    return launches, img, snap, info["rays_per_s"]
+    return ({**launches, **info["sampler_launches"]}, img, snap,
+            info["rays_per_s"])
 
 
 def motion_path_phase(moving, dev, static_img):
@@ -1098,13 +1227,16 @@ def attic_path_phase(scene, dev, v6_first):
 
 def ao_whitted_phase(scene, dev):
     """ATTIC_WAVES waves each of the ambient-occlusion integrator (AO_SAMPLES
-    probes: one closest-hit launch and AO_SAMPLES any-hit launches a wave)
-    and of the Whitted integrator (depth 5, one light: a closest-hit and an
-    any-hit launch a level)."""
+    probes: one closest-hit launch and AO_SAMPLES any-hit launches a wave,
+    and AO_SAMPLER_LAUNCHES of the sampler's hashing) and of the Whitted
+    integrator (depth 5, one light: a closest-hit and an any-hit launch a
+    level). Returns the AO waves' launches of the sampler's hashing."""
     ig = ao_mod.AOIntegrator(n_samples=AO_SAMPLES)
     _, img, info, _ = drive_waves(
         "ao_path", scene, dev, lambda s, r, d, c: ao_mod.li(ig, s, r, d, c),
-        ATTIC_WAVES, {"traverse6:closest": 1, "traverse6:any": AO_SAMPLES})
+        ATTIC_WAVES, {"traverse6:closest": 1, "traverse6:any": AO_SAMPLES},
+        want_draws=AO_SAMPLER_LAUNCHES)
+    ao_draws = info["sampler_launches"]
     # a pixel is a weighted mean of values in [0, 1]: 1e-5 for its rounding
     require(img.min() >= 0.0 and img.max() <= 1.0 + 1e-5
             and 0.0 < img.mean() < 1.0,
@@ -1119,6 +1251,7 @@ def ao_whitted_phase(scene, dev):
         {"traverse6:closest": MAX_DEPTH + 1, "traverse6:any": MAX_DEPTH + 1})
     require(img.mean() > 0, "whitted path: black image")
     say("whitted_path", **info)
+    return ao_draws
 
 
 # the scene front door: where its files go (git-ignored), the Cornell file
@@ -3714,10 +3847,11 @@ def main():
 
     # every kernel's launches on ITS path, each path counted from zero: the
     # static v6 modes on the main path (its sorted closest-hit lanes travel
-    # inside the mixed launches), the motion modes on the moving path, the
-    # packet kernels on the bench scene's camera waves (closest) and through
-    # intersect_rays(kernel=...) at full width (any), the binary-tree
-    # kernels on the direct-lighting waves of attic_path
+    # inside the mixed launches) and the sampler's draws and camera samples
+    # there, the AO scramble pair and probes on ao_path, the motion modes on
+    # the moving path, the packet kernels on the bench scene's camera waves
+    # (closest) and through intersect_rays(kernel=...) at full width (any),
+    # the binary-tree kernels on the direct-lighting waves of attic_path
     launches_alt = alt_path_phase(
         dataclasses.replace(scene, geometry=geom_w), dev, shapes[1])
     # this slice's paths: direct lighting with the default kernels, then
@@ -3725,7 +3859,7 @@ def main():
     attic_small_phase(dev)
     direct_first = direct_path_phase(scene, dev, static_img)
     launches_attic = attic_path_phase(scene, dev, direct_first)
-    ao_whitted_phase(scene, dev)
+    launches_ao = ao_whitted_phase(scene, dev)
     # the scene front door (its launches are printed on pbrt_path's line)
     pbrt_path_phase(dev, static_img)
     # the material system (its launches are printed on materials_path's
@@ -3759,7 +3893,9 @@ def main():
     grad_small_phase(dev)
     grad_path_phase(scene, dev)
     counted = {**{k: v for k, v in launches.items()
-                  if k.startswith("traverse6:")},
+                  if k.startswith(("traverse6:", "sample_hash:"))},
+               **{k: v for k, v in launches_ao.items()
+                  if k.startswith("sample_hash:ao_")},
                **{k: v for k, v in launches_m.items()
                   if k.startswith("traverse6_motion:")},
                **{k: v for k, v in launches_alt.items()
@@ -3772,8 +3908,8 @@ def main():
         require(counted[r["counter"]] > 0,
                 f"{r['name']} was never launched on its path")
         line.append({**r, "launches": counted[r["counter"]],
-                     **ptxas_resources(r["counter"].split(":")[0])})
-    require(len(line) == 18, f"kernels line lists {len(line)} kernels")
+                     **ptxas_resources(r["counter"])})
+    require(len(line) == 22, f"kernels line lists {len(line)} kernels")
     say("wall", seconds=time.time() - T_START, limit_seconds=1200)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)

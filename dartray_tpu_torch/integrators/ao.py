@@ -16,6 +16,7 @@ import torch
 from .. import stats
 from ..core import math as vm
 from ..core import sampling as smp
+from ..ops import sampler_cuda as sc
 from ..scene import types as st
 
 
@@ -24,6 +25,38 @@ class AOIntegrator:
     n_samples: int = 2048
     min_dist: float = 1e-4
     max_dist: float = float("inf")
+
+
+# The probes' draws route by device: CUDA lanes take the hashing kernel
+# (``ops/sampler_cuda.py``: one launch for the scramble pair, one a probe),
+# CPU lanes the plain versions; each counts as one draw while collecting
+# (``samplers.py``).
+
+def scrambles_plain(px, py, s_idx):
+    """The scramble pair of each (pixel, camera sample): u32-in-int64."""
+    base = smp.hash_u32(smp.as_u32(px) ^ (smp.as_u32(py) << 16)
+                        ^ smp.hash_u32(smp.as_u32(s_idx)))
+    return smp.hash_u32(base ^ 0x1234567), smp.hash_u32(base ^ 0x89abcdef)
+
+
+def scrambles(px, py, s_idx):
+    """The scramble pair: int32 bit patterns from the kernel on the card,
+    ``scrambles_plain`` elsewhere; ``probe`` reads either."""
+    if px.device.type == "cuda":
+        stats.count("draws/kernel")
+        return sc.ao_scrambles(px, py, s_idx)
+    stats.count("draws/plain")
+    return scrambles_plain(px, py, s_idx)
+
+
+def probe(scr, i: int, n_bits: int):
+    """Probe `i`'s (0,2)-sequence sample under each lane's pair (V2)."""
+    if scr[0].device.type == "cuda":
+        stats.count("draws/kernel")
+        return vm.V2(*sc.ao_probe(scr, i, n_bits))
+    stats.count("draws/plain")
+    return smp.sample02(torch.full(scr[0].shape, i, dtype=torch.int64,
+                                   device=scr[0].device), scr, n_bits)
 
 
 def li(ig: AOIntegrator, scene: st.CompiledScene, rays, diffs, sctx):
@@ -37,11 +70,7 @@ def li(ig: AOIntegrator, scene: st.CompiledScene, rays, diffs, sctx):
     dev = rays.tmin.device
     # one scramble pair per (pixel, camera sample), the same for every probe
     with stats.span("sample"):
-        base = smp.hash_u32(smp.as_u32(sctx["px"])
-                            ^ (smp.as_u32(sctx["py"]) << 16)
-                            ^ smp.hash_u32(smp.as_u32(sctx["s_idx"])))
-        scr = (smp.hash_u32(base ^ 0x1234567),
-               smp.hash_u32(base ^ 0x89abcdef))
+        scr = scrambles(sctx["px"], sctx["py"], sctx["s_idx"])
     eps = st.ray_epsilon(it["t"])
     # offset on the probe-hemisphere side of the surface (ng may face away
     # from the shading hemisphere for back-lit or unoriented geometry)
@@ -52,8 +81,7 @@ def li(ig: AOIntegrator, scene: st.CompiledScene, rays, diffs, sctx):
     n_bits = max(int(ig.n_samples - 1).bit_length(), 1)
     for i in range(ig.n_samples):
         with stats.span("sample"):
-            u = smp.sample02(torch.full((r,), i, dtype=torch.int64,
-                                        device=dev), scr, n_bits)
+            u = probe(scr, i, n_bits)
         w = vm.face_forward(smp.uniform_sample_sphere(u), n)
         occ = st.intersect_p(geom, vm.Rays(o=o, d=w, tmin=tmin, tmax=tmax,
                                            time=rays.time))

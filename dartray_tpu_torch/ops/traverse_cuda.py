@@ -2,9 +2,10 @@
 and the wavefront glue around them (counterpart of the JAX reference's
 ``ops/traverse_pallas.py`` and of its ``ops/kernels_attic.py``).
 
-Seven kernel libraries, each built with ``nvcc`` for ``sm_90a`` at first use
-from its source under ``csrc/`` and loaded with ``ctypes``. Over the WIDE
-(8-ary) tree:
+Seven traversal libraries, each built with ``nvcc`` for ``sm_90a`` at first
+use from its source under ``csrc/`` and loaded with ``ctypes`` (the same
+loader builds the sampler's hashing, which ``ops/sampler_cuda.py``
+registers). Over the WIDE (8-ary) tree:
 
 * ``traverse6`` (``csrc/traverse6.cu``) replaces ``_kernel6`` in its
   closest-hit, any-hit and mixed modes: one stack per ray, one thread per
@@ -294,9 +295,11 @@ def _components(o, d):
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-# one library per source; every source includes the headers beside it
+# one library per source; every source includes the headers beside it.
+# Another module adds a library of its own with ``register_library``
 KERNEL_SOURCES = {name: os.path.join(CSRC_DIR, name + ".cu")
                   for name in ("traverse6", "traverse5", "traverse7", *ATTIC)}
+_BINDERS = {}             # name -> bind(lib) of a registered library
 # -fmad=false: products and sums round as the plain versions' separate ops
 # do, so kernel and plain version take the same walk; -Xptxas -v: the
 # assembler reports each kernel's registers and spills into BUILD_LOG
@@ -333,8 +336,18 @@ def _csrc_hash():
     return h.hexdigest()[:12]
 
 
+def register_library(name, bind):
+    """Build and load ``csrc/<name>.cu`` as the traversal libraries are (same
+    flags, build directory and hash); ``bind(lib)`` declares its launchers'
+    C signatures once it is loaded."""
+    KERNEL_SOURCES[name] = os.path.join(CSRC_DIR, name + ".cu")
+    _BINDERS[name] = bind
+
+
 def _bind(name, lib):
     p, i = ctypes.c_void_p, ctypes.c_int
+    if name in _BINDERS:
+        return _BINDERS[name](lib)
     if name == "traverse6":
         lib.traverse6_launch.restype = i
         lib.traverse6_launch.argtypes = [p] * 15 + [i] * 4 + [p]
@@ -359,9 +372,11 @@ def _bind(name, lib):
         raise RuntimeError(f"{name}.cu STACK_DEPTH differs from the wrapper's")
 
 
-def load_kernels(names=tuple(KERNEL_SOURCES)):
+def load_kernels(names=None):
     """Build (where needed, all ``nvcc`` runs started together) and load the
-    libraries of `names`; raises if one fails to build."""
+    libraries of `names` (default: every one in ``KERNEL_SOURCES``); raises
+    if one fails to build."""
+    names = tuple(KERNEL_SOURCES) if names is None else names
     with _lib_lock, stats.span("kernel_load"):
         tag = _csrc_hash()
         path = {name: os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")

@@ -269,9 +269,10 @@ def run(job: RenderJob, progress: Optional[Callable] = None, log=print,
     where they are issued, ``scene.types.QUERIES``: exact with no trace)
     and the scene's size, and logs the summary; where the caller collects
     into `stats` (``with stats_mod.collect(stats):``), the summary also
-    gives the host seconds of the program's spans and the live share of
-    the traversal lanes. A wave that fails after the first returns the
-    film of the waves before it."""
+    gives the host seconds of the program's spans, the live share of the
+    traversal lanes and the share of the sample draws the hashing kernel
+    took. A wave that fails after the first returns the film of the waves
+    before it."""
     dev = device_mod.resolve(device)
     rp = job.renderer_params
     rname = job.renderer

@@ -25,6 +25,7 @@ from . import stats
 from .cameras import CameraSamples
 from .core import sampling as smp
 from .core.math import V2
+from .ops import sampler_cuda as sc
 
 LOWDISCREPANCY = 0
 STRATIFIED = 1
@@ -158,9 +159,77 @@ def _halton_index(sampler: Sampler, px, py, s):
     return s ^ (_pixel_key(sampler, px, py, 0) >> 8)
 
 
+# --- the draws: the hashing kernel for CUDA tensors, torch ops otherwise ----
+# A draw routes by what its inputs show: CUDA lanes of the lowdiscrepancy and
+# stratified kinds, and of the best-candidate kind but at its image offset,
+# go to one launch of ``csrc/sample_hash.cu`` (``ops/sampler_cuda.py``), the
+# same bits as the plain version beside it; CPU lanes, the halton, random
+# and vector kinds and the best-candidate tile take the plain version. While
+# a ``stats.RenderStats`` collects, each draw counts under ``draws/kernel``
+# or ``draws/plain`` (``camera_samples`` is three draws).
+
+def _on_kernel(sampler: Sampler, px, dim: int) -> bool:
+    """Whether a draw of `sampler` at `dim` over the lanes of `px` is the
+    hashing kernel's."""
+    return ((sampler.kind in (LOWDISCREPANCY, STRATIFIED)
+             or (sampler.kind == BESTCANDIDATE and dim != 0))
+            and px.device.type == "cuda")
+
+
+def _kernel_args(sampler: Sampler) -> dict:
+    kind = (sc.STRATIFIED if sampler.kind == STRATIFIED
+            else sc.LOWDISCREPANCY)
+    return dict(kind=kind, spp=sampler.spp, seed=sampler.seed,
+                nx=sampler.nx, ny=sampler.ny, jitter=sampler.jitter,
+                n_bits=_n_bits(sampler))
+
+
 @stats.spanned("sample")
 def sample_2d(sampler: Sampler, px, py, s_idx, dim: int) -> V2:
     """(R,) pixel coords + sample indices -> V2 in [0,1)^2."""
+    if _on_kernel(sampler, px, dim):
+        stats.count("draws/kernel")
+        return V2(*sc.draw(px, py, s_idx, dim, two_d=True,
+                           **_kernel_args(sampler)))
+    stats.count("draws/plain")
+    return sample_2d_plain(sampler, px, py, s_idx, dim)
+
+
+@stats.spanned("sample")
+def sample_1d(sampler: Sampler, px, py, s_idx, dim: int):
+    """(R,) pixel coords + sample indices -> (R,) in [0,1)."""
+    if _on_kernel(sampler, px, dim):
+        stats.count("draws/kernel")
+        return sc.draw(px, py, s_idx, dim, two_d=False,
+                       **_kernel_args(sampler))[0]
+    stats.count("draws/plain")
+    return sample_1d_plain(sampler, px, py, s_idx, dim)
+
+
+@stats.spanned("sample")
+def camera_samples(sampler: Sampler, px, py, s_idx) -> CameraSamples:
+    """Image/lens/time sample triple for a wavefront. px/py int32 raster
+    pixel; returns continuous raster image_xy = pixel + [0,1)^2 offset."""
+    if _on_kernel(sampler, px, 0):
+        stats.count("draws/kernel", 3)
+        ix, iy, lu, lv, t = sc.camera(px, py, s_idx,
+                                      **_kernel_args(sampler))
+        return CameraSamples(image_xy=V2(ix, iy), lens_uv=V2(lu, lv),
+                             time_u=t)
+    return _camera(px, py, sample_2d(sampler, px, py, s_idx, 0),
+                   sample_2d(sampler, px, py, s_idx, 2),
+                   sample_1d(sampler, px, py, s_idx, 4))
+
+
+def _camera(px, py, img, lens, time_u) -> CameraSamples:
+    image_xy = V2(px.to(torch.float32) + img.x, py.to(torch.float32) + img.y)
+    return CameraSamples(image_xy=image_xy, lens_uv=lens, time_u=time_u)
+
+
+# --- the plain versions: torch ops on u32-in-int64 lanes ---------------------
+
+def sample_2d_plain(sampler: Sampler, px, py, s_idx, dim: int) -> V2:
+    """``sample_2d`` in torch ops, on any device."""
     if sampler.kind == VECTOR:
         d = sampler.u_vec.shape[1]
         return V2(sampler.u_vec[:, dim % d], sampler.u_vec[:, (dim + 1) % d])
@@ -210,8 +279,8 @@ def sample_2d(sampler: Sampler, px, py, s_idx, dim: int) -> V2:
               smp.rng_uniform(k, (s * 2 + 1) & smp.M32))
 
 
-@stats.spanned("sample")
-def sample_1d(sampler: Sampler, px, py, s_idx, dim: int):
+def sample_1d_plain(sampler: Sampler, px, py, s_idx, dim: int):
+    """``sample_1d`` in torch ops, on any device."""
     if sampler.kind == VECTOR:
         return sampler.u_vec[:, dim % sampler.u_vec.shape[1]]
     s = smp.as_u32(s_idx)
@@ -231,12 +300,8 @@ def sample_1d(sampler: Sampler, px, py, s_idx, dim: int):
     return smp.rng_uniform(_pixel_key(sampler, px, py, dim), s)
 
 
-@stats.spanned("sample")
-def camera_samples(sampler: Sampler, px, py, s_idx) -> CameraSamples:
-    """Image/lens/time sample triple for a wavefront. px/py int32 raster
-    pixel; returns continuous raster image_xy = pixel + [0,1)^2 offset."""
-    img = sample_2d(sampler, px, py, s_idx, 0)
-    lens = sample_2d(sampler, px, py, s_idx, 2)
-    time_u = sample_1d(sampler, px, py, s_idx, 4)
-    image_xy = V2(px.to(torch.float32) + img.x, py.to(torch.float32) + img.y)
-    return CameraSamples(image_xy=image_xy, lens_uv=lens, time_u=time_u)
+def camera_samples_plain(sampler: Sampler, px, py, s_idx) -> CameraSamples:
+    """``camera_samples`` in torch ops, on any device."""
+    return _camera(px, py, sample_2d_plain(sampler, px, py, s_idx, 0),
+                   sample_2d_plain(sampler, px, py, s_idx, 2),
+                   sample_1d_plain(sampler, px, py, s_idx, 4))

@@ -215,7 +215,8 @@ class RenderStats:
             t = max(self.timings["time/render"], 1e-9)
             lines.append(f"  {'rays_per_second':<28} "
                          f"{c['rays/traversal_queries'] / t:,.0f}")
-        lines += self._span_lines() + self._lane_lines()
+        lines += (self._span_lines() + self._lane_lines()
+                  + self._draw_lines())
         return "\n".join(lines)
 
     def _span_lines(self):
@@ -245,9 +246,24 @@ class RenderStats:
                 out.append(f"  {'live_' + k:<28} {100 * live / c[k]:.1f}%")
         return out
 
+    def _draw_lines(self):
+        """The share of the sample draws the hashing kernel took."""
+        share = draws_on_kernel_pct(self.counters)
+        return [] if share is None else [
+            f"  {'draws_on_kernel':<28} {share:.1f}%"]
+
     def as_dict(self) -> dict:
         return {"counters": dict(self.counters),
                 "timings": dict(self.timings)}
+
+
+def draws_on_kernel_pct(counters):
+    """Percent of the sample draws counted in `counters` that took the
+    hashing kernel (``draws/kernel`` against ``draws/plain``); None where
+    none was counted."""
+    kern = counters.get("draws/kernel", 0)
+    total = kern + counters.get("draws/plain", 0)
+    return 100 * kern / total if total else None
 
 
 class TorchOps(TorchDispatchMode):

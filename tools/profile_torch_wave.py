@@ -35,8 +35,9 @@ host and device ms by span name (the device ms between the events at the
 edges of the outermost spans of the name), the device's idle by the
 innermost span open at each gap, each traversal launch of a wave in order
 (mode, lanes, the kernel's device ms; for a path wave the camera launch,
-the five mixed launches and the last any-hit one), the live share of the
-traversal lanes by mode and the top device kernels; with ``--grad`` the
+the five mixed launches and the last any-hit one), the share of the
+sample draws the hashing kernel took, the live share of the traversal
+lanes by mode and the top device kernels; with ``--grad`` the
 step's device idle inside ``grad.forward``, inside ``grad.backward`` and
 outside both, and its host ms inside spans marked ``recompute``. Needs one
 CUDA device; writes nothing.
@@ -266,6 +267,7 @@ def main():
         "spans": by_span(spans, w),
         "idle_ms_per_wave_by_span": {
             k: v / w * 1e3 for k, v in port_spans.idle_spans(port)},
+        "draws_on_kernel_pct": stats.draws_on_kernel_pct(c),
         "live_lane_pct": {
             k[6:]: 100 * c.get("lanes_live/" + k[6:], 0) / v
             for k, v in c.items() if k.startswith("lanes/") and v},
