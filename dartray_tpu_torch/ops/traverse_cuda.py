@@ -1281,17 +1281,25 @@ def finish_hits_rows(bvh: PackedBVH, attrp, o, d, tmin, t_approx, prim_p,
 DEFAULT_KERNEL = dict(closest_coherent="v6", closest="v6", any="v6")
 
 
+def _kernel_span(motion: bool):
+    """The ``kernel`` span of one launch, with the attribute ``motion=True``
+    where the launch takes the kernel's motion instantiation (rays with
+    shutter times over a scene packed with deltas)."""
+    return (stats.span("kernel", motion=True) if motion
+            else stats.span("kernel"))
+
+
 def _sorted_launch(fn, bvh, key_fn, planes, **kw):
     """Stable sort by the key ``key_fn()`` makes, gather the ray planes (o,
     d, tmin, tmax, then the optional per-lane planes named in `kw`),
-    traverse with `fn`, unsort: the spans ``sort``, ``kernel`` and
-    ``finish``."""
+    traverse with `fn`, unsort: the spans ``sort``, ``kernel`` (tagged
+    ``motion`` where `kw` carries the rays' ``time``) and ``finish``."""
     with stats.span("sort"):
         order = torch.sort(key_fn(), stable=True).indices
         s = [p[order] for p in planes]
         kw = {k: (v[order] if torch.is_tensor(v) else v)
               for k, v in kw.items()}
-    with stats.span("kernel"):
+    with _kernel_span("time" in kw):
         t_s, prim_s = fn(bvh, V3(s[0], s[1], s[2]), V3(s[3], s[4], s[5]),
                          s[6], s[7], **kw)
     with stats.span("finish"):
@@ -1338,7 +1346,7 @@ def intersect_rays(bvh: PackedBVH, perm, lo, hi, o, d, tmin, tmax, *,
             fns[which], bvh, lambda: sort_key_i32(oc, dc, tmin, tmax, lo, hi),
             [*oc, *dc, tmin, tmax], **kw)
     else:
-        with stats.span("kernel"):
+        with _kernel_span(time is not None):
             t, prim_p = fns[which](bvh, o, d, tmin, tmax, **kw)
     with stats.span("finish"):
         if any_hit:

@@ -2,6 +2,7 @@
 CompiledScene (counterpart of the JAX reference's ``scene/build.py``)."""
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional
 
 import numpy as np
@@ -30,7 +31,18 @@ class SceneBuilder:
         return len(self.mat_rows) - 1
 
     def add_mesh(self, mesh: mesh_mod.TriangleMesh, mat_id: int,
-                 area_light_L=None, n_samples=1):
+                 area_light_L=None, n_samples=1, verts_end=None):
+        """Add `mesh` with material `mat_id`; `area_light_L` makes it an
+        area light. verts_end: (V, 3) vertex positions at shutter close,
+        which make the mesh a moving one (its vertices lerp from ``verts``
+        over the shutter); the SceneBuilder then holds a copy of `mesh` with
+        them, and `mesh` itself is left as it was."""
+        if verts_end is not None:
+            ve = np.asarray(verts_end, np.float32)
+            if ve.shape != mesh.verts.shape:
+                raise ValueError(f"verts_end has shape {ve.shape}, the "
+                                 f"mesh's verts {mesh.verts.shape}")
+            mesh = dataclasses.replace(mesh, verts_end=ve)
         self.meshes.append(mesh)
         self.mesh_mat.append(mat_id)
         self.mesh_area_light.append(

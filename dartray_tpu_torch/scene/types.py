@@ -340,13 +340,18 @@ def _query(*rays):
     QUERIES["rays"] += sum(r.n for r in rays)
 
 
-def _lanes(mode, *rays):
+def _lanes(geom: Geometry, mode, *rays):
     """While statistics are collected: the lanes handed to one traversal
     launch (or alternate walk) of `mode` ("closest", "any", "mixed") and
-    the live ones among them (tmax >= tmin), a sum on the rays' device."""
+    the live ones among them (tmax >= tmin), a sum on the rays' device;
+    on a moving scene the lanes again as ``lanes_motion/<mode>``, counted
+    on the host: the lanes the kernel's motion instantiation takes."""
     if not stats.collecting():
         return
-    stats.count("lanes/" + mode, sum(r.n for r in rays))
+    n = sum(r.n for r in rays)
+    stats.count("lanes/" + mode, n)
+    if geom.has_motion:
+        stats.count("lanes_motion/" + mode, n)
     for r in rays:
         stats.count("lanes_live/" + mode, (r.tmax >= r.tmin).sum())
 
@@ -364,7 +369,7 @@ def _closest(geom: Geometry, rays, sort: bool) -> Hits:
     """One closest-hit launch over the wave, finished with its attr rows;
     with an alternate accelerator, its walk and one gather of the rows."""
     _query(rays)
-    _lanes("closest", rays)
+    _lanes(geom, "closest", rays)
     if geom.alt_kind:
         h = _ALT_WALKS[geom.alt_kind].intersect(geom.alt, rays)
         return h._replace(rows=attr_rows(geom, h.prim.clamp_min(0)))
@@ -439,7 +444,7 @@ def intersect_pair(geom: Geometry, ext_rays, shadow_rays):
     if geom.has_alpha or geom.alt_kind:
         return intersect(geom, ext_rays), intersect_p(geom, shadow_rays)
     _query(ext_rays, shadow_rays)
-    _lanes("mixed", ext_rays, shadow_rays)
+    _lanes(geom, "mixed", ext_rays, shadow_rays)
     t, prim, b1, b2, occ, rows = tc.intersect_rays_pair(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
         ext_rays.o, ext_rays.d, ext_rays.tmin, ext_rays.tmax,
@@ -457,7 +462,7 @@ def intersect_p(geom: Geometry, rays, sort: bool = True):
     _query(rays)
     if geom.has_alpha:
         return intersect(geom, rays, sort=sort).prim >= 0
-    _lanes("any", rays)
+    _lanes(geom, "any", rays)
     if geom.alt_kind:
         return _ALT_WALKS[geom.alt_kind].intersect_p(geom.alt, rays)
     _, prim, _, _ = tc.intersect_rays(
