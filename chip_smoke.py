@@ -320,11 +320,13 @@ PEAK_F32_FLOPS = 67e12
 # arithmetic of the walks, counted from the sources: one interior pop
 # slab-tests 8 boxes (6 sub, 6 mul, 12 min/max, 1 compare each), one
 # Moeller-Trumbore test (ray_tests.cuh), the motion lerp of its 9 inputs
-# (a multiply and an add each), one Woop test (traverse7.cu: 20 mul, 18 add,
-# 1 divide, 1 negate, 5 compares)
+# (a multiply and an add each) and of a popped node's 8 boxes (6 bounds
+# each), one Woop test (traverse7.cu: 20 mul, 18 add, 1 divide, 1 negate,
+# 5 compares)
 FLOPS_PER_NODE_POP = 8 * 25
 FLOPS_PER_TRI_TEST = 50
 FLOPS_PER_LERP = 18
+FLOPS_PER_BOX_LERP = 8 * 12
 FLOPS_PER_WOOP_TEST = 45
 CSRC = "dartray_tpu_torch/csrc/"
 # the sampler's hashing has no TPU kernel behind it: the reference draws with
@@ -565,6 +567,13 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
         extra = {"packets": cnt_k[0].shape[0],
                  "node_steps": int(cnt_k[0][:, 0].sum()),
                  "leaf_rounds": int(cnt_k[0][:, 1].sum())}
+    if time is not None:    # the motion launch's own work counters
+        work = {}
+        fn(*args, **kw, counts=work)
+        work = {k: int(v) for k, v in work.items()}
+        require(work == {k: stats[k] for k in work},
+                f"{name}: work counters {work} differ from the plain "
+                "version's")
     # compare after the finish step: exact t, original prim ids
     fin = lambda t, p: tc.finish_hits(bvh, geom.perm, rays.o, rays.d,
                                       rays.tmin, t, p, time=time)
@@ -607,12 +616,14 @@ def check_kernel(kern, mode, geom, rays, anyf=None, label=None, need=None):
     else:
         tables = [bvh.wbounds, bvh.worder,
                   bvh.woop if kern == "traverse7" else bvh.soup16]
-    if time is not None:
+    if time is not None:     # the boxes at each ray's time, the deltas
+        tables[0] = bvh.wbounds_t
         tables.append(bvh.soup16d)
     table_bytes = sum(x.numel() * x.element_size() for x in tables)
     bytes_ms = n * (n_planes * 4 + 8) / PEAK_BYTES_S * 1e3
     need = need or stats
-    flops = (need["node_pops"] * FLOPS_PER_NODE_POP
+    flops = (need["node_pops"] * (FLOPS_PER_NODE_POP + (
+        FLOPS_PER_BOX_LERP if time is not None else 0))
              + need["tri_tests"] * tri_flops)
     ops_ms = flops / PEAK_F32_FLOPS * 1e3
     source, replaces = KERNELS[kern]
@@ -797,8 +808,7 @@ def kernels_phase(geom, geom_w, shapes, moving, cam_rays, dev):
     # what the motion mode costs by itself: the SAME rays over the SAME tree
     # with an all-zero delta table (v + t * 0 == v, so the same walk and,
     # required here, the same result), against the static kernel's time
-    zero = dataclasses.replace(geom.packed, soup16d=torch.zeros_like(
-        geom.packed.soup16))
+    zero = tc.with_deltas(geom.packed, torch.zeros_like(geom.packed.soup16))
     lerp_cost = {}
     for mode, rays, anyf in (("closest", cam, None), ("any", inc, None),
                              ("mixed", mixed, af_s)):

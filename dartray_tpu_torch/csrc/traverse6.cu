@@ -4,10 +4,28 @@
 // (ops/traverse_pallas.py) in its closest-hit, any-hit and mixed (a per-lane
 // any-hit flag) modes, each for a static scene and, as a second instantiation
 // of the same template with its own launcher, for moving geometry
-// (`motion=True` there): every leaf triangle is lerped to the ray's shutter
-// time, v(t) = v + time * dv for its nine components, from a second row
-// table of (close - open) deltas, before the same test. The lerp is a
-// rounded multiply and then a rounded add, here and in the plain version.
+// (`motion=True` there). The motion walk lerps what it tests to the ray's
+// shutter time, each lerp a rounded multiply and then a rounded add, here
+// and in the plain version:
+//
+//  * Boxes. A popped node's 8 child boxes are not the union over the
+//    shutter (`wbounds`, which a child moving far beside its size
+//    stretches many times over: the rays that leave a moving surface then
+//    pierce many of its clusters' boxes), but `open + time * delta` from a
+//    table of each child's box at shutter open and its (close - open)
+//    delta (`wbounds_t`, 384 bytes a node). Built in
+//    ops/traverse_cuda.py::motion_bounds, it holds every lerped vertex of
+//    the child's subtree at every time, its rounding included; along an
+//    axis on which nothing of the subtree moves it is the union box with a
+//    zero delta, so a scene whose deltas are all zero takes the static walk.
+//  * Triangles. Every leaf triangle is lerped, v(t) = v + time * dv for its
+//    nine components, from a second row table of (close - open) deltas,
+//    before the same test.
+//  * Work. Given a counter pair (`work`, null unless the port's collector
+//    is on), each warp adds its lanes' node pops and triangle tests once,
+//    at its end: the counts of the plain version's `stats`.
+//
+// The tree, the push orders and the schedule below are the static walk's.
 // Same contract: for rays
 // (o, d, tmin, tmax) return an approximate-or-exact hit distance `t` (+inf on
 // a miss) and the PERMUTED prim id `cluster * K + j` (-1 on a miss). A lane
@@ -150,13 +168,51 @@ __device__ __forceinline__ bool hits(const dr::Ray& r, const Tri& w,
                      w.c.w, w.g.x, t);
 }
 
-// Slab-test wide node `ref` and push the hit children, far first.
+// dr::slab8 on the 8 child boxes of a `wbounds_t` row (12 float4 of boxes
+// at shutter open, then 12 of their deltas) lerped to `time`; the static
+// kernels' own dr::slab8 is left as it is
+__device__ __forceinline__ unsigned slab8_lerped(
+    const float4* __restrict__ row, const dr::Ray& r, float time,
+    float t_best) {
+  float b[48];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    const float4 v = __ldg(row + j), dv = __ldg(row + 12 + j);
+    b[4 * j + 0] = v.x + time * dv.x;
+    b[4 * j + 1] = v.y + time * dv.y;
+    b[4 * j + 2] = v.z + time * dv.z;
+    b[4 * j + 3] = v.w + time * dv.w;
+  }
+  unsigned mask = 0u;
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const float lox = b[s];
+    const float t0x = (lox - r.ox) * r.ix, t1x = (b[24 + s] - r.ox) * r.ix;
+    const float t0y = (b[8 + s] - r.oy) * r.iy,
+                t1y = (b[32 + s] - r.oy) * r.iy;
+    const float t0z = (b[16 + s] - r.oz) * r.iz,
+                t1z = (b[40 + s] - r.oz) * r.iz;
+    const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                           fmaxf(fminf(t0z, t1z), r.tmin));
+    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                           fminf(fmaxf(t0z, t1z), t_best));
+    if (tn <= tf && lox == lox) mask |= 1u << s;  // a NaN pad never hits
+  }
+  return mask;
+}
+
+// Slab-test wide node `ref` (MOTION: its boxes at the ray's time) and push
+// the hit children, far first.
+template <bool MOTION>
 __device__ __forceinline__ void node_step(const float4* __restrict__ wbounds,
                                           const int4* __restrict__ order_rows,
                                           int ref, const dr::Ray& r,
-                                          float t_best, int* stack, int& sp,
+                                          float time, float t_best,
+                                          int* stack, int& sp,
                                           int* overflow) {
-  const unsigned mask = dr::slab8(wbounds + (size_t)ref * 12, r, t_best);
+  const unsigned mask =
+      MOTION ? slab8_lerped(wbounds + (size_t)ref * 24, r, time, t_best)
+             : dr::slab8(wbounds + (size_t)ref * 12, r, t_best);
   if (mask != 0u) {
     const int4* orow = order_rows + (size_t)ref * 2;
     const int4 e0 = __ldg(orow), e1 = __ldg(orow + 1);
@@ -177,17 +233,19 @@ __device__ __forceinline__ void node_step(const float4* __restrict__ wbounds,
 
 // One lane tests the triangles of its held leaf `ref` in slot order (pad
 // slots trail, id < 0); slot j + 1 is on its way while slot j is tested.
+// MOTION: `tests` counts them.
 template <bool MOTION>
 __device__ __forceinline__ void leaf_by_lane(
     const dr::Ray& r, int ref, int k, const float4* __restrict__ soup,
     const float4* __restrict__ soupd, float time, bool any_lane,
-    float& t_best, int& prim, int& sp) {
+    float& t_best, int& prim, int& sp, unsigned& tests) {
   const int base = (-ref - 1) * k;
   Tri next{}, dnext{};
   load_row<MOTION>(soup, soupd, base, true, next, dnext);
   for (int j = 0; j < k; ++j) {
     const Tri tri = next, dtri = dnext;
     if (is_pad(tri)) break;
+    if (MOTION) ++tests;
     load_row<MOTION>(soup, soupd, base + j + 1, j + 1 < k, next, dnext);
     float t;
     const bool ok = hits(r, lerped<MOTION>(tri, dtri, time), &t);
@@ -213,12 +271,14 @@ __device__ __forceinline__ unsigned order_key(float t) {
 // of 32 slots every candidate is held against the (t_best, prim) the ray
 // had when the round began, and the least t wins, the lower slot on a tie:
 // what the sequential loop over those slots leaves behind. Executed by all
-// 32 lanes; only the ray's own lane takes the result.
+// 32 lanes; only the ray's own lane takes the result (MOTION: and adds to
+// `tests` the slots the sequential loop would have tested).
 template <bool MOTION>
 __device__ __forceinline__ void leaves_by_warp(
     unsigned holders, int lane, const dr::Ray& r, int held, int k,
     const float4* __restrict__ soup, const float4* __restrict__ soupd,
-    float time, bool any_lane, float& t_best, int& prim, int& sp) {
+    float time, bool any_lane, float& t_best, int& prim, int& sp,
+    unsigned& tests) {
   int in_regs = 0;  // k <= 32: the cluster whose row `lane` is in (tri, dtri)
   Tri tri{}, dtri{};
   for (unsigned todo = holders; todo != 0u; todo &= todo - 1u) {
@@ -238,6 +298,7 @@ __device__ __forceinline__ void leaves_by_warp(
     const float when = MOTION ? __shfl_sync(FULL_WARP, time, src) : 0.0f;
     const int base = (-ref - 1) * k;
     bool got = false;
+    unsigned tested = 0u;  // MOTION: the ray's tests, the same on all lanes
     for (int c0 = 0; c0 < k; c0 += 32) {  // the same for all lanes
       const bool mine = c0 + lane < k;
       if (k > 32 || ref != in_regs)
@@ -249,6 +310,12 @@ __device__ __forceinline__ void leaves_by_warp(
         accept = ok && !is_pad(tri) && dr::nearer(t, best, winner);
       }
       const unsigned accepted = __ballot_sync(FULL_WARP, accept);
+      if (MOTION) {  // an any-hit ray's loop ends at its first accepted slot
+        const unsigned real = __ballot_sync(FULL_WARP, mine && !is_pad(tri));
+        tested += __popc(any_ray && accepted != 0u
+                             ? real & (FULL_WARP >> (32 - __ffs(accepted)))
+                             : real);
+      }
       if (accepted == 0u) continue;
       int slot;
       if (any_ray) {
@@ -264,6 +331,7 @@ __device__ __forceinline__ void leaves_by_warp(
       if (any_ray) break;  // first blocker is enough
     }
     in_regs = ref;
+    if (MOTION && lane == src) tests += tested;
     if (lane == src && got) {
       t_best = best;
       prim = winner;
@@ -274,7 +342,9 @@ __device__ __forceinline__ void leaves_by_warp(
 
 template <bool MOTION>
 __global__ void __launch_bounds__(BLOCK_THREADS)
-traverse6_kernel(const float4* __restrict__ wbounds,  // (W, 12) float4
+traverse6_kernel(const float4* __restrict__ wbounds,  // (W, 12) float4;
+                                                      // MOTION (W, 24):
+                                                      // wbounds_t
                  const int4* __restrict__ worder,     // (8 W, 2) int4
                  const float4* __restrict__ soup,     // (C K, 4) float4
                  const float4* __restrict__ soupd,    // deltas; MOTION only
@@ -287,7 +357,8 @@ traverse6_kernel(const float4* __restrict__ wbounds,  // (W, 12) float4
                  const float* __restrict__ time_,     // in [0, 1]; MOTION only
                  float* __restrict__ t_out, int* __restrict__ prim_out,
                  int* __restrict__ overflow, int n, int n_wnodes, int k,
-                 int mode) {
+                 int mode,
+                 unsigned long long* __restrict__ work) {  // MOTION, or null
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
   const float inf = __int_as_float(0x7f800000);
@@ -319,15 +390,19 @@ traverse6_kernel(const float4* __restrict__ wbounds,  // (W, 12) float4
   float t_best = tmax;
   int prim = -1;
   int held = 0;  // the leaf ref (< 0) this lane has popped and not yet tested
+  unsigned pops = 0u, tests = 0u;  // MOTION: this lane's work
 
   for (;;) {
     // ---- nodes: pop until this lane holds a leaf or its stack is empty
     while (held == 0 && sp > 0) {
       const int ref = stack[--sp];
-      if (ref < 0)
+      if (ref < 0) {
         held = ref;
-      else
-        node_step(wbounds, order_rows, ref, r, t_best, stack, sp, overflow);
+      } else {
+        node_step<MOTION>(wbounds, order_rows, ref, r, time, t_best, stack,
+                          sp, overflow);
+        if (MOTION) ++pops;
+      }
     }
     // ---- leaves, once every lane of the warp has got here (the barrier
     // gathers the lanes at once: without it the ballot is reached in ragged
@@ -338,15 +413,23 @@ traverse6_kernel(const float4* __restrict__ wbounds,  // (W, 12) float4
     if (holders == 0u) break;
     if (__popc(holders) <= TRANSPOSE_MAX)
       leaves_by_warp<MOTION>(holders, lane, r, held, k, soup, soupd, time,
-                             any_lane, t_best, prim, sp);
+                             any_lane, t_best, prim, sp, tests);
     else if (held < 0)
       leaf_by_lane<MOTION>(r, held, k, soup, soupd, time, any_lane, t_best,
-                           prim, sp);
+                           prim, sp, tests);
     held = 0;  // tested; an any-hit lane that was blocked also has sp == 0
   }
   if (in_wave) {
     t_out[i] = prim >= 0 ? t_best : inf;
     prim_out[i] = prim;
+  }
+  if (MOTION && work != nullptr) {  // every lane of the warp is here
+    const unsigned warp_pops = __reduce_add_sync(FULL_WARP, pops);
+    const unsigned warp_tests = __reduce_add_sync(FULL_WARP, tests);
+    if (lane == 0) {
+      atomicAdd(work, (unsigned long long)warp_pops);
+      atomicAdd(work + 1, (unsigned long long)warp_tests);
+    }
   }
 }
 
@@ -355,8 +438,8 @@ int launch(const void* wbounds, const void* worder, const void* soup,
            const void* soupd, const void* ox, const void* oy, const void* oz,
            const void* dx, const void* dy, const void* dz, const void* tmin,
            const void* tmax, const void* anyf, const void* time, void* t_out,
-           void* prim_out, void* overflow, int n, int n_wnodes, int k,
-           int mode, void* stream) {
+           void* prim_out, void* overflow, void* work, int n, int n_wnodes,
+           int k, int mode, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + BLOCK_THREADS - 1) / BLOCK_THREADS;
   traverse6_kernel<MOTION>
@@ -366,7 +449,8 @@ int launch(const void* wbounds, const void* worder, const void* soup,
           (const float*)oz, (const float*)dx, (const float*)dy,
           (const float*)dz, (const float*)tmin, (const float*)tmax,
           (const float*)anyf, (const float*)time, (float*)t_out,
-          (int*)prim_out, (int*)overflow, n, n_wnodes, k, mode);
+          (int*)prim_out, (int*)overflow, n, n_wnodes, k, mode,
+          (unsigned long long*)work);
   return (int)cudaGetLastError();
 }
 
@@ -387,24 +471,26 @@ int traverse6_launch(const void* wbounds, const void* worder, const void* soup,
                      void* t_out, void* prim_out, void* overflow, int n,
                      int n_wnodes, int k, int mode, void* stream) {
   return launch<false>(wbounds, worder, soup, nullptr, ox, oy, oz, dx, dy, dz,
-                       tmin, tmax, anyf, nullptr, t_out, prim_out, overflow, n,
-                       n_wnodes, k, mode, stream);
+                       tmin, tmax, anyf, nullptr, t_out, prim_out, overflow,
+                       nullptr, n, n_wnodes, k, mode, stream);
 }
 
-// The moving-geometry instantiation: `soupd` is the (C K, 16) delta table in
-// soup16's row layout (id column zero), `time` the rays' shutter times in
-// [0, 1].
-int traverse6_motion_launch(const void* wbounds, const void* worder,
+// The moving-geometry instantiation: `wbounds_t` is the (W, 96) table of
+// child boxes at shutter open and their deltas, `soupd` the (C K, 16) delta
+// table in soup16's row layout (id column zero), `time` the rays' shutter
+// times in [0, 1]; `work`, two uint64 or null, takes the launch's node pops
+// and triangle tests.
+int traverse6_motion_launch(const void* wbounds_t, const void* worder,
                             const void* soup, const void* soupd,
                             const void* ox, const void* oy, const void* oz,
                             const void* dx, const void* dy, const void* dz,
                             const void* tmin, const void* tmax,
                             const void* anyf, const void* time, void* t_out,
-                            void* prim_out, void* overflow, int n,
+                            void* prim_out, void* overflow, void* work, int n,
                             int n_wnodes, int k, int mode, void* stream) {
-  return launch<true>(wbounds, worder, soup, soupd, ox, oy, oz, dx, dy, dz,
-                      tmin, tmax, anyf, time, t_out, prim_out, overflow, n,
-                      n_wnodes, k, mode, stream);
+  return launch<true>(wbounds_t, worder, soup, soupd, ox, oy, oz, dx, dy, dz,
+                      tmin, tmax, anyf, time, t_out, prim_out, overflow, work,
+                      n, n_wnodes, k, mode, stream);
 }
 
 }  // extern "C"

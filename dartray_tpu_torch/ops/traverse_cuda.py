@@ -18,7 +18,8 @@ registers). Over the WIDE (8-ary) tree:
   test. A ray's raw ``(t, prim)`` therefore does not depend on the lanes
   beside it and equals ``traverse6_plain``'s bit for bit. With ``time=`` on
   a scene packed with deltas it launches the kernel's motion instantiation,
-  which lerps every leaf triangle to the ray's shutter time.
+  which lerps every child box (``wbounds_t``) and leaf triangle to the
+  ray's shutter time.
 * ``traverse5`` (``csrc/traverse5.cu``) replaces ``_kernel5``: a PACKET walk,
   one shared stack for ``PACKET`` = 32 consecutive rays (a warp), the
   packet's majority octant orders the pushes, a child is pushed if any live
@@ -160,6 +161,12 @@ class PackedBVH:
             soup16's row layout (col 9 zero, pad rows zero), or None for a
             static scene. Leaf tests and the finish step lerp
             ``v + time * dv``; the two tables are never added as whole rows.
+    wbounds_t: (W, 96) f32, with soup16d: each wide node's 8 child boxes at
+            shutter open in wbounds' row layout, then their (close - open)
+            deltas in the same layout, NaN pads in both. The motion walk
+            slab-tests ``open + time * delta``, a box around where the
+            child's triangles are at the ray's time, instead of the union
+            box over the shutter (``motion_bounds``; ``with_deltas``).
     woop: (C*K, 12) f32 rows [W_0 w_0 | W_1 w_1 | W_2 w_2] of the
           unit-triangle transforms ``traverse7`` reads, or None: ``pack``
           does not build it, ``with_woop`` adds it.
@@ -171,6 +178,7 @@ class PackedBVH:
     worder: object
     soup16: object
     soup16d: object = None
+    wbounds_t: object = None
     woop: object = None
     n_nodes: int = 0
     n_clusters: int = 0
@@ -231,10 +239,140 @@ def pack(node_lo, node_hi, node_child, node_axis, tv0, te1, te2, tid,
         bounds=bounds, meta=meta, meta2=meta2,
         wbounds=wbounds, worder=worder,
         soup16=rows16((tv0, te1, te2), perm_flat),
-        soup16d=(None if deltas is None
-                 else rows16(deltas, np.zeros_like(perm_flat))),
         n_nodes=n, n_clusters=c, k=k, n_wnodes=n_w)
+    if deltas is not None:
+        packed = with_deltas(packed,
+                             rows16(deltas, np.zeros_like(perm_flat)))
     return packed, perm_flat
+
+
+# a float32 rounding's relative error 2^-24, with room: what each of a
+# lerp's two roundings (a multiply, then an add) is held to below
+_ULP_HALF = 2.0 ** -24 * (1.0 + 2.0 ** -10)
+
+
+def _to_f32(x, down):
+    """float64 -> float32 rounded toward -inf (`down`) or +inf."""
+    y = x.astype(np.float32)
+    off = (y > x) if down else (y < x)
+    y[off] = np.nextafter(y[off], np.float32(-np.inf if down else np.inf))
+    return y
+
+
+def motion_bounds(wbounds, worder, soup16, soup16d, k):
+    """The (W, 96) ``wbounds_t`` of a moving scene (host numpy), from its
+    packed tables; the tree is theirs, unchanged.
+
+    A child box on an axis along which no triangle of its subtree moves has
+    a zero delta, so ``open + time * 0`` is its open box exactly: the
+    ``wbounds`` box, grown where a float32 vertex of the subtree lies
+    outside it (the shutter-union tree's boxes come from proxy triangles,
+    whose corners round), so a tree whose deltas are all zero takes the
+    static walk. On an axis along which one moves, the box is lerped: at
+    shutter open and at close the least and greatest vertex of the
+    subtree's triangles (a leaf child: its cluster's; an interior one: the
+    union of its children's at the same instant), v0, v0 + e1 and v0 + e2,
+    the close ones with the deltas added. For linear motion the lerp of
+    those two boxes holds every lerped vertex at every time in real
+    arithmetic; each bound is moved outward by what the leaf test's lerp
+    (``v + time * dv``, a rounded multiply and a rounded add on v0, e1, e2)
+    and the walk's lerp of the box itself can round, and by the
+    barycentric tolerance ``BARY_EPS`` of the edges, then stored rounded
+    outward."""
+    w = wbounds.shape[0]
+    wb = np.asarray(wbounds, np.float32).reshape(w, 6, 8)
+    ent = np.asarray(worder, np.int64)[:w]          # octant 0's rows
+    refs = np.zeros((w, 8), np.int64)               # by slot
+    np.put_along_axis(refs, ent & 7, ent >> 3, axis=1)
+    pad = np.isnan(wb[:, 0])                        # (W, 8)
+
+    rows = np.asarray(soup16, np.float32).reshape(-1, k, 16)
+    valid = np.ascontiguousarray(rows[..., 9]).view(np.int32) >= 0
+    a = rows[..., :9].astype(np.float64)
+    d = np.asarray(soup16d, np.float32).reshape(-1, k, 16)[..., :9].astype(
+        np.float64)
+    v0, e1, e2 = a[..., 0:3], a[..., 3:6], a[..., 6:9]
+    dv0, de1, de2 = d[..., 0:3], d[..., 3:6], d[..., 6:9]
+
+    def err(x, dx):          # a lerp's two roundings; none where dx == 0
+        return np.where(dx != 0, _ULP_HALF * (np.abs(x) + 2 * np.abs(dx)),
+                        0.0)
+
+    ev0 = err(v0, dv0)
+    tol = 2 * BARY_EPS * np.maximum(np.abs(e1) + np.abs(e2),
+                                    np.abs(e1 + de1) + np.abs(e2 + de2))
+    # (C, K, vertex, axis)
+    room = np.stack([ev0, ev0 + err(e1, de1), ev0 + err(e2, de2)], 2) + (
+        tol[:, :, None])
+    at_open = np.stack([v0, v0 + e1, v0 + e2], 2)
+    at_close = np.stack([v0 + dv0, v0 + dv0 + e1 + de1,
+                         v0 + dv0 + e2 + de2], 2)
+    r32 = rows[..., :9]
+    still = np.stack([r32[..., 0:3], r32[..., 0:3] + r32[..., 3:6],
+                      r32[..., 0:3] + r32[..., 6:9]], 2).astype(np.float64)
+    real = valid[..., None, None]
+    # (C, 6, 3): lo at open, lo at close, hi at open, hi at close, then
+    # the float32 vertices' lo and hi (the axes that do not move)
+    leaf = np.stack(
+        [np.where(real, p - room, np.inf).min((1, 2))
+         for p in (at_open, at_close)]
+        + [np.where(real, p + room, -np.inf).max((1, 2))
+           for p in (at_open, at_close)]
+        + [np.where(real, still, np.inf).min((1, 2)),
+           np.where(real, still, -np.inf).max((1, 2))], 1)
+    leaf_moves = ((d.reshape(d.shape[:2] + (3, 3)) != 0).any(2)
+                  & valid[..., None]).any(1)         # (C, axis)
+
+    # interior children bottom-up: a fixed point, one level a pass
+    is_leaf = refs < 0
+    cl = np.where(is_leaf, -refs - 1, 0)
+    sub = np.where(is_leaf | pad, 0, refs)
+    sign = np.asarray([1.0, 1.0, -1.0, -1.0, 1.0, -1.0])[:, None]  # max
+    node = np.broadcast_to(sign * np.inf, (w, 6, 3)).copy()   # as -min(-x)
+    node_moves = np.zeros((w, 3), bool)
+    while True:
+        child = np.where(is_leaf[..., None, None], leaf[cl], node[sub])
+        child_moves = np.where(is_leaf[..., None], leaf_moves[cl],
+                               node_moves[sub])
+        signed = np.where(pad[..., None, None], np.inf, child * sign)
+        new = signed.min(1) * sign
+        new_moves = (child_moves & ~pad[..., None]).any(1)
+        if np.array_equal(new, node) and np.array_equal(new_moves,
+                                                        node_moves):
+            break
+        node, node_moves = new, new_moves
+
+    out = np.empty((w, 2, 6, 8), np.float32)
+    for c in range(6):
+        axis, down = c % 3, c < 3
+        b0, b1 = (child[:, :, 0 if down else 2, axis],
+                  child[:, :, 1 if down else 3, axis])
+        # the walk's own lerp of the box rounds by at most this much
+        m = 2 * _ULP_HALF * (np.abs(b0) + 2 * np.abs(b1 - b0))
+        s = -1.0 if down else 1.0
+        lo0 = _to_f32(b0 + s * m, down)
+        dlo = _to_f32(b1 + s * m - lo0.astype(np.float64), down)
+        grow = np.minimum if down else np.maximum
+        fixed = grow(wb[:, c], child[:, :, 4 if down else 5, axis])
+        moves = child_moves[:, :, axis]
+        out[:, 0, c] = np.where(moves, lo0, fixed)
+        out[:, 1, c] = np.where(moves, dlo, 0.0)
+    out[np.broadcast_to(pad[:, None, None, :], out.shape)] = np.nan
+    return out.reshape(w, 96)
+
+
+def with_deltas(packed: PackedBVH, soup16d) -> PackedBVH:
+    """`packed` with the delta table `soup16d` (soup16's row layout: col 9
+    zero, pad rows zero) and the ``wbounds_t`` made from it. Numpy or
+    tensors; tensors come back on their device."""
+    def host(x):
+        return x.detach().cpu().numpy() if torch.is_tensor(x) else x
+
+    wbt = motion_bounds(host(packed.wbounds), host(packed.worder),
+                        host(packed.soup16), host(soup16d), packed.k)
+    if torch.is_tensor(soup16d):
+        wbt = torch.from_numpy(wbt).to(soup16d.device)
+    return dataclasses.replace(packed, soup16d=soup16d, wbounds_t=wbt)
 
 
 def soup_pack16(tv0, te1, te2, perm):
@@ -352,7 +490,7 @@ def _bind(name, lib):
         lib.traverse6_launch.restype = i
         lib.traverse6_launch.argtypes = [p] * 15 + [i] * 4 + [p]
         lib.traverse6_motion_launch.restype = i
-        lib.traverse6_motion_launch.argtypes = [p] * 17 + [i] * 4 + [p]
+        lib.traverse6_motion_launch.argtypes = [p] * 18 + [i] * 4 + [p]
     else:
         launch = getattr(lib, name + "_launch")
         launch.restype = i
@@ -475,15 +613,29 @@ def _launch_args(bvh, oc, dc, tmin, tmax):
     return dev, n, planes, wb, wo, t, prim
 
 
-def _traverse6_cuda(bvh, oc, dc, tmin, tmax, mode, anyf, time):
+def _motion_boxes(bvh):
+    if bvh.wbounds_t is None:
+        raise ValueError("traversal: a PackedBVH with soup16d needs its "
+                         "wbounds_t; make it with pack(deltas=) or "
+                         "with_deltas")
+    return bvh.wbounds_t
+
+
+def _traverse6_cuda(bvh, oc, dc, tmin, tmax, mode, anyf, time, counts):
     dev, n, planes, wb, wo, t, prim = _launch_args(bvh, oc, dc, tmin, tmax)
     rows = (bvh.n_clusters * bvh.k, 16)
     soup = _check_table(bvh.soup16, "soup16", rows, dev)
     if mode == MODE_MIXED:
         anyf = _check_plane(anyf, "anyf", n, dev)
+    work = None
     if time is not None:
         soupd = _check_table(bvh.soup16d, "soup16d", rows, dev)
+        wb = _check_table(_motion_boxes(bvh), "wbounds_t",
+                          (bvh.n_wnodes, 96), dev)
         time = _check_plane(time, "time", n, dev)
+        if counts is not None:
+            work = torch.zeros(2, dtype=torch.int64, device=dev)
+            counts.update(node_pops=work[0], tri_tests=work[1])
     if n == 0:                # nothing to launch, nothing to count
         return t, prim
     lib = load_kernel("traverse6")
@@ -498,7 +650,8 @@ def _traverse6_cuda(bvh, oc, dc, tmin, tmax, mode, anyf, time):
         else:
             rc = lib.traverse6_motion_launch(
                 ptr(wb), ptr(wo), ptr(soup), ptr(soupd), *map(ptr, planes),
-                af, ptr(time), *tail)
+                af, ptr(time), *tail[:3],
+                None if work is None else ptr(work), *tail[3:])
     if rc != 0:
         raise RuntimeError(f"traverse6 kernel launch failed: CUDA error {rc}")
     kern = "traverse6" if time is None else "traverse6_motion"
@@ -507,7 +660,7 @@ def _traverse6_cuda(bvh, oc, dc, tmin, tmax, mode, anyf, time):
 
 
 def traverse6(bvh: PackedBVH, o, d, tmin, tmax, *, any_hit: bool = False,
-              anyf=None, time=None):
+              anyf=None, time=None, counts=None):
     """Walk the wide BVH for every ray: returns ``(t, prim)`` with t f32
     (+inf on a miss; approximate for any-hit lanes) and the permuted prim id
     ``cluster*K + j`` (i32, -1 on a miss).
@@ -515,8 +668,13 @@ def traverse6(bvh: PackedBVH, o, d, tmin, tmax, *, any_hit: bool = False,
     anyf: optional (R,) f32 per-lane any-hit flags (mixed waves: lanes with
     anyf > 0 stop at their first hit, the others find the closest).
     time: optional (R,) f32 shutter times in [0, 1]; with a scene packed with
-    deltas (``bvh.soup16d``) every leaf triangle is lerped to its ray's time
-    (the kernel's motion mode); ignored for a static scene.
+    deltas (``bvh.soup16d``) every child box (``bvh.wbounds_t``) and leaf
+    triangle is lerped to its ray's time (the kernel's motion mode);
+    ignored for a static scene.
+    counts: optional dict that receives the walk's ``node_pops`` and
+    ``tri_tests`` (``traverse6_plain``'s ``stats``): on the card those of a
+    motion launch, as int64 device tensors its warps add to; on the CPU the
+    plain walk's.
     Closest lanes return the nearest t in (tmin, tmax]. CUDA tensors go to
     the kernel, CPU tensors to ``traverse6_plain``."""
     oc, dc = _components(o, d)
@@ -526,9 +684,10 @@ def traverse6(bvh: PackedBVH, o, d, tmin, tmax, *, any_hit: bool = False,
         time = None
     with torch.no_grad():
         if oc[0].device.type == "cuda":
-            return _traverse6_cuda(bvh, oc, dc, tmin, tmax, mode, anyf, time)
+            return _traverse6_cuda(bvh, oc, dc, tmin, tmax, mode, anyf, time,
+                                   counts)
         return traverse6_plain(bvh, o, d, tmin, tmax, any_hit=any_hit,
-                               anyf=anyf, time=time)
+                               anyf=anyf, time=time, stats=counts)
 
 
 def _packet_cuda(name, table, bvh, oc, dc, tmin, tmax, any_hit, counters):
@@ -733,8 +892,9 @@ def traverse6_plain(bvh: PackedBVH, o, d, tmin, tmax, *,
     (interior refs slab-test 8 children and push the hit ones far first,
     leaf refs test their cluster). Same tables, same order of operations and
     same per-ray walk as the CUDA kernel. With `time` (and ``bvh.soup16d``)
-    a leaf's triangles are lerped to each ray's shutter time first, a
-    multiply and then an add per component, as the kernel's motion mode does.
+    a node's child boxes (``bvh.wbounds_t``) and a leaf's triangles are
+    lerped to each ray's shutter time first, a multiply and then an add per
+    component, as the kernel's motion mode does.
 
     stats: optional dict that receives the work of this walk, ``node_pops``
     (interior nodes slab-tested, summed over rays) and ``tri_tests``
@@ -753,6 +913,7 @@ def traverse6_plain(bvh: PackedBVH, o, d, tmin, tmax, *,
     if bvh.soup16d is None:
         time = None
     soupd = None if time is None else bvh.soup16d.view(bvh.n_clusters, k, 16)
+    wbt = None if time is None else _motion_boxes(bvh).view(w, 2, 6, 8)
     inv = [_safe_inv(c) for c in dc]
     octant = ((dc[0] < 0).long() + 2 * (dc[1] < 0).long()
               + 4 * (dc[2] < 0).long())
@@ -776,7 +937,11 @@ def traverse6_plain(bvh: PackedBVH, o, d, tmin, tmax, *,
             if stats is not None:
                 stats["node_pops"] += int(ni.numel())
             node = ref[is_node].long()
-            b = wb[node]                                     # (m, 6, 8)
+            if wbt is None:
+                b = wb[node]                                 # (m, 6, 8)
+            else:           # the boxes at each ray's time
+                bt = wbt[node]
+                b = bt[:, 0] + time[ni, None, None] * bt[:, 1]
             t0 = [(b[:, c] - oc[c][ni, None]) * inv[c][ni, None]
                   for c in range(3)]
             t1 = [(b[:, 3 + c] - oc[c][ni, None]) * inv[c][ni, None]
@@ -1313,7 +1478,8 @@ def _sorted_launch(fn, bvh, key_fn, planes, **kw):
 @torch.no_grad()
 def intersect_rays(bvh: PackedBVH, perm, lo, hi, o, d, tmin, tmax, *,
                    any_hit: bool = False, sort: bool = True,
-                   kernel: str | None = None, time=None, rows_table=None):
+                   kernel: str | None = None, time=None, rows_table=None,
+                   counts=None):
     """Full traversal pipeline: coherence sort -> kernel -> unsort -> finish.
 
     Returns (t, prim, b1, b2) in the ORIGINAL ray order; prim indexes the
@@ -1325,7 +1491,8 @@ def intersect_rays(bvh: PackedBVH, perm, lo, hi, o, d, tmin, tmax, *,
     kernel: "v1" .. "v7"; None takes ``DEFAULT_KERNEL`` by the kind of wave
     (any-hit, sorted closest, unsorted closest). time: (R,) shutter
     times in [0, 1] for a scene packed with deltas; it travels with the sort
-    and needs the v6 kernel."""
+    and needs the v6 kernel. counts: a dict the motion launch's work goes
+    to (``traverse6``'s)."""
     cfg_key = "any" if any_hit else ("closest" if sort else "closest_coherent")
     which = kernel if kernel else DEFAULT_KERNEL[cfg_key]
     fns = {"v1": traverse, "v2": traverse2, "v3": traverse3,
@@ -1339,7 +1506,7 @@ def intersect_rays(bvh: PackedBVH, perm, lo, hi, o, d, tmin, tmax, *,
                          f"not {which!r}")
     kw = {"any_hit": any_hit}
     if time is not None:
-        kw["time"] = time
+        kw.update(time=time, counts=counts)
     oc, dc = _components(o, d)
     if sort:
         t, prim_p = _sorted_launch(
@@ -1362,12 +1529,14 @@ def intersect_rays(bvh: PackedBVH, perm, lo, hi, o, d, tmin, tmax, *,
 def intersect_rays_pair(bvh: PackedBVH, perm, lo, hi,
                         o_e, d_e, tmin_e, tmax_e,
                         o_s, d_s, tmin_s, tmax_s, *,
-                        time_e=None, time_s=None, rows_table=None):
+                        time_e=None, time_s=None, rows_table=None,
+                        counts=None):
     """ONE traversal launch over 2R lanes: closest-hit extension rays +
     any-hit shadow rays, told apart by a per-lane flag (the v6 kernel's mixed
     mode). Both sets start at the same hit points, so they share the sort
     and the launch. For a scene packed with deltas the two time planes are
-    concatenated and sorted with the rest.
+    concatenated and sorted with the rest, and `counts` takes the motion
+    launch's work (``traverse6``'s).
 
     Returns (t, prim, b1, b2) for the extension half (original order,
     original soup ids) and `occluded` bool for the shadow half
@@ -1383,7 +1552,8 @@ def intersect_rays_pair(bvh: PackedBVH, perm, lo, hi,
         af = torch.cat([torch.zeros_like(tmin_e), torch.ones_like(tmin_s)])
         if time_e is None or bvh.soup16d is None:
             time_e = None
-        kw = {} if time_e is None else {"time": torch.cat([time_e, time_s])}
+        kw = {} if time_e is None else {"time": torch.cat([time_e, time_s]),
+                                        "counts": counts}
     t, prim_p = _sorted_launch(
         traverse6, bvh,
         lambda: sort_key_i32(oc, dc, tmin, tmax, lo, hi, anyflag=af),

@@ -61,17 +61,19 @@ def woop_rows(woop, k):
 def _packed(d) -> tc.PackedBVH:
     """The reference's per-component delta soups (``tdv0`` / ``tde1`` /
     ``tde2``) are not carried: its ``soup16d`` holds the same numbers in the
-    row layout the port's kernel reads."""
+    row layout the port's kernel reads. A moving scene gains the port's
+    ``wbounds_t``, which the reference has no counterpart of."""
     soup16 = _f32(d["soup16"])
     k = int(d["k"])
     tc.check_pads_trail(soup16[:, 9].view(np.int32).reshape(-1, k))
-    return tc.PackedBVH(
+    packed = tc.PackedBVH(
         bounds=_f32(d["bounds"]), meta=_i32(d["meta"]),
         meta2=_i32(d["meta2"]), wbounds=_f32(d["wbounds"]), worder=_i32(d["worder"]), soup16=soup16,
-        soup16d=_opt(d, "soup16d", _f32),
         woop=_opt(d, "woop", lambda a: woop_rows(a, k)),
         n_nodes=int(d["n_nodes"]), n_clusters=int(d["n_clusters"]),
         k=k, n_wnodes=int(d["n_wnodes"]))
+    soup16d = _opt(d, "soup16d", _f32)
+    return packed if soup16d is None else tc.with_deltas(packed, soup16d)
 
 
 def _cluster(d) -> cluster_mod.ClusterBVH:

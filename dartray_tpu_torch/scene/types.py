@@ -356,6 +356,21 @@ def _lanes(geom: Geometry, mode, *rays):
         stats.count("lanes_live/" + mode, (r.tmax >= r.tmin).sum())
 
 
+def _motion_work(geom: Geometry):
+    """While statistics are collected on a moving scene: the dict a motion
+    launch fills with its node pops and triangle tests (``tc.traverse6``'s
+    ``counts``); else None, and the launch counts nothing."""
+    return {} if geom.has_motion and stats.collecting() else None
+
+
+def _count_work(mode, work):
+    """Add a motion launch's work, as ``pops_motion/<mode>`` and
+    ``tests_motion/<mode>`` (device sums on the card)."""
+    if work:
+        stats.count("pops_motion/" + mode, work["node_pops"])
+        stats.count("tests_motion/" + mode, work["tri_tests"])
+
+
 def _shutter_time01(geom: Geometry, rays):
     """The rays' shutter time normalised to [0, 1] for the motion lerp
     (None for a static scene)."""
@@ -373,10 +388,12 @@ def _closest(geom: Geometry, rays, sort: bool) -> Hits:
     if geom.alt_kind:
         h = _ALT_WALKS[geom.alt_kind].intersect(geom.alt, rays)
         return h._replace(rows=attr_rows(geom, h.prim.clamp_min(0)))
+    work = _motion_work(geom)
     t, prim, b1, b2, rows = tc.intersect_rays(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
         rays.o, rays.d, rays.tmin, rays.tmax, any_hit=False, sort=sort,
-        time=_shutter_time01(geom, rays), rows_table=geom.attrp)
+        time=_shutter_time01(geom, rays), rows_table=geom.attrp, counts=work)
+    _count_work("closest", work)
     return Hits(t=t, prim=prim, b1=b1, b2=b2, rows=rows)
 
 
@@ -445,12 +462,15 @@ def intersect_pair(geom: Geometry, ext_rays, shadow_rays):
         return intersect(geom, ext_rays), intersect_p(geom, shadow_rays)
     _query(ext_rays, shadow_rays)
     _lanes(geom, "mixed", ext_rays, shadow_rays)
+    work = _motion_work(geom)
     t, prim, b1, b2, occ, rows = tc.intersect_rays_pair(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
         ext_rays.o, ext_rays.d, ext_rays.tmin, ext_rays.tmax,
         shadow_rays.o, shadow_rays.d, shadow_rays.tmin, shadow_rays.tmax,
         time_e=_shutter_time01(geom, ext_rays),
-        time_s=_shutter_time01(geom, shadow_rays), rows_table=geom.attrp)
+        time_s=_shutter_time01(geom, shadow_rays), rows_table=geom.attrp,
+        counts=work)
+    _count_work("mixed", work)
     return Hits(t=t, prim=prim, b1=b1, b2=b2, rows=rows), occ
 
 
@@ -465,10 +485,12 @@ def intersect_p(geom: Geometry, rays, sort: bool = True):
     _lanes(geom, "any", rays)
     if geom.alt_kind:
         return _ALT_WALKS[geom.alt_kind].intersect_p(geom.alt, rays)
+    work = _motion_work(geom)
     _, prim, _, _ = tc.intersect_rays(
         geom.packed, geom.perm, geom.world_bound[0], geom.world_bound[1],
         rays.o, rays.d, rays.tmin, rays.tmax, any_hit=True, sort=sort,
-        time=_shutter_time01(geom, rays))
+        time=_shutter_time01(geom, rays), counts=work)
+    _count_work("any", work)
     return prim >= 0
 
 

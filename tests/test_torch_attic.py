@@ -11,7 +11,6 @@ width the walks are the same walk: v3's counters and every ``prim`` must then
 be EQUAL. Kernel against plain version on the card: (t, prim) and counters
 identical.
 """
-import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
@@ -270,8 +269,8 @@ def test_kernel_names(world):
     with pytest.raises(ValueError, match="unknown traversal kernel"):
         tc.intersect_rays(world["bvh"], world["permt"], None, None, *args,
                           sort=False, kernel="v0")
-    moving = dataclasses.replace(
-        world["bvh"], soup16d=torch.zeros_like(world["bvh"].soup16))
+    moving = tc.with_deltas(
+        world["bvh"], torch.zeros_like(world["bvh"].soup16))
     for which in KERNELS:
         t, prim, _, _ = tc.intersect_rays(world["bvh"], world["permt"], None,
                                           None, *args, sort=False,

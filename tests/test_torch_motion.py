@@ -10,6 +10,7 @@ The reference's traversals of the main ray set come from
 ``tools/render_golden.npz`` (``tools/make_render_golden.py``; the ``slow``
 case runs them again).
 """
+import dataclasses
 import os
 import sys
 import types
@@ -68,9 +69,14 @@ def _ref_rays(w, o=None, ts=None):
 def test_build_motion_and_delta_tables_exact(world):
     """``build_motion``, ``pack(deltas=)`` and ``soup16d``: every leaf of the
     port's compiled moving geometry equals the reference's, bit for bit; the
-    reference's per-component delta planes hold the numbers of ``soup16d``."""
+    reference's per-component delta planes hold the numbers of ``soup16d``.
+    The port's own ``wbounds_t`` (``th.PORT_ONLY``), which the reference
+    has no counterpart of, is left out here and held by
+    ``test_motion_boxes_hold_every_lerped_vertex``."""
     host, ref = world["host"], th.np_tree(world["rhost"])
     assert host.has_motion and host.cl.tri_dv0 is not None
+    assert host.packed.wbounds_t.shape == (host.packed.n_wnodes, 96)
+    assert "wbounds_t" not in ref["packed"]
     n = 0
     for path, leaf in th.port_leaves(host).items():
         want = th.ref_leaf(ref, path)
@@ -97,6 +103,8 @@ def test_from_reference_carries_a_moving_scene(world):
     assert geom.has_motion and geom.shutter == (0.0, 1.0)
     assert th.same_bits(geom.packed.soup16d, ref["packed"]["soup16d"])
     assert th.same_bits(geom.cl.tri_dv0, ref["cl"]["tri_dv0"])
+    assert th.same_bits(geom.packed.wbounds_t,
+                        world["host"].packed.wbounds_t)
     moved = st.to_device(geom, "cpu")
     assert torch.is_tensor(moved.packed.soup16d)
     h = st.intersect(moved, _rays(world))
@@ -322,3 +330,183 @@ def test_motion_other_cluster_sizes_match_bruteforce(k, mode):
     sel = closest & bf.hit
     assert torch.equal(fprim[sel], bf.prim[sel])
     np.testing.assert_allclose(ft[sel].numpy(), bf.t[sel].numpy(), rtol=1e-5)
+
+
+def _child_clusters(bvh):
+    """{(wide node, slot): clusters of the child's subtree} from the packed
+    tables (octant 0's push order names each slot's child)."""
+    w = bvh.n_wnodes
+    ent = bvh.worder[:w].numpy()
+    pad = torch.isnan(bvh.wbounds.view(w, 6, 8)[:, 0]).numpy()
+    memo = {}
+
+    def under(ref):
+        if ref < 0:
+            return [-ref - 1]
+        if ref not in memo:
+            memo[ref] = [c for e in ent[ref] if not pad[ref, e & 7]
+                         for c in under(e >> 3)]
+        return memo[ref]
+
+    return {(node, e & 7): under(e >> 3) for node in range(w)
+            for e in ent[node] if not pad[node, e & 7]}
+
+
+def _lerped_boxes(bvh, time):
+    """Every child box lerped to `time` as the motion walk lerps it:
+    (W, 6, 8) for a scalar time, (R, W, 6, 8) for (R,) times."""
+    wbt = bvh.wbounds_t.view(bvh.n_wnodes, 2, 6, 8)
+    return wbt[:, 0] + time[..., None, None, None] * wbt[:, 1]
+
+
+def _lerped_vertices(bvh, time):
+    """(R, C, K, 3 vertices, 3 axes) f32: each triangle's vertices at each
+    of the (R,) times, v0, v0 + e1 and v0 + e2 of the components as the
+    leaf test lerps them."""
+    s = bvh.soup16.view(bvh.n_clusters, bvh.k, 16)
+    sd = bvh.soup16d.view(bvh.n_clusters, bvh.k, 16)
+    tl = time[:, None, None, None]
+    v0, e1, e2 = (s[..., c:c + 3] + tl * sd[..., c:c + 3]
+                  for c in (0, 3, 6))
+    return torch.stack([v0, v0 + e1, v0 + e2], 3)
+
+
+@pytest.mark.parametrize("k", [8, 32, 40])
+def test_motion_boxes_hold_every_lerped_vertex(k):
+    """``wbounds_t``: the box of every wide child, lerped to each of 257
+    times (0 and 1 exactly among them) as the walk lerps it, holds every
+    vertex of its subtree lerped as the leaf test lerps it; along x, where
+    the sphere moves, it is no wider than its subtree's vertices at that
+    time plus 1e-4, and the union box it replaces is wider by the shift."""
+    bvh, _, _, _ = _moving_sphere_packed(k)
+    valid = bvh.soup16[:, 9].contiguous().view(torch.int32).view(
+        bvh.n_clusters, bvh.k) >= 0
+    under = _child_clusters(bvh)
+    wb = bvh.wbounds.view(bvh.n_wnodes, 6, 8)
+    times = torch.linspace(0.0, 1.0, 257)
+    assert times[0] == 0.0 and times[-1] == 1.0
+    box = _lerped_boxes(bvh, times)                 # (T, W, 6, 8)
+    vert = _lerped_vertices(bvh, times)
+    for (node, slot), cls in under.items():
+        p = vert[:, cls][:, valid[cls]].reshape(len(times), -1, 3)
+        lo, hi = box[:, node, 0:3, slot], box[:, node, 3:6, slot]
+        least, most = p.amin(1), p.amax(1)          # (T, 3)
+        assert (lo <= least).all() and (most <= hi).all(), (node, slot)
+        assert (hi[:, 0] - lo[:, 0] <= most[:, 0] - least[:, 0]
+                + 1e-4).all()
+        assert (wb[node, 3, slot] - wb[node, 0, slot] >= (
+            hi[:, 0] - lo[:, 0] + 0.99 * float(SHIFT[0]))).all()
+
+
+def _moving_leaf_children(bvh):
+    """(wide node, slot) of every leaf child whose box moves along x."""
+    w = bvh.n_wnodes
+    ent = bvh.worder[:w].numpy()
+    dx = bvh.wbounds_t.view(w, 2, 6, 8)[:, 1, 0]
+    return [(node, e & 7) for node in range(w) for e in ent[node]
+            if (e >> 3) < 0 and float(dx[node, e & 7]) != 0.0]
+
+
+@pytest.mark.parametrize("k", [8, 32, 40])
+def test_rays_at_moving_cluster_boxes_match_bruteforce(k):
+    """Rays from random origins aimed at the 8 corners and 6 face centres
+    of each moving cluster's box lerped to a random time, the ray's own:
+    the walk's finished t equals the per-ray-time brute force's (rtol
+    1e-5; a ray through a shared vertex may take another of the triangles
+    there) and its occlusion the brute force's hit mask."""
+    bvh, perm, soup, deltas = _moving_sphere_packed(k)
+    rng = np.random.RandomState(60 + k)
+    children = _moving_leaf_children(bvh)
+    assert len(children) >= 4
+    corner = np.asarray([[i & 1, (i >> 1) & 1, (i >> 2) & 1]
+                         for i in range(8)], np.float64)
+    face = np.asarray([[f, 0.5, 0.5] for f in (0, 1)]
+                      + [[0.5, f, 0.5] for f in (0, 1)]
+                      + [[0.5, 0.5, f] for f in (0, 1)])
+    where = np.concatenate([corner, face])
+    aims, ts = [], []
+    for node, slot in children:
+        t = np.float32(rng.rand())
+        box = _lerped_boxes(bvh, torch.tensor(t))[node, :, slot].double()
+        lo, hi = box[0:3].numpy(), box[3:6].numpy()
+        aims.append(lo + where * (hi - lo))
+        ts += [t] * len(where)
+    aim = np.concatenate(aims)
+    n = aim.shape[0]
+    o = aim + 2.5 * _unit(rng.randn(n, 3))
+    d = _unit(aim - o)
+    rays = _rays_of(o.astype(np.float32), d.astype(np.float32),
+                    np.asarray(ts, np.float32), np.full(n, np.inf,
+                                                        np.float32))
+    bf = tv.brute_force_intersect(
+        *(torch.from_numpy(x) for x in soup), rays,
+        deltas=[torch.from_numpy(x) for x in deltas])
+    assert 0.2 < bf.hit.float().mean() < 0.95
+    args = (bvh, rays.o, rays.d, rays.tmin, rays.tmax)
+    t, prim = tc.traverse6(*args, time=rays.time)
+    _, blocked = tc.traverse6(*args, any_hit=True, time=rays.time)
+    assert torch.equal(prim >= 0, bf.hit)
+    assert torch.equal(blocked >= 0, bf.hit)
+    ft, _, _, _ = tc.finish_hits(bvh, perm, rays.o, rays.d, rays.tmin, t,
+                                 prim, time=rays.time)
+    np.testing.assert_allclose(ft[bf.hit].numpy(), bf.t[bf.hit].numpy(),
+                               rtol=1e-5)
+
+
+def _unit(v):
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def _surface_probes(bvh, n, seed):
+    """AO-style probes: each from a point of a random triangle of the
+    moving sphere lerped to a random time, nudged off the surface, in a
+    random direction of the hemisphere of its normal (numpy arrays)."""
+    rng = np.random.RandomState(seed)
+    s = bvh.soup16.numpy().reshape(-1, 16)
+    sd = bvh.soup16d.numpy().reshape(-1, 16)
+    area = np.linalg.norm(np.cross(s[:, 3:6], s[:, 6:9]), axis=-1)
+    real = np.nonzero((s[:, 9].view(np.int32) >= 0) & (area > 1e-9))[0]
+    row = real[rng.randint(len(real), size=n)]
+    ts = rng.rand(n).astype(np.float32)
+    v0, e1, e2 = (s[row, c:c + 3] + ts[:, None] * sd[row, c:c + 3]
+                  for c in (0, 3, 6))
+    u, v = rng.rand(2, n, 1)
+    flip = (u + v) > 1
+    u, v = np.where(flip, 1 - u, u), np.where(flip, 1 - v, v)
+    p = v0 + u * e1 + v * e2
+    ng = _unit(np.cross(e1, e2))
+    ng *= np.sign(np.sum(ng * (p - p.mean(0)), -1, keepdims=True))
+    d = _unit(rng.randn(n, 3))
+    d *= np.sign(np.sum(d * ng, -1, keepdims=True))
+    o = p + 1e-4 * ng
+    return (o.astype(np.float32), d.astype(np.float32), ts,
+            np.full(n, np.inf, np.float32))
+
+
+@pytest.mark.parametrize("k", [8, 32, 40])
+def test_motion_boxes_at_least_halve_the_triangle_tests(k):
+    """The plain walk's ``stats`` on probes leaving the moving sphere and
+    on rays around its swept volume: the boxes lerped to the ray's time
+    test at most half the triangles that the union boxes over the shutter
+    do, for the same hits. The union walk is this walk with every box's
+    delta zero and its open box the union box, so the lerped slab test is
+    bypassed here and not in the code."""
+    bvh, _, _, _ = _moving_sphere_packed(k)
+    w = bvh.n_wnodes
+    union = dataclasses.replace(bvh, wbounds_t=torch.cat(
+        [bvh.wbounds, torch.where(torch.isnan(bvh.wbounds), bvh.wbounds,
+                                  0.0)], 1))
+    for o, d, ts, tmax in (_surface_probes(bvh, 512, seed=70 + k),
+                           _swept_wave(512, seed=80 + k)[:4]):
+        rays = _rays_of(o, d, ts, tmax)
+        args = (rays.o, rays.d, rays.tmin, rays.tmax)
+        for any_hit in (False, True):
+            got, base = {}, {}
+            t, prim = tc.traverse6_plain(bvh, *args, any_hit=any_hit,
+                                         time=rays.time, stats=got)
+            t0, prim0 = tc.traverse6_plain(union, *args, any_hit=any_hit,
+                                           time=rays.time, stats=base)
+            assert torch.equal(prim >= 0, prim0 >= 0)
+            assert 2 * got["tri_tests"] <= base["tri_tests"], (got, base)
+            assert got["node_pops"] <= base["node_pops"]
+    assert w == bvh.wbounds_t.shape[0]

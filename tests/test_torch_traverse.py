@@ -9,7 +9,6 @@ exact tie may pick another triangle; the kernels' raw t is approximate, so
 only finished values are compared); any-hit masks must be equal; packing,
 sort keys and the finish step are exact (same f32 operations).
 """
-import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
@@ -227,8 +226,8 @@ def test_cuda_tensor_never_takes_the_plain_version(world, monkeypatch):
         monkeypatch.setattr(tc, name, boom)
     o, d = th.ray_arrays(8, seed=9)
     rays = _port_rays(o, d)
-    moving = dataclasses.replace(
-        world["bvh_woop"], soup16d=torch.zeros_like(world["bvh"].soup16))
+    moving = tc.with_deltas(
+        world["bvh_woop"], torch.zeros_like(world["bvh"].soup16))
     args = (rays.o, rays.d, rays.tmin, rays.tmax)
     tc.traverse6(world["bvh"], *args)
     tc.traverse6(moving, *args, time=rays.time)
@@ -346,8 +345,8 @@ def test_binary_tree_kernels_raise_by_name(world, which):
     t, prim, _, _ = tc.intersect_rays(world["bvh"], *args, sort=False,
                                       kernel=which)
     assert t.shape == prim.shape == (8,)
-    moving = dataclasses.replace(
-        world["bvh"], soup16d=torch.zeros_like(world["bvh"].soup16))
+    moving = tc.with_deltas(
+        world["bvh"], torch.zeros_like(world["bvh"].soup16))
     with pytest.raises(ValueError, match=f"v6 kernel, not '{which}'"):
         tc.intersect_rays(moving, *args, sort=False, kernel=which,
                           time=rays.time)
@@ -381,8 +380,8 @@ def test_default_kernel_table_routes_waves(world, monkeypatch):
     assert calls == ["traverse5", "traverse6", "traverse7", "traverse6"]
     with pytest.raises(ValueError, match="unknown traversal kernel"):
         run(kernel="v8")
-    moving = dataclasses.replace(
-        world["bvh_woop"], soup16d=torch.zeros_like(world["bvh"].soup16))
+    moving = tc.with_deltas(
+        world["bvh_woop"], torch.zeros_like(world["bvh"].soup16))
     with pytest.raises(ValueError, match="requires the v6 kernel"):
         tc.intersect_rays(moving, world["permt"], None, None, rays.o, rays.d,
                           rays.tmin, rays.tmax, sort=False, time=rays.time)
@@ -660,7 +659,7 @@ def test_new_kernels_match_plain_version_on_the_card(world, kern, mode,
     delta = (0.2 * rng.randn(*packed.soup16.shape)).astype(np.float32)
     delta[:, 9:] = 0.0
     delta[perm < 0] = 0.0
-    bvh = to_device(dataclasses.replace(packed, soup16d=delta), dev)
+    bvh = to_device(tc.with_deltas(packed, delta), dev)
     rays = to_device(_port_rays(o, d, tmax), dev)
     args = (bvh, rays.o, rays.d, rays.tmin, rays.tmax)
     kw = {"any_hit": mode == "any"}
