@@ -12,6 +12,7 @@ least 99 % of pixels within rtol 1e-3 / atol 1e-4, the mean within 1e-3
 relative.
 """
 import dataclasses
+import functools
 import os
 import sys
 import warnings
@@ -133,8 +134,14 @@ def test_torch_operations_are_bounded_by_steps(kind):
     assert h[:50].all()
 
 
-def _box(accelerator):
-    return sb.cornell_box().build(accelerator=accelerator)
+@pytest.fixture(scope="module")
+def box():
+    """The port's compile of the Cornell box under an accelerator ("grid",
+    "kdtree" or "bvh"), compiled once an accelerator for this file."""
+    @functools.cache
+    def build(accelerator):
+        return sb.cornell_box().build(accelerator=accelerator)
+    return build
 
 
 def _camera_rays(n=1024, seed=7):
@@ -147,7 +154,7 @@ def _camera_rays(n=1024, seed=7):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_scene_queries_walk_the_alternate(kind, monkeypatch):
+def test_scene_queries_walk_the_alternate(box, kind, monkeypatch):
     """Through ``scene.types``: no kernel wrapper is called, a closest hit
     is the walk's with the attr rows of its prim (the ids and rows the
     kernel's finish gives on the same hits), ``intersect_pair`` is the split
@@ -156,8 +163,8 @@ def test_scene_queries_walk_the_alternate(kind, monkeypatch):
     shared edge)."""
     calls = []
     monkeypatch.setattr(tc, "traverse6", lambda *a, **k: calls.append(1))
-    scene = st.to_device(_box(kind), "cpu")
-    bvh = st.to_device(_box("bvh"), "cpu")
+    scene = st.to_device(box(kind), "cpu")
+    bvh = st.to_device(box("bvh"), "cpu")
     geom = scene.geometry
     assert geom.alt_kind == kind and bvh.geometry.alt is None
     rays = _camera_rays()
@@ -187,12 +194,12 @@ def test_scene_queries_walk_the_alternate(kind, monkeypatch):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_adapted_scene_carries_the_alternate(kind):
+def test_adapted_scene_carries_the_alternate(box, kind):
     """``from_reference`` carries the reference's alternate array for array,
     and the port's own compile of the same box builds the same one."""
     ref = ref_sb.cornell_box().build(accelerator=kind)
     port = adapt.from_reference(th.np_tree(ref))
-    own = _box(kind)
+    own = box(kind)
     assert port.geometry.alt_kind == own.geometry.alt_kind == kind
     _same_build(port.geometry.alt, ref.geometry.alt)
     _same_build(own.geometry.alt, ref.geometry.alt)

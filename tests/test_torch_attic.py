@@ -234,28 +234,41 @@ def test_the_two_folds_on_a_near_tie(ref_v3_runs, which):
         assert (t.numpy() == 5.0).all()
 
 
-@pytest.mark.parametrize("which", list(KERNELS))
-def test_sorted_route_equals_v6(world, which):
-    """``intersect_rays(kernel=v, sort=True)`` against ``kernel="v6"`` after
-    the finish step, dead lanes and a ragged last packet included."""
+def _route(world, kern, any_hit):
+    """``intersect_rays(kernel=kern, sort=True)`` on a wave with dead lanes
+    and a ragged last packet; returns (its tmax, the result)."""
     n = 4 * 128 + 7
     o, d = th.ray_arrays(n, seed=51)
     rng = np.random.RandomState(52)
     tmax = np.where(rng.rand(n) < 0.3, -1.0, np.inf).astype(np.float32)
     rays = _port_rays(o, d, tmax)
-    run = lambda kern, any_hit: tc.intersect_rays(
+    return tmax, tc.intersect_rays(
         world["bvh"], world["permt"], torch.from_numpy(world["lo"]),
         torch.from_numpy(world["hi"]), rays.o, rays.d, rays.tmin, rays.tmax,
         any_hit=any_hit, sort=True, kernel=kern)
-    t, prim, b1, b2 = run(which, False)
-    t6, prim6, b16, b26 = run("v6", False)
+
+
+@pytest.fixture(scope="module")
+def route_v6(world):
+    """{any_hit: v6's result on ``_route``'s wave}, walked once for every
+    kernel held against it."""
+    return {any_hit: _route(world, "v6", any_hit)[1]
+            for any_hit in (False, True)}
+
+
+@pytest.mark.parametrize("which", list(KERNELS))
+def test_sorted_route_equals_v6(world, route_v6, which):
+    """``intersect_rays(kernel=v, sort=True)`` against ``kernel="v6"`` after
+    the finish step, dead lanes and a ragged last packet included."""
+    tmax, (t, prim, b1, b2) = _route(world, which, False)
+    t6, prim6, b16, b26 = route_v6[False]
     assert torch.equal(prim, prim6)
     assert not (prim >= 0)[torch.from_numpy(tmax) < 0].any()
     hit = prim >= 0
     np.testing.assert_allclose(t[hit].numpy(), t6[hit].numpy(), rtol=1e-5)
     np.testing.assert_allclose(b1.numpy(), b16.numpy(), rtol=1e-4, atol=1e-5)
-    _, occ, _, _ = run(which, True)
-    _, occ6, _, _ = run("v6", True)
+    _, (_, occ, _, _) = _route(world, which, True)
+    _, occ6, _, _ = route_v6[True]
     assert torch.equal(occ >= 0, occ6 >= 0)
 
 

@@ -8,9 +8,11 @@ chunk a band; within rtol 2e-3 / atol 2e-4, the reference's
 ``tests/test_sharding.py`` tolerance, where chunks or wide filters sum in
 another order) and against the reference's sharded images in
 ``tools/mesh_golden.npz`` (``tools/make_mesh_golden.py``; one ``slow`` case
-an image renders them again). Ranks rendezvous through a file under the
-test's own temporary directory.
+an image renders them again). Ranks rendezvous through a file under a
+temporary directory of their own; one spawn of four ranks serves every gloo
+case.
 """
+import functools
 import os
 import sys
 import time
@@ -35,6 +37,8 @@ RTOL, ATOL = 2e-3, 2e-4
 # seconds a spawn of ranks may take: about 8 s alone, a few times that on a
 # loaded host; a rendezvous that hangs is cut here
 SPAWN_DEADLINE_S = 180
+# the gloo cases: (tiles x spp mesh, filter), all run by one spawn of ranks
+GLOO_RUNS = (((4, 1), "box"), ((2, 2), "gaussian"))
 
 
 @pytest.mark.parametrize("width,height,n_tiles", [
@@ -92,6 +96,46 @@ def _setup(name, spp=None, depth=None):
     return scene, cam, smp, li, filt
 
 
+def _camera(name, w, h):
+    from dartray_tpu_torch import cameras
+    from dartray_tpu_torch.core import transform as tr
+    eye, look, fov = golden.CONFIGS[name][1:4]
+    return cameras.perspective(tr.look_at(eye, look, golden.UP), fov, w, h,
+                               device="cpu")
+
+
+@pytest.fixture(scope="module")
+def render_once():
+    """``render`` of the gaussian configuration at (spp, depth, (w, h),
+    filter), rendered once for this file and read by every case that holds
+    a mesh against it."""
+    @functools.cache
+    def render(spp, depth, size, filt):
+        w, h = size
+        scene, _, smp, li, _ = _setup("gaussian", spp, depth)
+        img = rend.render(scene, _camera("gaussian", w, h), smp, li, w, h,
+                          filter_name=filt, device="cpu")
+        img.setflags(write=False)
+        return img
+    return render
+
+
+@pytest.fixture(scope="module")
+def sharded_once():
+    """The one-process ``render_sharded`` image of (configuration, spp,
+    depth, (w, h), filter, mesh shape), rendered once for this file."""
+    @functools.cache
+    def sharded(name, spp, depth, size, filt, shape):
+        w, h = size
+        scene, _, smp, li, _ = _setup(name, spp, depth)
+        img = pm.render_sharded(scene, _camera(name, w, h), smp, li, w, h,
+                                pm.make_device_mesh(*shape),
+                                filter_name=filt, device="cpu")
+        img.setflags(write=False)
+        return img
+    return sharded
+
+
 @pytest.mark.parametrize("shape,spp,depth,size,filt,exact", [
     ((8, 1), 4, 3, (16, 16), "box", True),
     ((4, 1), 2, 2, (16, 16), "box", True),
@@ -100,22 +144,13 @@ def _setup(name, spp=None, depth=None):
     ((2, 2), 4, 3, (16, 16), "box", False),
     ((4, 2), 2, 2, (16, 16), "gaussian", False),
 ])
-def test_one_process_mesh_matches_render(shape, spp, depth, size, filt,
-                                         exact):
+def test_one_process_mesh_matches_render(render_once, sharded_once, shape,
+                                         spp, depth, size, filt, exact):
     """``tests/test_sharding.py``'s scene and cases on the port: the
     one-process mesh against ``render`` of the same samples."""
     w, h = size
-    scene, _, smp, li, _ = _setup("gaussian", spp, depth)
-    from dartray_tpu_torch import cameras
-    from dartray_tpu_torch.core import transform as tr
-    eye, look, fov = golden.CONFIGS["gaussian"][1:4]
-    cam = cameras.perspective(tr.look_at(eye, look, golden.UP), fov, w, h,
-                              device="cpu")
-    ref = rend.render(scene, cam, smp, li, w, h, filter_name=filt,
-                      device="cpu")
-    img = pm.render_sharded(scene, cam, smp, li, w, h,
-                            pm.make_device_mesh(*shape), filter_name=filt,
-                            device="cpu")
+    ref = render_once(spp, depth, size, filt)
+    img = sharded_once("gaussian", spp, depth, size, filt, shape)
     assert img.shape == (h, w, 3) and np.isfinite(img).all()
     if exact:
         np.testing.assert_array_equal(img, ref)
@@ -129,13 +164,13 @@ def mesh_golden():
 
 
 @pytest.mark.parametrize("name", list(golden.CONFIGS))
-def test_one_process_mesh_matches_the_reference_golden(mesh_golden, name):
+def test_one_process_mesh_matches_the_reference_golden(mesh_golden,
+                                                       sharded_once, name):
     """The port's one-process 4 x 2 mesh against the reference's
     ``render_sharded`` of the same configuration."""
-    scene, cam, smp, li, filt = golden.port_setup(name, "cpu")
-    img = pm.render_sharded(scene, cam, smp, li, golden.W, golden.H,
-                            pm.make_device_mesh(*golden.MESH),
-                            filter_name=filt, device="cpu")
+    spp, depth, filt = golden.CONFIGS[name][4:]
+    img = sharded_once(name, spp, depth, (golden.W, golden.H), filt,
+                       golden.MESH)
     np.testing.assert_allclose(img, mesh_golden[f"{name}_img"], rtol=RTOL,
                                atol=ATOL)
 
@@ -148,14 +183,14 @@ def test_mesh_golden_is_the_references(mesh_golden, name):
     assert np.array_equal(got[f"{name}_img"], mesh_golden[f"{name}_img"])
 
 
-def _spawn_ranks(shape, filt, tmp_path):
-    """Spawn the ranks and join them within SPAWN_DEADLINE_S: a rendezvous
-    that never completes fails this test, its ranks terminated, instead of
-    holding the whole run."""
-    world = shape[0] * shape[1]
+def _spawn_ranks(world, runs, out_dir):
+    """Spawn `world` ranks that render each of `runs` in turn and join them
+    within SPAWN_DEADLINE_S: a rendezvous that never completes fails the
+    cases that read them, the ranks terminated, instead of holding the whole
+    run. Returns, for each run, the ranks' outputs in rank order."""
     ctx = torch.multiprocessing.spawn(
-        th.mesh_rank, args=(world, str(tmp_path / "rendezvous"), shape,
-                            "gaussian", filt, str(tmp_path)),
+        th.mesh_rank, args=(world, str(out_dir / "rendezvous"), runs,
+                            "gaussian", str(out_dir)),
         nprocs=world, join=False)
     deadline = time.monotonic() + SPAWN_DEADLINE_S
     try:
@@ -168,23 +203,31 @@ def _spawn_ranks(shape, filt, tmp_path):
             if p.is_alive():
                 p.terminate()
             p.join(10)
-    return [np.load(tmp_path / f"rank{r}.npz") for r in range(world)]
+    return [[np.load(out_dir / f"rank{r}_{i}.npz") for r in range(world)]
+            for i in range(len(runs))]
 
 
-@pytest.mark.parametrize("shape,filt", [((4, 1), "box"),
-                                        ((2, 2), "gaussian")])
-def test_gloo_ranks_match_render(tmp_path, shape, filt):
+@pytest.fixture(scope="module")
+def gloo_outs(tmp_path_factory):
+    """{(shape, filter): the ranks' outputs} of every gloo case, from one
+    spawn of four ranks: the cases share its start-up and rendezvous."""
+    world, = {shape[0] * shape[1] for shape, _ in GLOO_RUNS}
+    outs = _spawn_ranks(world, GLOO_RUNS, tmp_path_factory.mktemp("gloo"))
+    return dict(zip(GLOO_RUNS, outs))
+
+
+@pytest.mark.parametrize("shape,filt", GLOO_RUNS)
+def test_gloo_ranks_match_render(gloo_outs, render_once, shape, filt):
     """Spawned CPU ranks over gloo, each rendering its one cell: every
     rank's image equals ``render``'s (bit for bit with the box filter and
     one chunk, within tolerance otherwise). Known behaviour ai: the ranks'
     composed film sums the spp axis twice, so its weights are n_spp times
     the one-process mesh's. Known behaviour aj: a mesh of fewer cells than
     ranks, or of more, is refused."""
-    outs = _spawn_ranks(shape, filt, tmp_path)
+    outs = gloo_outs[shape, filt]
     scene, cam, smp, li, _ = golden.port_setup("gaussian", "cpu")
     w, h = golden.W, golden.H
-    ref = rend.render(scene, cam, smp, li, w, h, filter_name=filt,
-                      device="cpu")
+    ref = render_once(*golden.CONFIGS["gaussian"][4:6], (w, h), filt)
     one_pixels, _ = pm.sharded_film(scene, cam, smp, li, w, h,
                                     pm.make_device_mesh(*shape),
                                     filter_name=filt, device="cpu")

@@ -77,8 +77,10 @@ def _job(name="mlt", text=None):
                         log=QUIET, device="cpu")
 
 
-def _ref_job(name="mlt"):
-    return ref_parser.parse(golden.variant_text(name),
+@pytest.fixture(scope="module")
+def rjob():
+    """The reference's parse of the "mlt" variant, made once for the file."""
+    return ref_parser.parse(golden.variant_text("mlt"),
                             resolver=ref_res.Resolver([golden.SCENES]),
                             log=QUIET)
 
@@ -121,11 +123,10 @@ def test_mutate_small_equals_the_reference():
     assert (got.numpy() >= 0).all() and (got.numpy() < 1).all()
 
 
-def test_current_state_position_equals_radiance_for():
+def test_current_state_position_equals_radiance_for(rjob):
     """The step reads the current state's image position from u; the
     reference evaluates the radiance of that state again for it: the same
     float32 values, bit for bit."""
-    rjob = _ref_job()
     u = golden.path_l_u(256)
     _, xy = ref_mlt._radiance_for(
         ref_st.to_device(rjob.scene), rjob.camera, rjob.width, rjob.height,
@@ -157,11 +158,10 @@ def test_path_l_matches_the_golden(ref, monkeypatch):
     assert close.mean() >= 0.999, (close.mean(), np.abs(got - want).max())
 
 
-def test_path_skip_direct_matches_the_reference():
+def test_path_skip_direct_matches_the_reference(rjob):
     """path.li with skip_direct at depth 2 on 16 camera rays of
     scenes/prt.pbrt (the glass sphere gives specular prefixes)."""
     job = _job()
-    rjob = _ref_job()
     px = torch.arange(N, dtype=torch.int32) * 7 % job.width
     py = torch.arange(N, dtype=torch.int32) * 3 % job.height + 6
     out = []

@@ -24,9 +24,17 @@ from dartray_tpu_torch.accel import native
 
 import torchhelp as th
 
+# seconds the six processes have to start and get ready (past it they are
+# let go all the same), and then to build and report: the whole test takes
+# about 9 s on a host loaded by a whole test run with an empty compile cache.
+# A worker that is never let go gives up after GO_DEADLINE_S.
+READY_DEADLINE_S = 60
+RUN_DEADLINE_S = 120
+GO_DEADLINE_S = READY_DEADLINE_S + RUN_DEADLINE_S
+
 WORKER = r"""
 import importlib.util, os, sys, time
-root, pkg, tag = sys.argv[1:4]
+root, pkg, tag, wait_s = sys.argv[1:5]
 sys.path.insert(0, root)
 import numpy as np
 spec = importlib.util.spec_from_file_location(
@@ -42,7 +50,10 @@ v0 = rng.randn(300, 3).astype(np.float32)
 e1 = (rng.randn(300, 3) * 0.3).astype(np.float32)
 e2 = (rng.randn(300, 3) * 0.3).astype(np.float32)
 open(os.path.join(pkg, "ready." + tag), "w").close()
+deadline = time.monotonic() + float(wait_s)
 while not os.path.exists(os.path.join(pkg, "go")):
+    if time.monotonic() > deadline:
+        sys.exit("never let go")
     time.sleep(0.002)
 cluster.build(v0, e1, e2)
 print(mod.LAST_BUILDER)
@@ -61,17 +72,20 @@ def test_six_processes_on_a_fresh_copy_all_get_the_native_builder(
         shutil.copy(os.path.join(src, name), pkg / name)
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", WORKER, th.ROOT, str(pkg), str(i)],
+        [sys.executable, "-c", WORKER, th.ROOT, str(pkg), str(i),
+         str(GO_DEADLINE_S)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
         for i in range(6)]
     try:
-        deadline = time.time() + 15
+        deadline = time.monotonic() + READY_DEADLINE_S
         while (len(list(pkg.glob("ready.*"))) < 6
-               and time.time() < deadline
+               and time.monotonic() < deadline
                and all(p.poll() is None for p in procs)):
             time.sleep(0.01)
         (pkg / "go").touch()
-        outs = [p.communicate(timeout=15) for p in procs]
+        deadline = time.monotonic() + RUN_DEADLINE_S
+        outs = [p.communicate(
+            timeout=max(deadline - time.monotonic(), 0.0)) for p in procs]
     finally:
         for p in procs:
             p.kill()

@@ -70,8 +70,11 @@ def _job(name="diffuseprt", text=None):
                         log=QUIET, device="cpu")
 
 
-def _ref_scene(name="diffuseprt"):
-    rjob = ref_parser.parse(golden.variant_text(name),
+@pytest.fixture(scope="module")
+def ref_scene():
+    """The reference's device scene of the "diffuseprt" variant, parsed once
+    for the file."""
+    rjob = ref_parser.parse(golden.variant_text("diffuseprt"),
                             resolver=ref_res.Resolver([golden.SCENES]),
                             log=QUIET)
     return ref_st.to_device(rjob.scene)
@@ -167,7 +170,7 @@ def test_incident_radiance_matches_the_golden(ref, monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["diffuse", "glossy"])
-def test_transfer_matches_the_reference(kind, ref, monkeypatch):
+def test_transfer_matches_the_reference(kind, ref, ref_scene, monkeypatch):
     """diffuse_li / glossy_li at 8 samples on 16 camera hits over the
     golden c_in, LANE_BUDGET cut to 48 (3 sample indices a launch): the
     camera's closest-hit launch and ceil(8 / 3) any-hit launches."""
@@ -185,7 +188,7 @@ def test_transfer_matches_the_reference(kind, ref, monkeypatch):
     rcls, rli = ((ref_prt.DiffusePRTIntegrator, ref_prt.diffuse_li)
                  if kind == "diffuse"
                  else (ref_prt.GlossyPRTIntegrator, ref_prt.glossy_li))
-    want = th.n3(rli(rcls(lmax=4, n_samples=8), _ref_scene(), _ref_rays(rays),
+    want = th.n3(rli(rcls(lmax=4, n_samples=8), ref_scene, _ref_rays(rays),
                      None, None, jnp.asarray(c_in)))
     assert (want > 0).any(1).sum() >= N // 2
     np.testing.assert_allclose(L, want, rtol=RTOL, atol=ATOL)
@@ -217,7 +220,7 @@ def test_probe_lookup_matches_the_reference():
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
-def test_probes_li_matches_the_reference():
+def test_probes_li_matches_the_reference(ref_scene):
     """probes_li on 16 camera hits of scenes/prt.pbrt over a seeded grid
     (lmax 2)."""
     port, refp = _seeded_probes()
@@ -227,7 +230,7 @@ def test_probes_li_matches_the_reference():
                             st.to_device(job.scene, "cpu"), rays, None, sctx,
                             port))
     want = th.n3(ref_prt.probes_li(ref_prt.UseProbesIntegrator(lmax=2),
-                                   _ref_scene(), _ref_rays(rays), None, None,
+                                   ref_scene, _ref_rays(rays), None, None,
                                    refp))
     assert (want > 0).any(1).mean() > 0.5
     np.testing.assert_allclose(L, want, rtol=RTOL, atol=ATOL)

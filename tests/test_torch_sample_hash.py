@@ -37,6 +37,10 @@ torch.set_num_threads(1)
 
 CUDA = SimpleNamespace(device=torch.device("cuda"))   # lanes on a card
 CPU = SimpleNamespace(device=torch.device("cpu"))
+# seconds the host compile of the kernel source may take (0.4 s on a host
+# loaded by a whole test run); a compiler that hangs fails the file's host
+# cases here
+GXX_DEADLINE_S = 120
 
 # every sampler the kernel draws, as (name, sampler); seeds 0 and 3 and one
 # past 2**31
@@ -226,7 +230,8 @@ def host_kernel(tmp_path_factory):
     cpp, so = d / "sample_hash_host.cpp", d / "libsample_hash_host.so"
     cpp.write_text(src)
     subprocess.run([gxx, "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                    "-o", str(so), str(cpp)], check=True)
+                    "-o", str(so), str(cpp)], check=True,
+                   timeout=GXX_DEADLINE_S)
     lib = ctypes.CDLL(str(so))
     sc.bind(lib)
     return lib

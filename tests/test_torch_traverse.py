@@ -10,6 +10,8 @@ only finished values are compared); any-hit masks must be equal; packing,
 sort keys and the finish step are exact (same f32 operations).
 """
 
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -146,26 +148,39 @@ def test_finish_hits_rows_exact(world):
                                        err_msg=name)
 
 
+@pytest.fixture(scope="module")
+def brute(world):
+    """The brute-force answers for the N_RAYS rays of a seed, computed once
+    a seed: the port's own (which shares no code with the walk) and the
+    reference's hit mask (to hold the oracle itself)."""
+    @functools.cache
+    def answers(seed):
+        o, d = th.ray_arrays(N_RAYS, seed=seed)
+        bf = tv.brute_force_intersect(th.t3(world["v0"]), th.t3(world["e1"]),
+                                      th.t3(world["e2"]), _port_rays(o, d))
+        rbf = ref_tv.brute_force_intersect(
+            jnp.asarray(world["v0"]), jnp.asarray(world["e1"]),
+            jnp.asarray(world["e2"]), _ref_rays(o, d))
+        return bf, np.asarray(rbf.hit)
+    return answers
+
+
 @pytest.mark.parametrize("any_hit,sort", [(False, False), (False, True),
                                           (True, False), (True, True)])
-def test_intersect_rays_matches_reference_and_bruteforce(world, any_hit,
-                                                         sort):
-    o, d = th.ray_arrays(N_RAYS, seed=4 if any_hit else 1)
+def test_intersect_rays_matches_reference_and_bruteforce(world, brute,
+                                                         any_hit, sort):
+    seed = 4 if any_hit else 1
+    o, d = th.ray_arrays(N_RAYS, seed=seed)
     rays = _port_rays(o, d)
     t, prim, b1, b2 = tc.intersect_rays(
         world["bvh"], world["permt"], torch.from_numpy(world["lo"]),
         torch.from_numpy(world["hi"]), rays.o, rays.d, rays.tmin, rays.tmax,
         any_hit=any_hit, sort=sort)
     t, prim = t.numpy(), prim.numpy()
-    # (b) the port's own brute force, which shares no code with the walk
-    bf = tv.brute_force_intersect(th.t3(world["v0"]), th.t3(world["e1"]),
-                                  th.t3(world["e2"]), rays)
-    # and the reference's brute force, to hold the oracle itself
+    # (b) brute force, the port's held against the reference's
+    bf, rbf_hit = brute(seed)
+    assert (bf.hit.numpy() == rbf_hit).all()
     rrays = _ref_rays(o, d)
-    rbf = ref_tv.brute_force_intersect(
-        jnp.asarray(world["v0"]), jnp.asarray(world["e1"]),
-        jnp.asarray(world["e2"]), rrays)
-    assert (bf.hit.numpy() == np.asarray(rbf.hit)).all()
     # (a) the reference's Pallas kernel, interpreted, same packed scene
     rt, rprim, _, _ = tp.intersect_rays(
         world["rpacked"], jnp.asarray(world["rperm"]),
@@ -268,22 +283,22 @@ def test_woop_pack_exact(world):
 
 @pytest.mark.parametrize("which,any_hit", [("v5", False), ("v5", True),
                                            ("v7", False), ("v7", True)])
-def test_kernel_choice_matches_reference_and_bruteforce(world, which,
+def test_kernel_choice_matches_reference_and_bruteforce(world, brute, which,
                                                         any_hit):
     """``intersect_rays(kernel=)``: the packet walks' plain versions against
     brute force (the reference's own tolerances for these kernels) and
     against the reference's kernel of the same name, interpreted, on the
     same packed scene. The two packages walk packets of different widths in
     different orders, so only finished values are compared."""
-    o, d = th.ray_arrays(N_RAYS, seed=4 if any_hit else 1)
+    seed = 4 if any_hit else 1
+    o, d = th.ray_arrays(N_RAYS, seed=seed)
     rays, rrays = _port_rays(o, d), _ref_rays(o, d)
     t, prim, _, _ = tc.intersect_rays(
         world["bvh_woop"], world["permt"], torch.from_numpy(world["lo"]),
         torch.from_numpy(world["hi"]), rays.o, rays.d, rays.tmin, rays.tmax,
         any_hit=any_hit, sort=False, kernel=which)
     t, prim = t.numpy(), prim.numpy()
-    bf = tv.brute_force_intersect(th.t3(world["v0"]), th.t3(world["e1"]),
-                                  th.t3(world["e2"]), rays)
+    bf, _ = brute(seed)
     rt, rprim, _, _ = tp.intersect_rays(
         world["rpacked_woop"], jnp.asarray(world["rperm"]),
         jnp.asarray(world["lo"]), jnp.asarray(world["hi"]),

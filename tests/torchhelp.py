@@ -275,12 +275,13 @@ def hold_rays_independent(walk, n, seed):
     assert np.isposinf(t[~live]).all() and (p[~live] == -1).all()
 
 
-def mesh_rank(rank, world, init_file, shape, name, filter_name, out_dir):
+def mesh_rank(rank, world, init_file, runs, name, out_dir):
     """One spawned CPU rank of a gloo process group (rendezvous through the
-    file `init_file`): ``render_sharded`` and ``sharded_film`` of
-    ``tools/make_mesh_golden.py``'s configuration `name` with `filter_name`
-    over a `shape` mesh, saved to `out_dir`/rank<rank>.npz as img, pixels
-    and the mesh shapes that ``make_device_mesh`` refused (raised)."""
+    file `init_file`): for each (mesh shape, filter name) of `runs` in turn,
+    ``render_sharded`` and ``sharded_film`` of ``tools/make_mesh_golden.py``'s
+    configuration `name`, saved to `out_dir`/rank<rank>_<i>.npz (i its place
+    in `runs`) as img, pixels and the mesh shapes that ``make_device_mesh``
+    refused (raised)."""
     torch.set_num_threads(1)
     import torch.distributed as dist
     sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -295,13 +296,15 @@ def mesh_rank(rank, world, init_file, shape, name, filter_name, out_dir):
                 pm.make_device_mesh(*cells)
             except ValueError:
                 raised.append(cells)
-        scene, cam, smp, li, _ = golden.port_setup(name, "cpu")
-        m = pm.make_device_mesh(*shape)
-        img = pm.render_sharded(scene, cam, smp, li, golden.W, golden.H, m,
-                                filter_name=filter_name, device="cpu")
-        pixels, _ = pm.sharded_film(scene, cam, smp, li, golden.W, golden.H,
+        for i, (shape, filter_name) in enumerate(runs):
+            scene, cam, smp, li, _ = golden.port_setup(name, "cpu")
+            m = pm.make_device_mesh(*shape)
+            img = pm.render_sharded(scene, cam, smp, li, golden.W, golden.H,
                                     m, filter_name=filter_name, device="cpu")
-        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), img=img,
-                 pixels=pixels, raised=np.asarray(raised))
+            pixels, _ = pm.sharded_film(scene, cam, smp, li, golden.W,
+                                        golden.H, m, filter_name=filter_name,
+                                        device="cpu")
+            np.savez(os.path.join(out_dir, f"rank{rank}_{i}.npz"), img=img,
+                     pixels=pixels, raised=np.asarray(raised))
     finally:
         dist.destroy_process_group()
